@@ -1,0 +1,78 @@
+"""Model architecture config (copy of ``repro.configs.base.ModelConfig``).
+
+Only the fields the dense serving path reads are kept (the MoE, hybrid,
+RWKV, enc-dec and VLM fields arrive with their families, the long-context
+window with the long-context mode); ``reduced()`` produces the same
+smoke-test variant as the reference so that tests can build matching
+configs on both sides.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description. All sizes are exact per the published
+    config; padding (vocab) happens inside the model, never here."""
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int                   # query heads (0 for attn-free)
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+
+    # MLP
+    activation: str = "silu"         # silu | gelu | relu2
+    gated_mlp: bool = True
+
+    # attention
+    rope_theta: float = 10_000.0
+    window_size: Optional[int] = None       # sliding window (SWA archs)
+
+    norm_eps: float = 1e-5
+    source: str = ""                        # citation
+
+    # ---- derived ----
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 128 (same as the reference)."""
+        return _round_up(self.vocab_size, 128)
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """bf16 K+V bytes per cached token (dense layers)."""
+        if self.attn_free:
+            return 0
+        return self.num_layers * self.num_kv_heads * self.head_dim * 2 * 2
+
+    def reduced(self, num_layers: int = 2, d_model: int = 256) -> "ModelConfig":
+        """Smoke-test variant: same family/feature-set, tiny dims."""
+        heads = 0 if self.attn_free else max(2, min(4, self.num_heads))
+        head_dim = d_model // max(heads, 4)
+        kv = 0 if self.attn_free else max(1, min(self.num_kv_heads, heads))
+        changes = dict(
+            num_layers=num_layers,
+            d_model=d_model,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=head_dim,
+            d_ff=d_model * 2,
+            vocab_size=512,
+            window_size=64 if self.window_size else None,
+        )
+        return dataclasses.replace(self, **changes)

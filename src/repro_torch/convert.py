@@ -1,0 +1,38 @@
+"""Parameters of the JAX package, as numpy arrays, into the port's layout.
+
+``params_from_jax`` takes the pytree that ``repro.models.transformer
+.init_params`` builds, already turned into numpy arrays (for instance with
+``jax.tree.map(np.asarray, params)`` on the caller's side; this package
+never imports jax), and returns the same nested dict of torch tensors. The
+stacked leading-``L`` layout and the ``x @ w`` orientation are kept, so both
+packages compute the same function on the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _to_torch(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+    # via fp32: numpy has no native bfloat16, and bf16 -> fp32 -> bf16 is exact
+    arr = np.array(tree, dtype=np.float32, order="C")     # a writable copy
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
+                    dtype=torch.float32):
+    """Convert a dense-family parameter pytree (numpy leaves) to torch."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.family!r} parameters are not ported yet")
+    expected = {"embed", "final_ln", "unembed", "layers"}
+    if set(np_params) != expected:
+        raise ValueError(f"dense params have keys {sorted(expected)}; got "
+                         f"{sorted(np_params)}")
+    L = np.shape(np_params["layers"]["attn"]["wq"])[0]
+    if L != cfg.num_layers:
+        raise ValueError(f"params stack {L} layers; config has {cfg.num_layers}")
+    return _to_torch(np_params, device, dtype)

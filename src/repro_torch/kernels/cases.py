@@ -1,0 +1,147 @@
+"""Shapes at which the attention kernels are held against their plain
+versions, and the check itself.
+
+One table for every check: ``tests/test_torch_kernels.py`` runs the plain
+versions against the JAX package on the CPU at these shapes,
+``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run the CUDA kernels
+against the plain versions on the card through ``check_flash`` and
+``check_decode``.
+
+Flash cases are ``(B, H, KV, Sq, Sk, hd, q_offset, window, causal)``.
+Decode cases are ``(B, H, KV, W, hd, nvalid, start)``: the valid slots are
+``start, start + 1, ... (mod W)``, ``nvalid`` of them, as a ring cache holds
+a window of positions.
+
+Tolerance: ``|out - want| <= tol * (scale + |want|)`` elementwise, with
+``tol`` 2e-5 in fp32 and 2e-2 in bf16 (those of ``tests/test_kernels.py``)
+and ``scale = min(1, max |want|)``. For unit-scale outputs that is the
+reference's ``atol = rtol = tol``. An attention output averages many values
+of V, so at long ``Sk`` its largest entries are far below 1 (about 0.15 at
+the main path's shapes), and a fixed ``atol`` of 2e-2 would pass a bf16
+fault of several percent; the absolute term therefore shrinks with the
+output's own scale. Kernel and plain version both accumulate in fp32 and
+round once, so in bf16 they differ by about one bf16 ulp (2**-8 of the
+value), well inside ``2e-2 * |want|``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops, ref
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+FLASH_SWEEP = [                           # the sweep of tests/test_kernels.py:23-28
+    (1, 4, 4, 32, 32, 32, 0, None, True),       # MHA causal
+    (2, 4, 2, 64, 128, 32, 64, None, True),     # GQA + prefix offset
+    (1, 8, 1, 32, 64, 16, 32, 24, True),        # MQA + sliding window
+    (2, 6, 2, 96, 96, 64, 0, None, True),       # non-pow2 heads (G=3)
+]
+# ragged lengths, engine-like suffixes, odd head widths (not Pallas-shaped)
+FLASH_RAGGED = [
+    (1, 8, 2, 37, 141, 32, 104, 24, True),
+    (1, 32, 4, 37, 141, 128, 104, 24, True),    # the same at yi-6b's heads
+    (1, 4, 2, 9, 29, 80, 20, None, True),       # danube-like hd=80, 9-token suffix
+    (2, 6, 3, 20, 20, 48, 0, None, True),
+    (1, 4, 1, 1, 70, 16, 69, None, True),       # one query row
+    (1, 2, 2, 5, 5, 7, 0, None, True),          # odd hd
+    (1, 2, 1, 3, 300, 256, 297, None, True),    # widest head the kernel takes
+    (1, 4, 2, 20, 33, 32, 0, None, False),      # not causal
+]
+# rows whose causal/window band holds no key: the reference gives them the
+# mean of V over all Sk keys
+FLASH_EMPTY_BAND = [
+    (1, 4, 2, 4, 6, 32, 10, 2, True),           # every row's band is empty
+    (1, 8, 2, 12, 20, 16, 16, 4, True),         # one block: rows 0-6 see keys, 7-11 none
+    (2, 6, 3, 40, 30, 64, 24, 6, True),         # a mixed block and an all-empty block
+    (1, 4, 2, 12, 20, 32, 20, 8, False),        # not causal: rows 7-11 see none
+    (1, 4, 4, 8, 16, 16, 0, 0, True),           # window 0: no row sees a key
+]
+DECODE_SWEEP = [                          # the sweep of tests/test_kernels.py:42-46
+    (1, 4, 4, 64, 32, 64, 0),
+    (2, 8, 2, 256, 64, 100, 0),
+    (1, 4, 1, 128, 16, 1, 0),
+]
+DECODE_RAGGED = [
+    (2, 6, 2, 77, 80, 40, 60),            # no tile divides W; hd=80; wraps the ring
+    (1, 4, 2, 50, 8, 0, 0),               # no valid slot: mean of V over W
+    (1, 8, 2, 300, 32, 0, 0),             # no valid slot, W over several chunks
+    (1, 32, 4, 1000, 128, 700, 900),      # yi-6b's heads, a wrapped window
+]
+
+
+def flash_visible(case):
+    """(visible (query, key) pairs, rows whose band is empty) of a case."""
+    B, H, KV, Sq, Sk, hd, off, win, causal = case
+    pairs = empty = 0
+    for i in range(Sq):
+        pos = off + i
+        lo = 0 if win is None else max(0, pos - win + 1)
+        hi = min(Sk - 1, pos) if causal else Sk - 1
+        if lo > hi:
+            empty += 1
+        else:
+            pairs += hi - lo + 1
+    return pairs, empty
+
+
+def decode_valid(W: int, nvalid: int, start: int) -> np.ndarray:
+    """int32 (W,): 1 on the ``nvalid`` slots from ``start`` around the ring."""
+    valid = np.zeros(W, np.int32)
+    valid[(start + np.arange(nvalid)) % W] = 1
+    return valid
+
+
+def _randn(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def flash_inputs(case, dtype, device, seed=0):
+    """q (B,H,Sq,hd), k, v (B,KV,Sk,hd), drawn with numpy from ``seed``."""
+    B, H, KV, Sq, Sk, hd = case[:6]
+    return [torch.from_numpy(x).to(device=device, dtype=dtype)
+            for x in _randn(seed, (B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd))]
+
+
+def decode_inputs(case, dtype, device, seed=0):
+    """q (B,H,hd), caches as the model holds them, (B,W,KV,hd), passed as
+    permuted (B,KV,W,hd) views, and ``valid``."""
+    B, H, KV, W, hd, nvalid, start = case
+    q, kc, vc = (torch.from_numpy(x).to(device=device, dtype=dtype)
+                 for x in _randn(seed, (B, H, hd), (B, W, KV, hd), (B, W, KV, hd)))
+    valid = torch.from_numpy(decode_valid(W, nvalid, start)).to(device)
+    return q, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), valid
+
+
+def held(name, case, out, want) -> float:
+    """max |out - want|; raises unless ``out`` is within the tolerance above."""
+    if out.shape != want.shape or out.dtype != want.dtype:
+        raise AssertionError(f"{name} {case}: {out.dtype} {tuple(out.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    a, b = out.float(), want.float()
+    err = (a - b).abs()
+    tol = TOL[want.dtype]
+    scale = min(1.0, float(b.abs().max()))
+    if not bool(torch.isfinite(a).all()) or bool((err > tol * (scale + b.abs())).any()):
+        raise AssertionError(f"{name} {case} {want.dtype}: max |err| "
+                             f"{float(err.max()):.3e}, output scale {scale:.3e}")
+    return float(err.max())
+
+
+def check_flash(case, dtype, device, seed=0):
+    """The kernel against its plain version on ``case``; (max |err|, inputs)."""
+    q, k, v = flash_inputs(case, dtype, device, seed)
+    off, win, causal = case[6:]
+    out = ops.flash_attention(q, k, v, q_offset=off, window=win, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, q_offset=off, window=win, causal=causal)
+    return held("flash_attention", case, out, want), (q, k, v)
+
+
+def check_decode(case, dtype, device, seed=0):
+    """The kernel against its plain version on ``case``; (max |err|, inputs)."""
+    q, k, v, valid = decode_inputs(case, dtype, device, seed)
+    out = ops.decode_attention(q, k, v, valid)
+    want = ref.decode_attention_ref(q, k, v, valid)
+    return held("decode_attention", case, out, want), (q, k, v, valid)

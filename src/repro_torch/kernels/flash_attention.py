@@ -1,0 +1,103 @@
+"""Prefix-aware GQA flash attention: wrapper of ``csrc/flash_attention.cu``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention`` / ``_flash_kernel``), the suffix prefill of a cache hit:
+queries at absolute positions ``q_offset + i`` attend to cached-prefix plus
+suffix keys, causal, with an optional sliding window.
+
+On the H100 the main path's call (32 query heads of 512 suffix tokens
+against 2,560 keys, ``hd=128``) is bound by operations, not bytes. The CUDA
+kernel reads each K/V tile once for the G query heads that share it, skips
+key tiles outside the causal/window band (about half of the tiles of a
+cold causal prefill) unless a row of the block sees no key at all, and masks
+ragged tails in-kernel; this first version does its products in fp32 FMA on
+the CUDA cores, not on the tensor cores.
+
+It computes the reference's function on every input, including rows whose
+band is empty (a window that ends before the keys begin): those get the mean
+of V over all ``Sk`` keys, as ``repro.kernels.ref.flash_attention_ref`` and
+the Pallas kernel give them.
+
+A tensor on the CPU goes to the plain version (``ref.flash_attention_ref``);
+a CUDA tensor launches the kernel or raises. ``flash_attention.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+MAX_GROUP = 64          # query heads per kv head that one block packs
+INT32_MAX = 2**31 - 1
+
+
+def _check(q, k, v, q_offset, window):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention wants q (B,H,Sq,hd), k/v (B,KV,Sk,hd); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    KV = k.shape[1]
+    if KV == 0 or H % KV:
+        raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: want "
+                        "float32 or bfloat16 for all three")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
+    # the kernel holds positions in int32: q_offset + Sq and Sk + |window|
+    # must fit
+    if abs(q_offset) + Sq + k.shape[2] + abs(window or 0) > INT32_MAX:
+        raise ValueError(f"q_offset={q_offset}, window={window} out of int32 range")
+
+
+def _launch(q, k, v, q_offset, causal, window):
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM or H // KV > MAX_GROUP:
+        raise ValueError(f"kernel takes hd <= {MAX_HEAD_DIM} and H/KV <= "
+                         f"{MAX_GROUP}; got hd={hd}, H/KV={H // KV}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous; "
+                             f"strides {t.stride()}")
+    out = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, H, KV, Sq, Sk, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(q_offset), int(causal), int(window is not None), int(window or 0),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                    window: Optional[int] = None):
+    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) with H % KV == 0.
+    Returns (B, H, Sq, hd). q_offset: absolute position of q[:, :, 0]."""
+    _check(q, k, v, q_offset, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, q_offset=q_offset,
+                                       causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    return _launch(q, k, v, q_offset, causal, window)
+
+
+flash_attention.launches = 0

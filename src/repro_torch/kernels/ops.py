@@ -1,0 +1,11 @@
+"""Public kernel entry points, under the names of ``repro.kernels.ops``.
+
+The model code calls only these. Each runs its hand-written CUDA kernel for
+a CUDA tensor and its plain PyTorch version for a CPU tensor; there is no
+flag that picks the plain version on the card. ``wkv6`` and ``rglru_scan``
+arrive with the RWKV6 and Griffin slices.
+"""
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+
+__all__ = ["flash_attention", "decode_attention"]

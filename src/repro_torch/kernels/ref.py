@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the attention kernels (kernel layouts).
+
+Twins of ``repro.kernels.ref.flash_attention_ref`` and
+``decode_attention_ref``: same layouts, fp32 internals, the finite mask
+value ``NEG_INF`` so that a fully masked row gives a uniform softmax rather
+than NaN. The wrappers run these for CPU tensors; ``chip_smoke.py`` holds
+the CUDA kernels against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                        window: Optional[int] = None):
+    """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) -> (B,H,Sq,hd)."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, Sq, hd).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * hd ** -0.5
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, valid):
+    """q: (B,H,hd); caches: (B,KV,W,hd); valid: (W,) -> (B,H,hd)."""
+    B, H, hd = q.shape
+    KV, W = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bkwd->bkgw", qg, k_cache.float()) * hd ** -0.5
+    s = torch.where(valid > 0, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bkwd->bkgd", p, v_cache.float())
+    return o.reshape(B, H, hd).to(q.dtype)

@@ -1,0 +1,101 @@
+"""Real-execution serving demo of the port: a two-turn conversation with
+KV-prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
+
+    # full-width yi-6b in bf16 on the card (random weights from seed 0)
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b
+
+    # the reference's reduced demo (2 layers, d_model 128, fp32) on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b \
+        --device cpu --reduced
+
+Turn 1 prefills a context and decodes; turn 2 sends the same context plus
+the generated tokens plus new ones, and must reuse the stored prefix.
+The simulation modes of ``repro.launch.serve`` are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.kvstore import KVStore
+from repro_torch.core.policies import POLICIES
+from repro_torch.models.transformer import init_params
+from repro_torch.serving.realexec import RealExecutionEngine, resolve_device
+
+SEED = 0        # weights (torch.Generator) and prompts (numpy)
+# (context tokens, new tokens in turn 2, decoded tokens per turn, max_len)
+FULL_TURNS = (2048, 504, 8, 4096)
+REDUCED_TURNS = (24, 8, 4, 128)
+
+
+def build_engine(arch: str, *, device=None, reduced: bool = False,
+                 params=None):
+    """(cfg, engine) for ``arch``: full width in bf16 or the reduced demo
+    config in fp32, weights drawn from ``torch.Generator`` seed ``SEED``
+    unless ``params`` are given (an engine over the same weights)."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced(num_layers=2, d_model=128)
+    dtype = torch.float32 if reduced else torch.bfloat16
+    max_len = (REDUCED_TURNS if reduced else FULL_TURNS)[3]
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(gen, cfg, dtype)
+    store = KVStore(64e9, POLICIES["lcs"], max(cfg.kv_bytes_per_token, 1))
+    return cfg, RealExecutionEngine(cfg, params, store, max_len=max_len,
+                                    dtype=dtype, device=dev)
+
+
+def conversation(cfg, reduced: bool):
+    """Turn-1 context and the turn-2 extension, drawn with numpy."""
+    ctx_len, new_len, num_new, _ = REDUCED_TURNS if reduced else FULL_TURNS
+    rng = np.random.default_rng(SEED)
+    ctx = [int(t) for t in rng.integers(0, cfg.vocab_size, size=ctx_len)]
+    extra = [int(t) for t in rng.integers(0, cfg.vocab_size, size=new_len)]
+    return ctx, extra, num_new
+
+
+def two_turns(cfg, eng, reduced: bool):
+    """Run the two-turn conversation; returns (turn-2 prompt, r1, r2)."""
+    ctx, extra, num_new = conversation(cfg, reduced)
+    r1 = eng.generate("conv-0", ctx, num_new=num_new)
+    ctx2 = ctx + r1.tokens + extra
+    r2 = eng.generate("conv-0", ctx2, num_new=num_new)
+    return ctx2, r1, r2
+
+
+def run_real(args):
+    cfg, eng = build_engine(args.arch, device=args.device, reduced=args.reduced)
+    ctx2, r1, r2 = two_turns(cfg, eng, args.reduced)
+    for i, r in ((1, r1), (2, r2)):
+        print(f"turn {i}: computed {r.prefill_tokens_computed} prefill tokens, "
+              f"reused {r.reused_tokens} -> {r.tokens} "
+              f"(prefill {r.prefill_time_s * 1e3:.3f} ms, "
+              f"decode {r.decode_time_s * 1e3:.3f} ms on {eng.device})")
+    if r2.reused_tokens == 0:
+        raise SystemExit("expected a cache hit on turn 2")
+    print("cache hit verified: suffix-only prefill")
+    return r2
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--real", action="store_true",
+                    help="real execution (the only mode of the port)")
+    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true",
+                    help="2 layers, d_model 128, fp32 (the reference's demo)")
+    args = ap.parse_args(argv)
+    if not args.real:
+        ap.error("the port serves --real only; the simulation modes run in "
+                 "the JAX package: python -m repro.launch.serve")
+    run_real(args)
+
+
+if __name__ == "__main__":
+    main()

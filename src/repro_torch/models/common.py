@@ -1,0 +1,139 @@
+"""Shared model components: norms, rotary embeddings, MLPs, GQA attention
+(full sequence and single-token decode against a ring cache).
+
+Port of the dense-path functions of ``repro/models/common.py``, with the
+same layouts: activations ``(B, S, d)``, heads ``(B, S, H, hd)``, caches
+``(B, W, KV, hd)``, weights applied as ``x @ w``. Params are plain dicts of
+tensors, as the reference's pytrees are.
+
+Numerics against the reference:
+
+* ``attention`` and ``decode_attend`` call the attention kernels
+  (``repro_torch.kernels.ops``), which keep the softmax probabilities in
+  fp32 for the P·V product. The reference's jnp path
+  (``repro/models/common.py::_attend``, line 183, and ``decode_attend``,
+  line 233) casts them to ``v.dtype`` first. In fp32 the two agree to
+  rounding (the port is held to 3e-4 on the model); in bf16 they differ by
+  design and the port is held to the kernels' bf16 tolerance.
+* RoPE frequencies and angles are computed in fp32, as at
+  ``common.py:72``, and the rotation is done in fp32 before the cast back.
+* ``activation_fn("gelu")`` is the tanh approximation, which is what
+  ``jax.nn.gelu`` computes by default.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+
+# --------------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------------- #
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * params["scale"].float()).to(dt)
+
+
+# --------------------------------------------------------------------------- #
+# rotary embeddings
+# --------------------------------------------------------------------------- #
+
+def _rope_angles(positions, half: int, theta: float):
+    """positions: (...,) -> (..., half) fp32 angles."""
+    exps = -torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    return positions.float()[..., None] * freqs
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (B, S, H, hd); positions: (S,) or (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    ang = _rope_angles(positions, half, theta)               # (S, half) or (B,S,half)
+    if ang.dim() == 2:
+        ang = ang[None]                                      # (1, S, half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if 2 * half < hd:                                        # odd head_dim tail
+        rot = torch.cat([rot, x[..., 2 * half:].to(rot.dtype)], dim=-1)
+    return rot.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# MLP
+# --------------------------------------------------------------------------- #
+
+def _relu2(x):
+    return torch.square(F.relu(x))
+
+
+def _gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return _gelu_tanh
+    if name == "relu2":
+        return _relu2
+    raise ValueError(name)
+
+
+def mlp(params, x, cfg: ModelConfig):
+    act = activation_fn(cfg.activation)
+    h = act(x @ params["w_up"])
+    if cfg.gated_mlp:
+        h = h * (x @ params["w_gate"])
+    return h @ params["w_down"]
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+
+def attention(q, k, v, *, q_offset: int = 0, window: Optional[int] = None,
+              causal: bool = True):
+    """Full-sequence GQA attention through the flash-attention kernel.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). Returns (B, Sq, H, hd).
+    q_offset: absolute position of q[0] (cached-prefix prefill); key j sits
+    at position j. The reference chunks long query sequences to bound the
+    memory of its score matrix; the kernel never forms that matrix, so the
+    port makes one launch.
+    """
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), q_offset=q_offset,
+                              causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+def decode_attend(q, k_cache, v_cache, kpos, pos: int, *,
+                  window: Optional[int] = None):
+    """Single-token decode attention against a (ring or linear) KV cache.
+
+    q: (B, 1, H, hd); caches: (B, W, KV, hd); kpos: (W,) slot -> absolute
+    position (negative = empty); pos: current position. The reference's mask
+    ``(kpos >= 0) & (kpos <= pos) & window`` becomes the kernel's ``valid``
+    vector, and the caches go to the kernel as permuted views, not copies.
+    """
+    B, _, H, hd = q.shape
+    mask = (kpos >= 0) & (kpos <= pos)
+    if window is not None:
+        mask &= kpos > pos - window
+    out = ops.decode_attention(q[:, 0], k_cache.permute(0, 2, 1, 3),
+                               v_cache.permute(0, 2, 1, 3),
+                               mask.to(torch.int32))
+    return out.reshape(B, 1, H, hd)

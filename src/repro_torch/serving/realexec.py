@@ -1,0 +1,141 @@
+"""Real-execution serving: a PyTorch model behind the GreenCache store.
+
+Port of ``repro/serving/realexec.py`` for the dense family. The paper's
+mechanism, run for real on the card:
+
+1. look the context up in the KV store;
+2. restore the stored prefix K/V;
+3. prefill only the uncached suffix, with flash-attention queries at
+   ``q_offset = prefix_len`` against the restored keys/values;
+4. store the prompt's cache back, so the next turn reuses it;
+5. greedy-decode against the ring cache, one decode-attention launch per
+   layer and token.
+
+One difference from the reference is forced by PyTorch: the reference
+stores the whole cache object as the payload and slices ``[:prefix_len]`` of
+it on a hit, which is safe because JAX arrays are immutable. Here decode
+writes the cache in place, so the payload is a clone of the prompt's first
+``min(n, W)`` slots: exactly the bytes the store accounts for while the
+prompt fits the ring. That slice holds the prefix in order only while the
+ring has not wrapped (the reference assumes the same and would read
+scrambled positions), so a hit whose stored prefix is longer than the cache
+width ``W`` raises.
+
+Recurrent families (state-snapshot caching) arrive with their slices.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.kvstore import KVStore
+from repro_torch.models.transformer import cache_width, decode_step, prefill
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names another device; never falls back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' was asked for and no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclass
+class GenerationResult:
+    tokens: List[int]
+    prefill_tokens_computed: int      # uncached tokens actually prefilled
+    reused_tokens: int
+    prefill_time_s: float
+    decode_time_s: float
+    last_logits: Optional[torch.Tensor] = None   # prefill's last position, fp32
+
+
+class RealExecutionEngine:
+    def __init__(self, cfg: ModelConfig, params, store: KVStore, *,
+                 max_len: int = 512, dtype=torch.float32, device=None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.family!r} serving is not ported yet (ROADMAP.md Queue 1)")
+        self.device = resolve_device(device)
+        embed = params["embed"]
+        if embed.device.type != self.device.type or embed.dtype != dtype:
+            raise ValueError(f"params are {embed.dtype} on {embed.device}; the "
+                             f"engine runs {dtype} on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.store = store
+        self.max_len = max_len
+        self.dtype = dtype
+        self.width = cache_width(cfg, max_len)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _token_ids(self, tokens: List[int]):
+        return torch.tensor(tokens, dtype=torch.long, device=self.device)[None]
+
+    def _argmax(self, logits) -> int:
+        return int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
+
+    # ------------------------------------------------------------------ #
+    @torch.inference_mode()
+    def generate(self, context_key: str, prompt_tokens: List[int],
+                 num_new: int = 8, now: Optional[float] = None
+                 ) -> GenerationResult:
+        """Serve one request: reuse the cached prefix KV for ``context_key``
+        if present, prefill the suffix, then greedy-decode ``num_new``."""
+        n = len(prompt_tokens)
+        now = time.time() if now is None else now
+        entry = self.store.lookup(context_key, n, now)
+        prefix_len = 0
+        prefix_cache = None
+        if entry is not None and entry.payload is not None:
+            plen, pcache = entry.payload
+            if plen <= n:
+                if plen > self.width:
+                    raise ValueError(
+                        f"stored prefix of {plen} tokens exceeds the cache width "
+                        f"{self.width}: its ring has wrapped and no longer holds "
+                        "the prefix in order")
+                prefix_len, prefix_cache = plen, pcache
+
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(self.params, self.cfg,
+                                {"tokens": self._token_ids(prompt_tokens[prefix_len:])},
+                                self.max_len, prefix_cache=prefix_cache,
+                                prefix_len=prefix_len)
+        tok = self._argmax(logits)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+        last_logits = logits[0, -1, :self.cfg.vocab_size].float()
+
+        # store the prompt's cache back (extends the prefix entry): a clone,
+        # because decode below writes ``cache`` in place
+        snapshot = {k: t[:, :, :min(n, self.width)].clone() for k, t in cache.items()}
+        self.store.insert(context_key, n, now, payload=(n, snapshot))
+
+        # greedy decode
+        t1 = time.perf_counter()
+        out = []
+        pos = n
+        for _ in range(num_new):
+            out.append(tok)
+            logits, cache = decode_step(self.params, self.cfg, cache,
+                                        self._token_ids([tok]), pos)
+            pos += 1
+            tok = self._argmax(logits)
+        self._sync()
+        return GenerationResult(
+            tokens=out,
+            prefill_tokens_computed=n - prefix_len,
+            reused_tokens=prefix_len,
+            prefill_time_s=t_prefill,
+            decode_time_s=time.perf_counter() - t1,
+            last_logits=last_logits)

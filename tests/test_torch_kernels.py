@@ -1,0 +1,263 @@
+"""Attention kernels of the PyTorch port against the JAX package.
+
+On the CPU the port's wrappers run their plain versions; they are held
+against ``repro.kernels.ops`` (the Pallas kernels in interpret mode, as
+tests/test_kernels.py runs them) on that file's sweeps, and against
+``repro.kernels.ref`` on the ragged, hd=80 and empty-band shapes that the
+Pallas kernel does not take. The CUDA kernels are held against the plain
+versions on the card by tests/test_torch_gpu.py and chip_smoke.py, through
+the same case tables (``repro_torch.kernels.cases``).
+"""
+import ast
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import build, cases, ops
+from repro_torch.kernels.cases import (DECODE_RAGGED, DECODE_SWEEP, FLASH_EMPTY_BAND,
+                                       FLASH_RAGGED, FLASH_SWEEP)
+from repro_torch.kernels.decode_attention import TILE, split_plan
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _data(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _pair(x, dtype):
+    """The same numbers on both sides (both round fp32 -> bf16 to nearest)."""
+    return jnp.asarray(x).astype(JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+
+
+def _close(a, b, dtype):
+    np.testing.assert_allclose(np.asarray(a, np.float32), b.float().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _flash_pairs(case, dtype, seed):
+    B, H, KV, Sq, Sk, hd = case[:6]
+    return [_pair(x, dtype) for x in
+            _data(seed, (B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd))]
+
+
+# --------------------------------------------------------------------------- #
+# CPU: the port's plain versions against the JAX package
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_SWEEP)
+def test_flash_attention_matches_pallas(dtype, case):
+    (jq, tq), (jk, tk), (jv, tv) = _flash_pairs(case, dtype, seed=0)
+    off, win, causal = case[6:]
+    a = jops.flash_attention(jq, jk, jv, q_offset=off, window=win, causal=causal)
+    b = ops.flash_attention(tq, tk, tv, q_offset=off, window=win, causal=causal)
+    assert b.dtype == TDT[dtype] and b.shape == tq.shape
+    _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_RAGGED + FLASH_EMPTY_BAND)
+def test_flash_attention_ragged_and_empty_band_match_reference(dtype, case):
+    (jq, tq), (jk, tk), (jv, tv) = _flash_pairs(case, dtype, seed=1)
+    off, win, causal = case[6:]
+    a = jref.flash_attention_ref(jq, jk, jv, q_offset=off, window=win, causal=causal)
+    b = ops.flash_attention(tq, tk, tv, q_offset=off, window=win, causal=causal)
+    _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("case", FLASH_EMPTY_BAND)
+def test_flash_empty_band_rows_average_all_keys(case):
+    """A row that sees no key gets the mean of V over all Sk keys (what the
+    reference's -1e30 mask and the Pallas kernel's online softmax give)."""
+    q, k, v = cases.flash_inputs(case, torch.float32, "cpu", seed=2)
+    off, win, causal = case[6:]
+    out = ops.flash_attention(q, k, v, q_offset=off, window=win, causal=causal)
+    B, H, KV, Sq, Sk = case[:5]
+    G = H // KV
+    mean = v.mean(dim=2).repeat_interleave(G, dim=1)          # (B, H, hd)
+    rows = [i for i in range(Sq) if cases.flash_visible(
+        (1, 1, 1, 1, Sk, 1, off + i, win, causal))[1]]
+    assert rows, "the case has no empty row"
+    for i in rows:
+        torch.testing.assert_close(out[:, :, i], mean, atol=2e-6, rtol=2e-6)
+    assert cases.flash_visible(case)[1] == len(rows)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_SWEEP)
+def test_decode_attention_matches_pallas(dtype, case):
+    B, H, KV, W, hd, nvalid, start = case
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in
+                                    _data(0, (B, H, hd), (B, KV, W, hd), (B, KV, W, hd)))
+    valid = cases.decode_valid(W, nvalid, start)
+    a = jops.decode_attention(jq, jk, jv, jnp.asarray(valid))
+    b = ops.decode_attention(tq, tk, tv, torch.from_numpy(valid))
+    _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_RAGGED)
+def test_decode_attention_ragged_strided_matches_reference(dtype, case):
+    """Caches as permuted (B,W,KV,hd) views the way the model passes them,
+    W that no tile divides, ring-wrapped and empty masks."""
+    B, H, KV, W, hd, nvalid, start = case
+    q, kc, vc = _data(3, (B, H, hd), (B, W, KV, hd), (B, W, KV, hd))
+    valid = cases.decode_valid(W, nvalid, start)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, kc, vc))
+    a = jref.decode_attention_ref(jq, jk.transpose(0, 2, 1, 3),
+                                  jv.transpose(0, 2, 1, 3), jnp.asarray(valid))
+    b = ops.decode_attention(tq, tk.permute(0, 2, 1, 3), tv.permute(0, 2, 1, 3),
+                             torch.from_numpy(valid))
+    _close(a, b, dtype)
+
+
+def test_decode_valid_wraps_the_ring():
+    np.testing.assert_array_equal(cases.decode_valid(6, 3, 4), [1, 0, 0, 0, 1, 1])
+    assert cases.decode_valid(6, 0, 2).sum() == 0
+    assert cases.decode_valid(6, 6, 5).sum() == 6
+
+
+def test_flash_visible_counts_pairs_and_empty_rows():
+    assert cases.flash_visible((1, 1, 1, 4, 4, 8, 0, None, True)) == (10, 0)
+    assert cases.flash_visible((1, 1, 1, 4, 6, 8, 10, 2, True)) == (0, 4)
+    assert cases.flash_visible((1, 1, 1, 3, 5, 8, 0, None, False)) == (15, 0)
+
+
+# --------------------------------------------------------------------------- #
+# the check that holds the kernels on the card, run here on the CPU path
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_checks_run_on_cpu(dtype):
+    err, (q, _, _) = cases.check_flash(FLASH_EMPTY_BAND[2], dtype, "cpu")
+    assert err == 0.0 and q.dtype == dtype
+    err, (q, k, _, valid) = cases.check_decode(DECODE_RAGGED[0], dtype, "cpu")
+    assert err == 0.0 and k.stride(-1) == 1 and k.stride(2) == k.shape[1] * k.shape[3]
+    assert int(valid.sum()) == DECODE_RAGGED[0][5]
+
+
+def test_tolerance_scales_with_the_output():
+    want = torch.full((4, 8), 0.1, dtype=torch.bfloat16)
+    assert cases.held("x", "c", want, want) == 0.0
+    # 1e-2 off: inside 2e-2 at unit scale, outside 2e-2 * (0.1 + 0.1)
+    with pytest.raises(AssertionError, match="max"):
+        cases.held("x", "c", want + 1e-2, want)
+    assert cases.held("x", "c", want * 10 + 1e-2, want * 10) > 0
+    with pytest.raises(AssertionError):
+        cases.held("x", "c", torch.full_like(want, float("nan")), want)
+
+
+# --------------------------------------------------------------------------- #
+# wrappers and build, without a card
+# --------------------------------------------------------------------------- #
+
+def test_cpu_path_does_not_count_launches():
+    q, k, v = cases.flash_inputs(FLASH_SWEEP[0], torch.float32, "cpu")
+    f0, d0 = ops.flash_attention.launches, ops.decode_attention.launches
+    ops.flash_attention(q, k, v)
+    ops.decode_attention(q[:, :, 0], k, v, torch.ones(32, dtype=torch.int32))
+    assert (ops.flash_attention.launches, ops.decode_attention.launches) == (f0, d0)
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "valid", "device", "offset"])
+def test_wrappers_reject_bad_inputs(bad):
+    q = torch.zeros(1, 6, 4, 8)
+    k = torch.zeros(1, 4, 4, 8)
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "heads":                  # H % KV != 0
+            ops.flash_attention(q, k, k)
+        elif bad == "dtype":
+            ops.flash_attention(q[:, :4].double(), k.double(), k.double())
+        elif bad == "valid":                # valid must be int32 (W,)
+            ops.decode_attention(q[:, :4, 0], k, k, torch.ones(4, dtype=torch.bool))
+        elif bad == "device":               # only cpu (plain) or cuda (kernel)
+            m = q[:, :4].to("meta")
+            ops.flash_attention(m, k.to("meta"), k.to("meta"))
+        else:                               # positions must fit the kernel's int32
+            ops.flash_attention(q[:, :4], k, k, q_offset=2**31)
+
+
+def test_split_plan_covers_the_cache():
+    assert split_plan(1, 4, 4096, 132) == (64, 64)          # yi-6b decode, batch 1
+    assert split_plan(64, 4, 4096, 132) == (2, 2048)
+    assert split_plan(1, 1, 10, 132) == (1, TILE)
+    for B, KV, W in ((1, 4, 2568), (3, 2, 77), (8, 8, 32768), (1, 1, 1)):
+        nsplit, chunk = split_plan(B, KV, W, 132)
+        assert chunk % TILE == 0 and nsplit * chunk >= W > (nsplit - 1) * chunk
+
+
+def test_kernel_sources_export_the_bound_signatures():
+    """Each C entry the wrappers bind exists in its source with as many
+    arguments as ctypes is told to pass (no compiler here to check it)."""
+    for name, fns in build._SIGNATURES.items():
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert 'extern "C"' in src
+        for fn, (_, argtypes) in fns.items():
+            head = re.search(rf"\b{fn}\(([^)]*)\)", src).group(1)
+            assert len([a for a in head.split(",") if a.strip()]) == len(argtypes), fn
+    tile = re.search(r"constexpr int kBK = (\d+);", (build.CSRC / "decode_attention.cu")
+                     .read_text()).group(1)
+    assert int(tile) == TILE
+
+
+def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
+    a = build.library_path("flash_attention")
+    assert a.parent == build.BUILD_DIR and a.name.startswith("libflash_attention-")
+    assert a != build.library_path("decode_attention")
+    src = tmp_path / "flash_attention.cu"
+    src.write_text((build.CSRC / "flash_attention.cu").read_text() + "\n// edit\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.library_path("flash_attention") != a
+
+
+def test_build_dir_in_checkout_and_installed(tmp_path, monkeypatch):
+    assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
+    site = tmp_path / "lib" / "python3.12" / "site-packages"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert build.build_dir_for(site / "repro_torch" / "kernels" / "build.py") \
+        == tmp_path / "cache" / "repro_torch_kernels"
+
+
+def test_nvcc_flags_target_hopper():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert {"-O3", "-shared", "-fPIC"} <= set(build.NVCC_FLAGS)
+
+
+# --------------------------------------------------------------------------- #
+# the port's rules
+# --------------------------------------------------------------------------- #
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {mod}"
+
+
+def test_kernel_sources_call_no_library_attention():
+    for src in (build.CSRC).glob("*.cu"):
+        text = src.read_text()
+        for banned in ("cublas", "cudnn", "scaled_dot_product", "#include <torch"):
+            assert banned not in text.lower(), f"{src.name}: {banned}"
