@@ -4,10 +4,11 @@
 
 1. Setup: card name and power limit, torch and nvcc versions; builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
-   in parallel) and times the build. TF32 is off for matmuls and cuDNN.
-2. Kernels: each CUDA kernel against its plain PyTorch version, fp32 and
+   all started together) and times the build. TF32 is off for matmuls and
+   cuDNN.
+2. Attention kernels: each against its plain PyTorch version, fp32 and
    bf16, at the sweep, ragged and empty-band shapes of
-   ``repro_torch/kernels/cases.py`` and at every shape the main path gives
+   ``repro_torch/kernels/cases.py`` and at every shape the yi-6b path gives
    it, with the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute
    term scaled to the output). For each: kernel time, plain time,
    ``library_ms`` (``F.scaled_dot_product_attention`` on the same masked GQA
@@ -16,14 +17,31 @@
    with the term that binds. Times rotate over copies of the inputs that
    together exceed the 50 MB L2 cache, as each layer of the model reads its
    own inputs.
-3. Engine: full-width yi-6b in bf16 on random weights (``torch.Generator``
+3. yi-6b engine: full width in bf16 on random weights (``torch.Generator``
    seed 0), ``max_len`` 4096: a 2,048-token context, then the same context
    plus the 8 generated and 504 new tokens, which must reuse 2,048 tokens
    and prefill 512. Launch counters are set to 0 just before and read just
    after. A cold engine on the turn-2 prompt must give the same greedy
    tokens, and last-position logits within the bf16 kernel tolerance scaled
    by the largest logit it measures. Then a profile of a replay of turn 2.
-4. Prints a ``kernels`` JSON line, the card line, and last
+4. wkv6 kernel: fp32 against ``wkv6_ref`` at every ``WKV6_*`` case and at
+   the rwkv6-1.6b path's two shapes, (1,32,1,64) per engine step and
+   (1,32,2048,64) per layer of a 2,048-token prefill, both read in place
+   from the model's (B,S,H,hd) layout, at ``|out - want| <= 1e-4 (scale +
+   |want|)``. Kernel, plain and bound times (bytes 4(5BHS·hd + 2BH·hd² +
+   H·hd) at 3.35 TB/s, operations 6BHS·hd² at 67 TFLOP/s fp32); no
+   PyTorch call computes the recurrence, so no library time.
+5. rwkv6-1.6b model, full width in fp32: prefill of 2,048 tokens plus one
+   ``decode_step`` against a prefill of the 2,049, last-position logits
+   within 5e-4; 24 wkv6 launches per call. Then the time of a bf16 prefill
+   of 2,048 tokens.
+6. rwkv6-1.6b engine, full width in bf16, seed 0, state-snapshot route: a
+   512-token context and 8 decoded tokens, then that context, the 8 and 56
+   new tokens, which must reuse 512 and feed 64; exactly (520 + 72) × 24 =
+   14,208 wkv6 launches and no attention launch. A cold engine must give
+   turn 2's tokens, last-position logits within 2e-2 × max |logit|. Peak
+   memory, and a profile of a replay of turn 2 from the stored state.
+7. Prints a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero. Without a card, or without the rest
@@ -50,7 +68,12 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
 L2_BYTES = 50e6
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
-           "decode_attention": "src/repro/kernels/decode_attention.py:77"}
+           "decode_attention": "src/repro/kernels/decode_attention.py:77",
+           "wkv6": "src/repro/kernels/wkv6.py:55"}
+PORT_KERNELS = ("flash_kernel", "decode_partial_kernel", "decode_merge_kernel",
+                "wkv6_kernel")              # device names of the port's kernels
+RWKV = "rwkv6-1.6b"
+RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
 
 
 def log(*a):
@@ -78,11 +101,21 @@ def rotated_ms(fn, sets, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
-def copies(tensors):
-    """Clones of the inputs, enough of them to exceed twice the L2 cache."""
+def copies(tensors, limit: int = 16):
+    """Clones of the inputs, enough of them to exceed twice the L2 cache
+    (at most ``limit``). A clone keeps its tensor's strides."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    n = max(1, min(16, math.ceil(2 * L2_BYTES / nbytes)))
+    n = max(1, min(limit, math.ceil(2 * L2_BYTES / nbytes)))
     return [tensors] + [[t.clone() for t in tensors] for _ in range(n - 1)]
+
+
+def zero_counts(ops):
+    for name in SOURCES:
+        getattr(ops, name).launches = 0
+
+
+def read_counts(ops):
+    return {name: getattr(ops, name).launches for name in SOURCES}
 
 
 def bound(ops_n: float, nbytes: float, dtype):
@@ -138,7 +171,7 @@ def main_path_shapes(cfg, serve):
     each kernel. Flash: turn 1's cold prefill, turn 2's suffix prefill, the
     cold engine's prefill of the turn-2 prompt. Decode: the last step of
     turn 2, over the whole ring."""
-    ctx, new, num_new, max_len = serve.FULL_TURNS
+    ctx, new, num_new, max_len = serve.FULL_TURNS["yi-6b"]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     n2 = ctx + num_new + new
     flash = {"turn 1": (1, H, KV, ctx, ctx, hd, 0, None, True),
@@ -189,20 +222,19 @@ def engine_phase(serve, ops, cases):
         f"vocab {cfg.vocab_size}; {str(eng.dtype)[6:]} weights drawn in "
         f"{time.perf_counter() - t0:.3f} s")
 
-    ops.flash_attention.launches = 0
-    ops.decode_attention.launches = 0
+    zero_counts(ops)
     ctx2, r1, r2 = serve.two_turns(cfg, eng, False)
-    launches = {"flash_attention": ops.flash_attention.launches,
-                "decode_attention": ops.decode_attention.launches}
+    launches = read_counts(ops)
 
-    ctx_len, new_len, num_new, _ = serve.FULL_TURNS
+    ctx_len, new_len, num_new, _ = serve.FULL_TURNS["yi-6b"]
     L = cfg.num_layers
     if r1.reused_tokens != 0 or r2.reused_tokens != ctx_len \
             or r2.prefill_tokens_computed != num_new + new_len:
         raise AssertionError(f"reuse: turn 1 {r1.reused_tokens}, turn 2 "
                              f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
     # one flash launch per layer and prefill, one decode launch per layer and token
-    if launches != {"flash_attention": 2 * L, "decode_attention": 2 * num_new * L}:
+    if launches != {"flash_attention": 2 * L, "decode_attention": 2 * num_new * L,
+                    "wkv6": 0}:
         raise AssertionError(f"launch counts {launches}")
     for i, r in ((1, r1), (2, r2)):
         if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
@@ -236,37 +268,205 @@ def engine_phase(serve, ops, cases):
 
 
 def profile_turn2(serve, params, ctx2):
-    """Device time by kernel and the device's idle share over a replay of
-    turn 2 (turn 1 served unprofiled first, so turn 2 hits)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """A replay of turn 2 (turn 1 served unprofiled first, so turn 2
+    hits), unprofiled and then profiled."""
     cfg, eng = serve.build_engine("yi-6b", device="cuda", params=params)
-    ctx_len, _, num_new, _ = serve.FULL_TURNS
+    ctx_len, _, num_new, _ = serve.FULL_TURNS["yi-6b"]
     eng.generate("replay", ctx2[:ctx_len], num_new=num_new)
     t0 = time.perf_counter()
     r = eng.generate("replay", ctx2, num_new=num_new)
     log(f"unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(prefill {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
     eng.generate("prof", ctx2[:ctx_len], num_new=num_new)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r = eng.generate("prof", ctx2, num_new=num_new)
-        wall_us = (time.perf_counter() - t0) * 1e6
+    r = profiled("turn 2", lambda: eng.generate("prof", ctx2, num_new=num_new))
     if r.reused_tokens != ctx_len:
         raise AssertionError("profiled replay of turn 2 missed the cache")
-    by_name = {}
+
+
+def profiled(label, fn):
+    """Run ``fn()`` under the profiler; log the window, the device's busy
+    time and idle share, and device time by kernel. Returns fn's result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, calls = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            calls[e.name] = calls.get(e.name, 0) + 1
     busy = sum(by_name.values())
     if not busy:
-        log("profile of turn 2: the profiler saw no device time (not measured)")
-        return
-    log(f"profile of turn 2: window {wall_us / 1e3:.3f} ms, device busy "
+        log(f"profile of {label}: the profiler saw no device time (not measured)")
+        return result
+    log(f"profile of {label}: window {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"  {us / 1e3:9.3f} ms {us / wall_us:7.2%}  {name[:100]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    ours = [kv for kv in ranked[10:] if any(k in kv[0] for k in PORT_KERNELS)]
+    for name, us in ranked[:10] + ours:
+        log(f"  {us / 1e3:9.3f} ms {us / wall_us:7.2%} {calls[name]:6d} calls  {name[:100]}")
+    return result
+
+
+# --------------------------------------------------------------------------- #
+# rwkv6-1.6b: the wkv6 kernel, the model, the engine
+# --------------------------------------------------------------------------- #
+
+def wkv6_row(ops, ref, cases, case, timed: bool):
+    """The kernel against its plain version on ``case``; with ``timed``,
+    kernel, plain and bound times too."""
+    err, inputs = cases.check_wkv6(case, "cuda")
+    row = dict(max_abs_err=err)
+    if timed:
+        B, H, S, hd = case[:4]
+        sets = copies(inputs, limit=256)
+        row["ms"] = rotated_ms(ops.wkv6, sets, 50 if S < 64 else 10)
+        row["plain_ms"] = rotated_ms(ref.wkv6_ref, sets, 20 if S < 64 else 2)
+        nbytes = 4 * (5 * B * H * S * hd + 2 * B * H * hd * hd + H * hd)
+        row.update(zip(("bound_ms", "bound_by"),
+                       bound(6 * B * H * S * hd * hd, nbytes, torch.float32)))
+        row["library_ms"] = None            # no PyTorch call computes WKV6
+    return row
+
+
+def wkv6_phase(ops, ref, cases, cfg):
+    """Every WKV6 case, then the rwkv6-1.6b path's two shapes, timed."""
+    H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    main = {"engine step": (1, H, 1, hd, None, 0.1, "bshd"),
+            "prefill": (1, H, RWKV_PREFILL, hd, None, 0.1, "bshd")}
+    rows = {}
+    for group, table in (("sweep", cases.WKV6_SWEEP), ("edge", cases.WKV6_EDGE),
+                         ("no token", cases.WKV6_NO_TOKEN)):
+        for i, case in enumerate(table):
+            rows[f"{group} {i}"] = (case, wkv6_row(ops, ref, cases, case, False))
+    for label, case in main.items():
+        rows[label] = (case, wkv6_row(ops, ref, cases, case, True))
+    for label, (case, r) in rows.items():
+        times = ""
+        if "ms" in r:
+            times = (f", kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+                     f"library none, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+        log(f"wkv6 float32 {label} {case}: max |err| {r['max_abs_err']:.3e}{times}")
+    return rows
+
+
+def rwkv_model_phase(ops, tt, cfg):
+    """Full width in fp32: prefill(S) + decode_step against prefill(S + 1);
+    then the time of a bf16 prefill of S tokens."""
+    S = RWKV_PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tt.init_params(gen, cfg, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    with torch.inference_mode():
+        zero_counts(ops)
+        _, cache = tt.prefill(params, cfg, {"tokens": toks[:, :S]}, max_len=S + 1)
+        n_prefill = ops.wkv6.launches
+        step, _ = tt.decode_step(params, cfg, cache, toks[:, S:], S)
+        n_step = ops.wkv6.launches - n_prefill
+        full, _ = tt.prefill(params, cfg, {"tokens": toks}, max_len=S + 1)
+        counts = read_counts(ops)
+        err = float((step[0, 0] - full[0, -1]).abs().max())
+        scale = float(full[0, -1].abs().max())
+    L = cfg.num_layers
+    log(f"{RWKV} fp32 prefill of {S} + decode_step vs prefill of {S + 1}: last-position "
+        f"logits max |err| {err:.3e} (limit 5e-4; max |logit| {scale:.4f}); wkv6 "
+        f"launches {n_prefill} prefill, {n_step} step; counts {counts}")
+    if not err <= 5e-4 or not math.isfinite(scale):
+        raise AssertionError(f"{RWKV}: prefill + step disagrees with prefill")
+    if (n_prefill, n_step, counts["wkv6"]) != (L, L, 3 * L) or \
+            counts["flash_attention"] or counts["decode_attention"]:
+        raise AssertionError(f"{RWKV}: launch counts {counts}")
+    del params, cache, step, full
+    params = tt.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                            torch.bfloat16)
+    with torch.inference_mode():
+        batch = {"tokens": toks[:, :S]}
+        tt.prefill(params, cfg, batch, max_len=S)             # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tt.prefill(params, cfg, batch, max_len=S)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    log(f"{RWKV} bf16 prefill of {S} tokens: {', '.join(f'{t:.3f}' for t in times)} ms")
+    return 3 * L
+
+
+def rwkv_engine_phase(serve, ops, cases):
+    """The two-turn conversation through the state-snapshot route."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, eng = serve.build_engine(RWKV, device="cuda")
+    torch.cuda.synchronize()
+    log(f"{RWKV} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_rwkv_heads} wkv heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}; {str(eng.dtype)[6:]} weights drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    ctx, extra, num_new = serve.conversation(cfg, False)
+
+    zero_counts(ops)
+    r1 = eng.generate("conv-0", ctx, num_new=num_new)
+    snap1 = eng.store.entries["conv-0"].payload       # the state after turn 1's prompt
+    ctx2 = ctx + r1.tokens + extra
+    r2 = eng.generate("conv-0", ctx2, num_new=num_new)
+    launches = read_counts(ops)
+
+    L = cfg.num_layers
+    steps = (len(ctx) + num_new) + (len(ctx2) - len(ctx) + num_new)
+    if r1.reused_tokens != 0 or r2.reused_tokens != len(ctx) \
+            or r2.prefill_tokens_computed != num_new + len(extra):
+        raise AssertionError(f"reuse: turn 1 {r1.reused_tokens}, turn 2 "
+                             f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
+    # one wkv6 launch per layer for every fed and every decoded token
+    if launches != {"flash_attention": 0, "decode_attention": 0, "wkv6": steps * L}:
+        raise AssertionError(f"launch counts {launches}")
+    for i, r in ((1, r1), (2, r2)):
+        if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
+                or not bool(torch.isfinite(r.last_logits).all()):
+            raise AssertionError(f"turn {i}: bad output")
+        fed = r.prefill_tokens_computed
+        log(f"{RWKV} turn {i}: fed {fed} tokens (reused {r.reused_tokens}) in "
+            f"{r.prefill_time_s * 1e3:.3f} ms ({r.prefill_time_s / fed * 1e3:.3f} ms/token); "
+            f"decode {num_new} tokens in {r.decode_time_s * 1e3:.3f} ms "
+            f"({r.decode_time_s / num_new * 1e3:.3f} ms/token) -> {r.tokens}")
+    log(f"{RWKV} launches on the main path ({steps} steps x {L} layers): {launches}")
+    log(f"{RWKV} peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    snap_bytes = sum(t.numel() * t.element_size() for t in snap1[1].values())
+    log(f"{RWKV} stored snapshot: {snap_bytes} bytes; the store accounts "
+        f"{eng.store.entries['conv-0'].size_bytes:.0f} bytes for {len(ctx2)} tokens")
+
+    _, cold = serve.build_engine(RWKV, device="cuda", params=eng.params)
+    rc = cold.generate("cold", ctx2, num_new=num_new)
+    if rc.reused_tokens != 0:
+        raise AssertionError("cold engine hit its empty store")
+    # The same kernels at the same shapes on the same state: 0 is expected.
+    scale = float(rc.last_logits.abs().max())
+    tol = cases.TOL[torch.bfloat16] * scale
+    err = float((rc.last_logits - r2.last_logits).abs().max())
+    log(f"{RWKV} hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} "
+        f"= 2e-2 x max |logit| {scale:.4f}); cold: fed {rc.prefill_tokens_computed} tokens "
+        f"in {rc.prefill_time_s * 1e3:.3f} ms; tokens {rc.tokens}")
+    if rc.tokens != r2.tokens or not err <= tol:
+        raise AssertionError("hit path and cold path disagree")
+
+    # replays of turn 2 from turn 1's stored state, unprofiled then profiled
+    _, rep = serve.build_engine(RWKV, device="cuda", params=eng.params)
+    for key in ("replay", "prof"):
+        rep.store.insert(key, len(ctx), time.time(), payload=snap1)
+    t0 = time.perf_counter()
+    r = rep.generate("replay", ctx2, num_new=num_new)
+    log(f"{RWKV} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
+        f"(feed {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
+    r = profiled(f"{RWKV} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
+    if r.reused_tokens != len(ctx) or r.tokens != r2.tokens:
+        raise AssertionError("replay of turn 2 differs from turn 2")
+    return launches
 
 
 def main():
@@ -275,6 +475,7 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, cases, ops, ref
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as tt
 
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
@@ -299,17 +500,34 @@ def main():
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    launches = engine_phase(serve, ops, cases)
-    log(f"engine phase: {time.perf_counter() - t0:.3f} s; "
-        f"whole run {time.perf_counter() - t_start:.3f} s")
+    by_path = {"yi-6b": engine_phase(serve, ops, cases)}
+    log(f"yi-6b engine phase: {time.perf_counter() - t0:.3f} s")
 
+    rwkv = get_config(RWKV)
+    t0 = time.perf_counter()
+    wkv_rows = wkv6_phase(ops, ref, cases, rwkv)
+    log(f"wkv6 kernel phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    model_launches = rwkv_model_phase(ops, tt, rwkv)
+    log(f"{RWKV} model phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    by_path[RWKV] = rwkv_engine_phase(serve, ops, cases)
+    log(f"{RWKV} engine phase: {time.perf_counter() - t0:.3f} s; "
+        f"whole run {time.perf_counter() - t_start:.3f} s")
+    log(f"wkv6 launches outside the engine: {model_launches} in the model phase")
+
+    main_rows = {"flash_attention": rows[("flash_attention", torch.bfloat16, "turn 2")][1],
+                 "decode_attention": rows[("decode_attention", torch.bfloat16, "turn 2")][1],
+                 "wkv6": wkv_rows["engine step"][1]}
+    main_path = {"flash_attention": "yi-6b", "decode_attention": "yi-6b", "wkv6": RWKV}
     kernels = []
     for name, replaces in SOURCES.items():
-        _, r = rows[(name, torch.bfloat16, "turn 2")]
+        r = main_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": by_path[main_path[name]][name],
+            "launches_by_path": {path: c[name] for path, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

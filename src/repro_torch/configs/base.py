@@ -1,7 +1,7 @@
 """Model architecture config (copy of ``repro.configs.base.ModelConfig``).
 
-Only the fields the dense serving path reads are kept (the MoE, hybrid,
-RWKV, enc-dec and VLM fields arrive with their families, the long-context
+Only the fields the dense and RWKV6 serving paths read are kept (the MoE,
+hybrid, enc-dec and VLM fields arrive with their families, the long-context
 window with the long-context mode); ``reduced()`` produces the same
 smoke-test variant as the reference so that tests can build matching
 configs on both sides.
@@ -40,6 +40,9 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     window_size: Optional[int] = None       # sliding window (SWA archs)
 
+    # ssm (RWKV6)
+    rwkv_head_dim: int = 64
+
     norm_eps: float = 1e-5
     source: str = ""                        # citation
 
@@ -52,6 +55,10 @@ class ModelConfig:
     @property
     def attn_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def num_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
 
     @property
     def kv_bytes_per_token(self) -> int:
@@ -74,5 +81,6 @@ class ModelConfig:
             d_ff=d_model * 2,
             vocab_size=512,
             window_size=64 if self.window_size else None,
+            rwkv_head_dim=32,
         )
         return dataclasses.replace(self, **changes)

@@ -6,6 +6,11 @@
 never imports jax), and returns the same nested dict of torch tensors. The
 stacked leading-``L`` layout and the ``x @ w`` orientation are kept, so both
 packages compute the same function on the same weights.
+
+Leaves go to ``dtype``, except RWKV6's ``FP32_LEAVES`` (``mu``,
+``decay_base``, ``u``, ``mu_k``, ``mu_r``), which the reference keeps in
+fp32 whatever the model's dtype: rounding ``decay_base`` (about -4.5) to
+bf16 would move it by up to 0.016 and every decay ``exp(-exp(.))`` with it.
 """
 from __future__ import annotations
 
@@ -13,26 +18,35 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.rwkv6 import FP32_LEAVES
+from repro_torch.models.transformer import PORTED_FAMILIES
 
 
 def _to_torch(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_torch(v, device, torch.float32 if k in FP32_LEAVES else dtype)
+                for k, v in tree.items()}
     # via fp32: numpy has no native bfloat16, and bf16 -> fp32 -> bf16 is exact
     arr = np.array(tree, dtype=np.float32, order="C")     # a writable copy
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
                     dtype=torch.float32):
-    """Convert a dense-family parameter pytree (numpy leaves) to torch."""
-    if cfg.family != "dense":
+    """Convert a dense- or ssm-family parameter pytree (numpy leaves)."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.family!r} parameters are not ported yet")
     expected = {"embed", "final_ln", "unembed", "layers"}
     if set(np_params) != expected:
-        raise ValueError(f"dense params have keys {sorted(expected)}; got "
+        raise ValueError(f"{cfg.family} params have keys {sorted(expected)}; got "
                          f"{sorted(np_params)}")
-    L = np.shape(np_params["layers"]["attn"]["wq"])[0]
+    L = np.shape(_first_leaf(np_params["layers"]))[0]
     if L != cfg.num_layers:
         raise ValueError(f"params stack {L} layers; config has {cfg.num_layers}")
     return _to_torch(np_params, device, dtype)

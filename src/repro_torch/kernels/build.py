@@ -37,7 +37,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = build_dir_for(Path(__file__).resolve())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("flash_attention", "decode_attention")
+KERNELS = ("flash_attention", "decode_attention", "wkv6")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the entry points (see the extern "C" blocks in csrc/)
@@ -49,6 +49,9 @@ _SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": (
             _I, [_I] + [_P] * 7 + [_I] * 7 + [_L] * 10 + [_P]),
+    },
+    "wkv6": {
+        "wkv6_launch": (_I, [_P] * 8 + [_I] * 4 + [_L] * 19 + [_P]),
     },
 }
 

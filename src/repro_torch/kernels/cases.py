@@ -1,11 +1,11 @@
-"""Shapes at which the attention kernels are held against their plain
-versions, and the check itself.
+"""Shapes at which the kernels are held against their plain versions, and
+the check itself.
 
 One table for every check: ``tests/test_torch_kernels.py`` runs the plain
 versions against the JAX package on the CPU at these shapes,
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run the CUDA kernels
 against the plain versions on the card through ``check_flash`` and
-``check_decode``.
+``check_decode`` and ``check_wkv6``.
 
 Flash cases are ``(B, H, KV, Sq, Sk, hd, q_offset, window, causal)``.
 Decode cases are ``(B, H, KV, W, hd, nvalid, start)``: the valid slots are
@@ -22,6 +22,14 @@ fault of several percent; the absolute term therefore shrinks with the
 output's own scale. Kernel and plain version both accumulate in fp32 and
 round once, so in bf16 they differ by about one bf16 ulp (2**-8 of the
 value), well inside ``2e-2 * |want|``.
+
+WKV6 cases are ``(B, H, S, hd, decay, s0_scale, layout)``: ``decay`` None
+draws ``w`` uniform in [0.8, 0.999) as ``tests/test_kernels.py`` does, a
+number sets every ``w`` to it; ``s0`` is normal times ``s0_scale``;
+``layout`` "bhsd" gives contiguous ``(B,H,S,hd)`` tensors, "bshd" the
+model's ``(B,S,H,hd)`` activations passed as permuted views. fp32 only, at
+``WKV6_TOL`` = 1e-4 in the same form (the ``atol = rtol = 1e-4`` of
+``tests/test_kernels.py:95-98``), on ``y`` and ``s_n``.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 from repro_torch.kernels import ops, ref
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+WKV6_TOL = 1e-4
 
 FLASH_SWEEP = [                           # the sweep of tests/test_kernels.py:23-28
     (1, 4, 4, 32, 32, 32, 0, None, True),       # MHA causal
@@ -69,6 +78,26 @@ DECODE_RAGGED = [
     (1, 8, 2, 300, 32, 0, 0),             # no valid slot, W over several chunks
     (1, 32, 4, 1000, 128, 700, 900),      # yi-6b's heads, a wrapped window
 ]
+
+WKV6_SWEEP = [                            # the sweep of tests/test_kernels.py:83-84
+    (1, 2, 16, 16, None, 0.1, "bhsd"),
+    (2, 4, 32, 32, None, 0.1, "bhsd"),
+    (1, 1, 64, 64, None, 0.1, "bhsd"),
+]
+WKV6_EDGE = [
+    (2, 3, 1, 64, None, 0.1, "bhsd"),           # one token: the engine's call
+    (1, 2, 33, 32, None, 0.1, "bhsd"),          # S not a multiple of the staging
+    (1, 3, 20, 48, None, 0.1, "bhsd"),          # hd below its template width
+    (1, 2, 24, 128, None, 0.1, "bhsd"),         # the widest head the kernel takes
+    (1, 2, 20, 32, 0.0, 0.1, "bhsd"),           # decay 0: the state forgets at once
+    (1, 2, 20, 32, 0.07, 0.1, "bhsd"),
+    (1, 2, 20, 32, 0.999, 0.1, "bhsd"),
+    (1, 2, 40, 32, 1.0, 0.1, "bhsd"),           # no decay: the state only grows
+    (2, 2, 16, 32, None, 0.0, "bhsd"),          # zero initial state
+    (2, 3, 19, 64, None, 0.1, "bshd"),          # the model's layout, read in place
+]
+# no token: y is empty and s_n is s0 (the Pallas kernel takes no S = 0)
+WKV6_NO_TOKEN = [(1, 2, 0, 32, None, 0.1, "bhsd")]
 
 
 def flash_visible(case):
@@ -115,14 +144,40 @@ def decode_inputs(case, dtype, device, seed=0):
     return q, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), valid
 
 
-def held(name, case, out, want) -> float:
-    """max |out - want|; raises unless ``out`` is within the tolerance above."""
+def wkv6_arrays(case, seed=0):
+    """numpy r, k, v, w (B,H,S,hd), u (H,hd), s0 (B,H,hd,hd), all fp32."""
+    B, H, S, hd, decay, s0_scale, _ = case
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, S, hd)).astype(np.float32) for _ in range(3))
+    if decay is None:
+        w = rng.uniform(0.8, 0.999, (B, H, S, hd)).astype(np.float32)
+    else:
+        w = np.full((B, H, S, hd), decay, np.float32)
+    u = rng.uniform(0.0, 1.0, (H, hd)).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, hd, hd)) * s0_scale).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def wkv6_inputs(case, device, seed=0):
+    """The arrays of ``wkv6_arrays`` as torch tensors on ``device``; in the
+    "bshd" layout r, k, v, w are permuted views of (B,S,H,hd) buffers."""
+    r, k, v, w, u, s0 = (torch.from_numpy(x).to(device) for x in wkv6_arrays(case, seed))
+    if case[6] == "bshd":
+        r, k, v, w = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, w))
+    return [r, k, v, w, u, s0]
+
+
+def held(name, case, out, want, tol=None) -> float:
+    """max |out - want|; raises unless ``out`` is within the tolerance above
+    (``TOL`` of the dtype unless ``tol`` is given)."""
     if out.shape != want.shape or out.dtype != want.dtype:
         raise AssertionError(f"{name} {case}: {out.dtype} {tuple(out.shape)}, "
                              f"want {want.dtype} {tuple(want.shape)}")
+    if want.numel() == 0:
+        return 0.0
     a, b = out.float(), want.float()
     err = (a - b).abs()
-    tol = TOL[want.dtype]
+    tol = TOL[want.dtype] if tol is None else tol
     scale = min(1.0, float(b.abs().max()))
     if not bool(torch.isfinite(a).all()) or bool((err > tol * (scale + b.abs())).any()):
         raise AssertionError(f"{name} {case} {want.dtype}: max |err| "
@@ -145,3 +200,14 @@ def check_decode(case, dtype, device, seed=0):
     out = ops.decode_attention(q, k, v, valid)
     want = ref.decode_attention_ref(q, k, v, valid)
     return held("decode_attention", case, out, want), (q, k, v, valid)
+
+
+def check_wkv6(case, device, seed=0):
+    """The kernel against its plain version on ``case``, on ``y`` and
+    ``s_n``; (max |err|, inputs)."""
+    inputs = wkv6_inputs(case, device, seed)
+    y, sn = ops.wkv6(*inputs)
+    want_y, want_sn = ref.wkv6_ref(*inputs)
+    err = max(held("wkv6 y", case, y, want_y, WKV6_TOL),
+              held("wkv6 s_n", case, sn, want_sn, WKV6_TOL))
+    return err, inputs

@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (kernel layouts).
+"""Plain PyTorch versions of the kernels (kernel layouts).
 
-Twins of ``repro.kernels.ref.flash_attention_ref`` and
-``decode_attention_ref``: same layouts, fp32 internals, the finite mask
-value ``NEG_INF`` so that a fully masked row gives a uniform softmax rather
-than NaN. The wrappers run these for CPU tensors; ``chip_smoke.py`` holds
-the CUDA kernels against them on the card.
+Twins of ``repro.kernels.ref.flash_attention_ref``,
+``decode_attention_ref`` and ``wkv6_ref``: same layouts, fp32 internals,
+the finite mask value ``NEG_INF`` so that a fully masked row gives a
+uniform softmax rather than NaN. The wrappers run these for CPU tensors;
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -47,3 +47,22 @@ def decode_attention_ref(q, k_cache, v_cache, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bkwd->bkgd", p, v_cache.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0):
+    """RWKV6 recurrence, one token at a time. r,k,v,w: (B,H,S,hd) fp32;
+    u: (H,hd); s0: (B,H,hd,hd). Returns (y (B,H,S,hd), s_n (B,H,hd,hd)):
+
+        y_t     = (S_t + u ⊙ (k_t ⊗ v_t))ᵀ r_t
+        S_{t+1} = diag(w_t) S_t + k_t ⊗ v_t
+    """
+    B, H, S, hd = r.shape
+    s = s0
+    ys = []
+    for t in range(S):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]          # (B,H,hd,hd)
+        eff = s + u[None, :, :, None] * kv
+        ys.append(torch.einsum("bhij,bhi->bhj", eff, r[:, :, t]))
+        s = s * w[:, :, t, :, None] + kv
+    y = torch.stack(ys, dim=2) if ys else r.new_empty((B, H, 0, hd))
+    return y, (s0.clone() if S == 0 else s)

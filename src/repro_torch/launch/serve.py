@@ -1,16 +1,19 @@
 """Real-execution serving demo of the port: a two-turn conversation with
-KV-prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
+prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
 
-    # full-width yi-6b in bf16 on the card (random weights from seed 0)
+    # full width in bf16 on the card (random weights from seed 0)
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --arch rwkv6-1.6b
 
     # the reference's reduced demo (2 layers, d_model 128, fp32) on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b \
         --device cpu --reduced
 
-Turn 1 prefills a context and decodes; turn 2 sends the same context plus
-the generated tokens plus new ones, and must reuse the stored prefix.
-The simulation modes of ``repro.launch.serve`` are not ported.
+Turn 1 serves a context and decodes; turn 2 sends the same context plus
+the generated tokens plus new ones, and must reuse the stored prefix: its
+K/V for yi-6b, its recurrent state for rwkv6-1.6b (whose uncached tokens are
+fed one at a time, as the reference does). The simulation modes of
+``repro.launch.serve`` are not ported.
 """
 from __future__ import annotations
 
@@ -26,9 +29,16 @@ from repro_torch.models.transformer import init_params
 from repro_torch.serving.realexec import RealExecutionEngine, resolve_device
 
 SEED = 0        # weights (torch.Generator) and prompts (numpy)
-# (context tokens, new tokens in turn 2, decoded tokens per turn, max_len)
-FULL_TURNS = (2048, 504, 8, 4096)
+# (context tokens, new tokens in turn 2, decoded tokens per turn, max_len),
+# at full width by arch. rwkv6-1.6b feeds every uncached token through a
+# decode step, so its conversation is shorter.
+FULL_TURNS = {"yi-6b": (2048, 504, 8, 4096),
+              "rwkv6-1.6b": (512, 56, 8, 4096)}
 REDUCED_TURNS = (24, 8, 4, 128)
+
+
+def turns(arch: str, reduced: bool):
+    return REDUCED_TURNS if reduced else FULL_TURNS[arch]
 
 
 def build_engine(arch: str, *, device=None, reduced: bool = False,
@@ -41,7 +51,7 @@ def build_engine(arch: str, *, device=None, reduced: bool = False,
     if reduced:
         cfg = cfg.reduced(num_layers=2, d_model=128)
     dtype = torch.float32 if reduced else torch.bfloat16
-    max_len = (REDUCED_TURNS if reduced else FULL_TURNS)[3]
+    max_len = turns(arch, reduced)[3]
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         params = init_params(gen, cfg, dtype)
@@ -52,7 +62,7 @@ def build_engine(arch: str, *, device=None, reduced: bool = False,
 
 def conversation(cfg, reduced: bool):
     """Turn-1 context and the turn-2 extension, drawn with numpy."""
-    ctx_len, new_len, num_new, _ = REDUCED_TURNS if reduced else FULL_TURNS
+    ctx_len, new_len, num_new, _ = turns(cfg.name, reduced)
     rng = np.random.default_rng(SEED)
     ctx = [int(t) for t in rng.integers(0, cfg.vocab_size, size=ctx_len)]
     extra = [int(t) for t in rng.integers(0, cfg.vocab_size, size=new_len)]
@@ -86,7 +96,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--real", action="store_true",
                     help="real execution (the only mode of the port)")
-    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--arch", default="yi-6b", choices=sorted(FULL_TURNS))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="2 layers, d_model 128, fp32 (the reference's demo)")

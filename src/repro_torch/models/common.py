@@ -1,7 +1,9 @@
-"""Shared model components: norms, rotary embeddings, MLPs, GQA attention
-(full sequence and single-token decode against a ring cache).
+"""Shared model components: init helpers, norms (RMS and per-head group
+norm), rotary embeddings, MLPs, GQA attention (full sequence and
+single-token decode against a ring cache).
 
-Port of the dense-path functions of ``repro/models/common.py``, with the
+Port of the dense- and RWKV6-path functions of ``repro/models/common.py``,
+with the
 same layouts: activations ``(B, S, d)``, heads ``(B, S, H, hd)``, caches
 ``(B, W, KV, hd)``, weights applied as ``x @ w``. Params are plain dicts of
 tensors, as the reference's pytrees are.
@@ -19,9 +21,13 @@ Numerics against the reference:
   ``common.py:72``, and the rotation is done in fp32 before the cast back.
 * ``activation_fn("gelu")`` is the tanh approximation, which is what
   ``jax.nn.gelu`` computes by default.
+* ``groupnorm_heads`` takes the population variance (``correction=0``),
+  which is what ``jnp.var`` computes; ``torch.var`` defaults to the sample
+  variance.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -32,8 +38,35 @@ from repro_torch.kernels import ops
 
 
 # --------------------------------------------------------------------------- #
+# init helpers (shapes and scales of the reference's; the draws differ)
+# --------------------------------------------------------------------------- #
+
+def normal_init(generator, shape, scale: float, dtype):
+    """Normal draw in fp32 on ``generator.device``, times ``scale``."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(dtype)
+
+
+def uniform_init(generator, shape):
+    """fp32 draw, uniform in [0, 1), on ``generator.device``."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device)
+
+
+def dense_init(generator, d_in: int, d_out: int, dtype,
+               scale: Optional[float] = None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return normal_init(generator, (d_in, d_out), scale, dtype)
+
+
+# --------------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------------- #
+
+def init_rmsnorm(d: int, dtype, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
 
 def rmsnorm(params, x, eps: float = 1e-5):
     dt = x.dtype
@@ -41,6 +74,22 @@ def rmsnorm(params, x, eps: float = 1e-5):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * params["scale"].float()).to(dt)
+
+
+def init_groupnorm(heads: int, hd: int, dtype, device=None):
+    return {"scale": torch.ones((heads, hd), dtype=dtype, device=device),
+            "bias": torch.zeros((heads, hd), dtype=dtype, device=device)}
+
+
+def groupnorm_heads(params, x, eps: float = 64e-5):
+    """LayerNorm per head — x: (..., H, hd). Used by RWKV6."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(dt)
 
 
 # --------------------------------------------------------------------------- #

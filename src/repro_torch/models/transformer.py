@@ -1,4 +1,4 @@
-"""Dense-family transformer: port of the dense branch of
+"""Dense and RWKV6 (``ssm``) families: port of those branches of
 ``repro/models/transformer.py``.
 
 Public API (plain functions over a dict of parameters):
@@ -13,30 +13,41 @@ a leading ``L`` axis, projections applied as ``x @ w``, so weights converted
 from the JAX package (``repro_torch.convert``) compute the same function.
 The reference's ``lax.scan`` over the stack is a Python loop over ``L``.
 
-Two differences of idiom: ``decode_step`` writes the new K/V into the cache
-tensors in place (JAX returns new arrays), and ``ring_kpos`` uses
-``torch.remainder``, whose sign follows the divisor as ``jnp.mod`` does (C's
-``%`` and ``torch.fmod`` follow the dividend and would give wrong slots).
+Two differences of idiom: ``decode_step`` writes the new K/V (dense) or the
+new recurrent state (ssm) into the cache tensors in place (JAX returns new
+arrays), and ``ring_kpos`` uses ``torch.remainder``, whose sign follows the
+divisor as ``jnp.mod`` does (C's ``%`` and ``torch.fmod`` follow the
+dividend and would give wrong slots).
+
+An RWKV6 cache is the recurrent state after the prompt, ``wkv`` (L,B,H,hd,hd)
+fp32 and the token shifts ``x_tm``, ``x_cm`` (L,B,d), which hold the last
+*normed* input of each mix (``time_mix``/``channel_mix`` return the last row
+of their own input). Its ``prefill`` takes no stored prefix: the reference
+serves a recurrent hit by restoring the state and feeding the suffix through
+``decode_step``.
 
 Not ported yet: the long-context window mode (the reference's
-``long_context`` flag) and families other than dense, which raise
-``NotImplementedError`` (ROADMAP.md Queue 1).
+``long_context`` flag) and the families other than dense and ssm, which
+raise ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (apply_rope, attention, decode_attend,
-                                       mlp, rmsnorm)
+                                       dense_init, init_rmsnorm, mlp,
+                                       normal_init, rmsnorm)
 
 Params = Dict[str, Any]
+PORTED_FAMILIES = ("dense", "ssm")
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+
+def _require_ported(cfg: ModelConfig):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             "(ROADMAP.md Queue 1)")
@@ -72,6 +83,29 @@ def layer_params(stacked, i: int):
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def _stacked_init(L: int, init_layer):
+    """``L`` draws of ``init_layer()`` stacked on a leading axis, copied in
+    one layer at a time so that init never holds more than the stack and
+    one layer."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((L,) + tuple(t.shape))
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k, v in src.items():
+                put(dst[k], v, i)
+        else:
+            dst[i] = src
+
+    layer = init_layer()
+    out = alloc(layer)
+    for i in range(L):
+        put(out, layer if i == 0 else init_layer(), i)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -130,24 +164,65 @@ def _attn_layer_decode(p, cfg: ModelConfig, x_t, k_cache, v_cache, pos: int, *,
 
 
 # --------------------------------------------------------------------------- #
+# RWKV6 layer
+# --------------------------------------------------------------------------- #
+
+def _init_rwkv_layer(generator, cfg: ModelConfig, dtype):
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dtype, generator.device),
+        "tmix": rw.init_time_mix(generator, cfg, dtype),
+        "ln2": init_rmsnorm(cfg.d_model, dtype, generator.device),
+        "cmix": rw.init_channel_mix(generator, cfg, dtype),
+    }
+
+
+def _rwkv_layer_fwd(p, cfg: ModelConfig, x, state):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    o, x_tm, wkv = rw.time_mix(p["tmix"], cfg, h, state["x_tm"], state["wkv"])
+    x = x + o
+    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    o2, x_cm = rw.channel_mix(p["cmix"], h2, state["x_cm"])
+    x = x + o2
+    return x, {"wkv": wkv, "x_tm": x_tm, "x_cm": x_cm}
+
+
+def _write_state(cache, i: int, st):
+    """Layer ``i``'s new state into the stacked cache, in place."""
+    for name, t in st.items():
+        cache[name][i].copy_(t)
+
+
+def _rwkv_empty_state(cfg: ModelConfig, B: int, dtype, device):
+    H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    return {"wkv": torch.zeros((B, H, hd, hd), dtype=torch.float32, device=device),
+            "x_tm": torch.zeros((B, cfg.d_model), dtype=dtype, device=device),
+            "x_cm": torch.zeros((B, cfg.d_model), dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
 
-def _normal(generator, shape, scale: float, dtype):
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (x * scale).to(dtype)
-
-
-def _stacked_dense(generator, L: int, d_in: int, d_out: int, dtype,
-                   scale: Optional[float] = None):
-    """L layers of ``dense_init`` weights, drawn one layer at a time so the
-    fp32 draw never holds more than one layer."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.empty((L, d_in, d_out), dtype=dtype, device=generator.device)
-    for i in range(L):
-        w[i] = _normal(generator, (d_in, d_out), scale, dtype)
-    return w
+def _init_attn_layer(generator, cfg: ModelConfig, dtype):
+    d, dff = cfg.d_model, cfg.d_ff
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    layer = {
+        "ln1": init_rmsnorm(d, dtype, generator.device),
+        "attn": {
+            "wq": dense_init(generator, d, H * hd, dtype),
+            "wk": dense_init(generator, d, KV * hd, dtype),
+            "wv": dense_init(generator, d, KV * hd, dtype),
+            "wo": dense_init(generator, H * hd, d, dtype),
+        },
+        "ln2": init_rmsnorm(d, dtype, generator.device),
+        "mlp": {
+            "w_up": dense_init(generator, d, dff, dtype),
+            "w_down": dense_init(generator, dff, d, dtype),
+        },
+    }
+    if cfg.gated_mlp:
+        layer["mlp"]["w_gate"] = dense_init(generator, d, dff, dtype)
+    return layer
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
@@ -155,39 +230,18 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     """Random weights with the reference's shapes and scales, drawn from
     ``generator`` on ``generator.device``. The draws differ from
     ``jax.random``; to compare with the JAX package, convert its weights
-    with ``repro_torch.convert.params_from_jax`` instead."""
-    _require_dense(cfg)
-    dev = generator.device
-    V, d, L = cfg.padded_vocab, cfg.d_model, cfg.num_layers
-    H, KV, hd, dff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
-
-    p: Params = {
-        "embed": _normal(generator, (V, d), 0.02, dtype),
-        "final_ln": {"scale": ones(d)},
-        "unembed": _normal(generator, (d, V), 1.0 / math.sqrt(d), dtype),
+    with ``repro_torch.convert.params_from_jax`` instead. RWKV6's
+    ``rw.FP32_LEAVES`` are fp32 whatever ``dtype`` is, as in the reference."""
+    _require_ported(cfg)
+    V, d = cfg.padded_vocab, cfg.d_model
+    init_layer = _init_rwkv_layer if cfg.family == "ssm" else _init_attn_layer
+    return {
+        "embed": normal_init(generator, (V, d), 0.02, dtype),
+        "final_ln": init_rmsnorm(d, dtype, generator.device),
+        "unembed": dense_init(generator, d, V, dtype),
+        "layers": _stacked_init(cfg.num_layers,
+                                lambda: init_layer(generator, cfg, dtype)),
     }
-    layers = {
-        "ln1": {"scale": ones(L, d)},
-        "attn": {
-            "wq": _stacked_dense(generator, L, d, H * hd, dtype),
-            "wk": _stacked_dense(generator, L, d, KV * hd, dtype),
-            "wv": _stacked_dense(generator, L, d, KV * hd, dtype),
-            "wo": _stacked_dense(generator, L, H * hd, d, dtype,
-                                 scale=1.0 / math.sqrt(H * hd)),
-        },
-        "ln2": {"scale": ones(L, d)},
-        "mlp": {
-            "w_up": _stacked_dense(generator, L, d, dff, dtype),
-            "w_down": _stacked_dense(generator, L, dff, d, dtype),
-        },
-    }
-    if cfg.gated_mlp:
-        layers["mlp"]["w_gate"] = _stacked_dense(generator, L, d, dff, dtype)
-    p["layers"] = layers
-    return p
 
 
 # --------------------------------------------------------------------------- #
@@ -196,12 +250,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 
 def forward(params: Params, cfg: ModelConfig, batch):
     """Full-sequence logits (B, S, padded_vocab)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"][batch["tokens"]]
-    window = attn_window(cfg)
-    for i in range(cfg.num_layers):
-        x = _attn_layer_fwd(layer_params(params["layers"], i), cfg, x,
-                            window=window)
+    if cfg.family == "ssm":
+        st = _rwkv_empty_state(cfg, x.shape[0], x.dtype, x.device)
+        for i in range(cfg.num_layers):
+            x, _ = _rwkv_layer_fwd(layer_params(params["layers"], i), cfg, x, st)
+    else:
+        window = attn_window(cfg)
+        for i in range(cfg.num_layers):
+            x = _attn_layer_fwd(layer_params(params["layers"], i), cfg, x,
+                                window=window)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
     return x @ params["unembed"]
 
@@ -212,7 +271,14 @@ def forward(params: Params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        L, B, d = cfg.num_layers, batch_size, cfg.d_model
+        H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+        return {"wkv": torch.zeros((L, B, H, hd, hd), dtype=torch.float32,
+                                   device=device),
+                "x_tm": torch.zeros((L, B, d), dtype=dtype, device=device),
+                "x_cm": torch.zeros((L, B, d), dtype=dtype, device=device)}
     W = cache_width(cfg, max_len)
     shape = (cfg.num_layers, batch_size, W, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -240,11 +306,23 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     prefix_cache/prefix_len: reuse a stored KV prefix (the paper's cache-hit
     path) — new tokens attend to prefix keys with q_offset = prefix_len.
     ``prefix_cache`` needs ``[:, :, :prefix_len]`` to hold positions
-    ``0..prefix_len-1`` in order (a ring that has not wrapped).
+    ``0..prefix_len-1`` in order (a ring that has not wrapped). Dense family
+    only; an ssm prefill starts from the empty state.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"][batch["tokens"]]
     B = x.shape[0]
+    if cfg.family == "ssm":
+        if prefix_cache is not None or prefix_len:
+            raise ValueError("an RWKV6 prefill starts from the empty state; a "
+                             "stored state is resumed through decode_step")
+        st0 = _rwkv_empty_state(cfg, B, x.dtype, x.device)
+        cache = init_cache(cfg, B, max_len, x.dtype, x.device)
+        for i in range(cfg.num_layers):
+            x, st = _rwkv_layer_fwd(layer_params(params["layers"], i), cfg, x, st0)
+            _write_state(cache, i, st)
+        x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+        return x @ params["unembed"], cache
     window = attn_window(cfg)
     W = cache_width(cfg, max_len)
     cache = init_cache(cfg, B, max_len, x.dtype, device=x.device)
@@ -266,9 +344,17 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int):
     """One autoregressive step. tokens: (B,1) int64; pos: the absolute
     position being written. Returns (logits (B,1,V), cache); the cache's
     tensors are updated in place."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     pos = int(pos)
     x = params["embed"][tokens]
+    if cfg.family == "ssm":
+        # single-token time/channel mix via the full-sequence path with S=1
+        for i in range(cfg.num_layers):
+            st = {name: t[i] for name, t in cache.items()}
+            x, st = _rwkv_layer_fwd(layer_params(params["layers"], i), cfg, x, st)
+            _write_state(cache, i, st)
+        x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+        return x @ params["unembed"], cache
     window = attn_window(cfg)
     for i in range(cfg.num_layers):
         x = _attn_layer_decode(layer_params(params["layers"], i), cfg, x,

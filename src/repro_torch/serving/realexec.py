@@ -1,7 +1,8 @@
 """Real-execution serving: a PyTorch model behind the GreenCache store.
 
-Port of ``repro/serving/realexec.py`` for the dense family. The paper's
-mechanism, run for real on the card:
+Port of ``repro/serving/realexec.py`` for the dense and RWKV6 (``ssm``)
+families. The paper's mechanism for a transformer, run for real on the
+card:
 
 1. look the context up in the KV store;
 2. restore the stored prefix K/V;
@@ -21,7 +22,16 @@ ring has not wrapped (the reference assumes the same and would read
 scrambled positions), so a hit whose stored prefix is longer than the cache
 width ``W`` raises.
 
-Recurrent families (state-snapshot caching) arrive with their slices.
+A recurrent model (RWKV6) caches a snapshot of its fixed-size state
+instead, as the reference does (``realexec.py:87-122``): on a hit the state
+after the stored prefix is restored, and every uncached prompt token (all of
+them on a miss) is fed through ``decode_step``, one wkv6 launch per layer
+and token; then ``num_new`` decode steps. The reference stores the cache
+object itself and relies on JAX's immutability; ``decode_step`` here updates
+the state in place, so the payload is a clone of the state after the prompt
+and a hit resumes from a clone of the payload. A hit whose stored prefix is
+the whole prompt leaves no token to feed and so no logits: the reference
+fails there at ``argmax`` of ``None``, the port raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvstore import KVStore
-from repro_torch.models.transformer import cache_width, decode_step, prefill
+from repro_torch.models.transformer import (PORTED_FAMILIES, cache_width,
+                                            decode_step, init_cache, prefill)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,13 +63,13 @@ class GenerationResult:
     reused_tokens: int
     prefill_time_s: float
     decode_time_s: float
-    last_logits: Optional[torch.Tensor] = None   # prefill's last position, fp32
+    last_logits: Optional[torch.Tensor] = None   # last prompt position, fp32
 
 
 class RealExecutionEngine:
     def __init__(self, cfg: ModelConfig, params, store: KVStore, *,
                  max_len: int = 512, dtype=torch.float32, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.family!r} serving is not ported yet (ROADMAP.md Queue 1)")
         self.device = resolve_device(device)
@@ -72,6 +83,7 @@ class RealExecutionEngine:
         self.max_len = max_len
         self.dtype = dtype
         self.width = cache_width(cfg, max_len)
+        self.recurrent = cfg.family == "ssm"
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -83,13 +95,26 @@ class RealExecutionEngine:
     def _argmax(self, logits) -> int:
         return int(torch.argmax(logits[0, -1, :self.cfg.vocab_size]))
 
+    def _feed(self, prompt_tokens: List[int], prefix_len: int, prefix_cache):
+        """State-snapshot route: resume from a clone of the stored state (or
+        the empty state) and feed the uncached tokens one at a time."""
+        if prefix_cache is not None:
+            cache = {k: t.clone() for k, t in prefix_cache.items()}
+        else:
+            cache = init_cache(self.cfg, 1, self.max_len, self.dtype, self.device)
+        for pos in range(prefix_len, len(prompt_tokens)):
+            logits, cache = decode_step(self.params, self.cfg, cache,
+                                        self._token_ids([prompt_tokens[pos]]), pos)
+        return logits, cache
+
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def generate(self, context_key: str, prompt_tokens: List[int],
                  num_new: int = 8, now: Optional[float] = None
                  ) -> GenerationResult:
-        """Serve one request: reuse the cached prefix KV for ``context_key``
-        if present, prefill the suffix, then greedy-decode ``num_new``."""
+        """Serve one request: reuse the cached prefix KV (or recurrent state)
+        for ``context_key`` if present, compute the suffix, then
+        greedy-decode ``num_new``."""
         n = len(prompt_tokens)
         now = time.time() if now is None else now
         entry = self.store.lookup(context_key, n, now)
@@ -98,19 +123,28 @@ class RealExecutionEngine:
         if entry is not None and entry.payload is not None:
             plen, pcache = entry.payload
             if plen <= n:
-                if plen > self.width:
+                if plen > self.width and not self.recurrent:
                     raise ValueError(
                         f"stored prefix of {plen} tokens exceeds the cache width "
                         f"{self.width}: its ring has wrapped and no longer holds "
                         "the prefix in order")
                 prefix_len, prefix_cache = plen, pcache
 
+        if self.recurrent and prefix_len == n:
+            raise ValueError(
+                f"{context_key!r}: the stored state covers all {n} prompt tokens, "
+                "so no token is left to feed and there are no logits to decode "
+                "from (the reference fails here too)")
+
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = prefill(self.params, self.cfg,
-                                {"tokens": self._token_ids(prompt_tokens[prefix_len:])},
-                                self.max_len, prefix_cache=prefix_cache,
-                                prefix_len=prefix_len)
+        if self.recurrent:
+            logits, cache = self._feed(prompt_tokens, prefix_len, prefix_cache)
+        else:
+            logits, cache = prefill(
+                self.params, self.cfg,
+                {"tokens": self._token_ids(prompt_tokens[prefix_len:])},
+                self.max_len, prefix_cache=prefix_cache, prefix_len=prefix_len)
         tok = self._argmax(logits)
         self._sync()
         t_prefill = time.perf_counter() - t0
@@ -118,7 +152,11 @@ class RealExecutionEngine:
 
         # store the prompt's cache back (extends the prefix entry): a clone,
         # because decode below writes ``cache`` in place
-        snapshot = {k: t[:, :, :min(n, self.width)].clone() for k, t in cache.items()}
+        if self.recurrent:
+            snapshot = {k: t.clone() for k, t in cache.items()}
+        else:
+            snapshot = {k: t[:, :, :min(n, self.width)].clone()
+                        for k, t in cache.items()}
         self.store.insert(context_key, n, now, payload=(n, snapshot))
 
         # greedy decode

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-and the reduced engine on the card against the same engine on the CPU.
+and the reduced engines (yi-6b, rwkv6-1.6b) on the card against the same
+engines on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, inside the ``cuda``
 fixture, when there is no card. The file imports no jax, so it runs on a
@@ -16,6 +17,7 @@ from repro_torch.launch import serve
 
 FLASH_CASES = cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
 DECODE_CASES = cases.DECODE_SWEEP + cases.DECODE_RAGGED
+WKV6_CASES = cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
 
 
 @pytest.fixture
@@ -47,6 +49,29 @@ def test_decode_kernel_matches_plain_on_strided_cache(cuda, dtype, case):
     assert ops.decode_attention.launches == n + 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV6_CASES)
+def test_wkv6_kernel_matches_plain(cuda, case):
+    n = ops.wkv6.launches
+    cases.check_wkv6(case, cuda)
+    torch.cuda.synchronize()
+    assert ops.wkv6.launches == n + 1
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, w, u, s0 = cases.wkv6_inputs((1, 1, 2, 129, None, 0.1, "bhsd"), cuda)
+    n = ops.wkv6.launches
+    with pytest.raises(ValueError, match="hd"):
+        ops.wkv6(r, k, v, w, u, s0)
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv6(*(t.bfloat16() for t in (r, k, v, w, u, s0)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv6(r[..., ::2], k[..., ::2], v[..., ::2], w[..., ::2], u[:, ::2],
+                 s0[..., ::2, ::2])
+    assert ops.wkv6.launches == n
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -68,3 +93,21 @@ def test_reduced_engine_on_card_matches_cpu(cuda):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
                                    c.last_logits.numpy(), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.gpu
+def test_reduced_rwkv6_engine_on_card_matches_cpu(cuda):
+    cfg, on_cpu = serve.build_engine("rwkv6-1.6b", device="cpu", reduced=True)
+    _, on_card = serve.build_engine("rwkv6-1.6b", device=cuda, reduced=True,
+                                    params=_to(on_cpu.params, cuda))
+    _, c1, c2 = serve.two_turns(cfg, on_cpu, True)
+    n = ops.wkv6.launches
+    _, g1, g2 = serve.two_turns(cfg, on_card, True)
+    ctx, new, num_new, _ = serve.REDUCED_TURNS
+    # every fed prompt token and every decoded token is one step per layer
+    steps = (ctx + num_new) + (num_new + new + num_new)
+    assert ops.wkv6.launches - n == steps * cfg.num_layers
+    for c, g in ((c1, g1), (c2, g2)):
+        assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
+        np.testing.assert_allclose(g.last_logits.cpu().numpy(),
+                                   c.last_logits.numpy(), atol=5e-4, rtol=1e-4)
