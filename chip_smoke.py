@@ -41,7 +41,30 @@
    14,208 wkv6 launches and no attention launch. A cold engine must give
    turn 2's tokens, last-position logits within 2e-2 × max |logit|. Peak
    memory, and a profile of a replay of turn 2 from the stored state.
-7. Prints a ``kernels`` JSON line, the card line, and last
+7. rglru kernel: fp32 against ``rglru_scan_ref`` at every ``RGLRU_*`` case
+   (the reference's sweep, D 2,560 at S 1 and 2,560, D 77, two channel
+   blocks, strided rows, S 0), at ``|out - want| <= 1e-5 (scale + |want|)``.
+   Kernel, plain and bound times at recurrentgemma-2b's two shapes,
+   (1,1,2560) per recurrent layer and engine step and (1,2560,2560) per
+   recurrent layer of a 2,560-token prefill (bytes 4(3BSD + 2BD) at
+   3.35 TB/s); no PyTorch call computes the recurrence, so no library time.
+   Griffin's attention shapes (10 query heads on one kv head of 256, window
+   2048) run in phase 2 (``FLASH_GRIFFIN``, ``DECODE_GRIFFIN`` and the
+   engine's last decode step).
+8. recurrentgemma-2b model, full width in fp32 (26 layers: 8 units of rec,
+   rec, local attention and 2 tail rec layers): prefill of 2,560 tokens
+   plus one ``decode_step`` against a ``forward`` of the 2,561,
+   last-position logits within 5e-4. 2,560 passes the 2,048 window, so the
+   window masks keys in flash, the ring wraps and the step reads a wrapped
+   ring. Exactly 18 rglru and 8 flash launches per prefill or forward, 18
+   rglru and 8 decode launches per step. Then the time of a bf16 prefill
+   of 2,560 tokens.
+9. recurrentgemma-2b engine, full width in bf16, seed 0, state-snapshot
+   route, ``max_len`` 1024: as step 6, with exactly (520 + 72) × 18 =
+   10,656 rglru and (520 + 72) × 8 = 4,736 decode-attention launches and no
+   flash or wkv6 launch; a cold engine, peak memory, the snapshot's bytes
+   and a profiled replay of turn 2.
+10. Prints a ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero. Without a card, or without the rest
@@ -67,13 +90,17 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # fp32 outside the tensor cores
 L2_BYTES = 50e6
 DTYPES = (torch.float32, torch.bfloat16)
-SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
-           "decode_attention": "src/repro/kernels/decode_attention.py:77",
-           "wkv6": "src/repro/kernels/wkv6.py:55"}
+SOURCES = {   # ops entry -> (its CUDA source, the Pallas call it replaces)
+    "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:106"),
+    "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:77"),
+    "rglru_scan": ("rglru.cu", "src/repro/kernels/rglru.py:38"),
+    "wkv6": ("wkv6.cu", "src/repro/kernels/wkv6.py:55")}
 PORT_KERNELS = ("flash_kernel", "decode_partial_kernel", "decode_merge_kernel",
-                "wkv6_kernel")              # device names of the port's kernels
+                "rglru_kernel", "wkv6_kernel")   # device names of the port's kernels
 RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
+GRIFFIN = "recurrentgemma-2b"
+GRIFFIN_PREFILL = 2560                    # past the 2,048 window: the ring wraps
 
 
 def log(*a):
@@ -116,6 +143,30 @@ def zero_counts(ops):
 
 def read_counts(ops):
     return {name: getattr(ops, name).launches for name in SOURCES}
+
+
+def launched(ops, fn):
+    """(fn(), the launches it made by kernel)."""
+    before = read_counts(ops)
+    out = fn()
+    return out, {n: c - before[n] for n, c in read_counts(ops).items()}
+
+
+def per_token(cfg):
+    """Launches per fed or decoded token through ``decode_step``."""
+    from repro_torch.models.transformer import griffin_layout
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "decode_attention": 0, "rglru_scan": 0,
+                "wkv6": cfg.num_layers}
+    units, tail = griffin_layout(cfg)
+    return {"flash_attention": 0, "decode_attention": units,
+            "rglru_scan": 2 * units + tail, "wkv6": 0}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(t) for t in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 def bound(ops_n: float, nbytes: float, dtype):
@@ -181,19 +232,30 @@ def main_path_shapes(cfg, serve):
     return flash, decode
 
 
+def griffin_decode_shape(cfg, serve):
+    """The decode kernel's shape at the last step of recurrentgemma-2b's
+    turn 2: the local-attention ring of min(max_len, window) slots."""
+    ctx, new, num_new, max_len = serve.FULL_TURNS[cfg.name]
+    n2 = ctx + num_new + new
+    return (1, cfg.num_heads, cfg.num_kv_heads, min(max_len, cfg.local_window),
+            cfg.head_dim, n2 + num_new, 0)
+
+
 def kernels_phase(ops, ref, cases, flash_main, decode_main):
     """All rows, keyed by (kernel, dtype, label)."""
     rows = {}
     for dtype in DTYPES:
         for group, table in (("sweep", cases.FLASH_SWEEP), ("ragged", cases.FLASH_RAGGED),
-                             ("empty band", cases.FLASH_EMPTY_BAND)):
+                             ("empty band", cases.FLASH_EMPTY_BAND),
+                             ("griffin", cases.FLASH_GRIFFIN)):
             for i, case in enumerate(table):
                 rows[("flash_attention", dtype, f"{group} {i}")] = (
                     case, flash_row(ops, ref, cases, case, dtype))
         for label, case in flash_main.items():
             rows[("flash_attention", dtype, label)] = (
                 case, flash_row(ops, ref, cases, case, dtype))
-        for group, table in (("sweep", cases.DECODE_SWEEP), ("ragged", cases.DECODE_RAGGED)):
+        for group, table in (("sweep", cases.DECODE_SWEEP), ("ragged", cases.DECODE_RAGGED),
+                             ("griffin", cases.DECODE_GRIFFIN)):
             for i, case in enumerate(table):
                 rows[("decode_attention", dtype, f"{group} {i}")] = (
                     case, decode_row(ops, ref, cases, case, dtype))
@@ -234,7 +296,7 @@ def engine_phase(serve, ops, cases):
                              f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
     # one flash launch per layer and prefill, one decode launch per layer and token
     if launches != {"flash_attention": 2 * L, "decode_attention": 2 * num_new * L,
-                    "wkv6": 0}:
+                    "rglru_scan": 0, "wkv6": 0}:
         raise AssertionError(f"launch counts {launches}")
     for i, r in ((1, r1), (2, r2)):
         if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
@@ -378,35 +440,130 @@ def rwkv_model_phase(ops, tt, cfg):
     if not err <= 5e-4 or not math.isfinite(scale):
         raise AssertionError(f"{RWKV}: prefill + step disagrees with prefill")
     if (n_prefill, n_step, counts["wkv6"]) != (L, L, 3 * L) or \
-            counts["flash_attention"] or counts["decode_attention"]:
+            counts["flash_attention"] or counts["decode_attention"] or \
+            counts["rglru_scan"]:
         raise AssertionError(f"{RWKV}: launch counts {counts}")
     del params, cache, step, full
+    bf16_prefill_ms(tt, cfg, toks[:, :S])
+    return 3 * L
+
+
+def bf16_prefill_ms(tt, cfg, toks):
+    """Log three timed bf16 prefills of ``toks`` after a warm-up, on seed-0
+    weights."""
     params = tt.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                             torch.bfloat16)
     with torch.inference_mode():
-        batch = {"tokens": toks[:, :S]}
-        tt.prefill(params, cfg, batch, max_len=S)             # warm-up
+        batch = {"tokens": toks}
+        tt.prefill(params, cfg, batch, max_len=toks.shape[1])    # warm-up
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            tt.prefill(params, cfg, batch, max_len=S)
+            tt.prefill(params, cfg, batch, max_len=toks.shape[1])
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-    log(f"{RWKV} bf16 prefill of {S} tokens: {', '.join(f'{t:.3f}' for t in times)} ms")
-    return 3 * L
+    log(f"{cfg.name} bf16 prefill of {toks.shape[1]} tokens: "
+        f"{', '.join(f'{t:.3f}' for t in times)} ms")
 
 
-def rwkv_engine_phase(serve, ops, cases):
+# --------------------------------------------------------------------------- #
+# recurrentgemma-2b: the rglru kernel, the model (the engine is shared above)
+# --------------------------------------------------------------------------- #
+
+def rglru_row(ops, ref, cases, case, timed: bool):
+    """The kernel against its plain version on ``case``; with ``timed``,
+    kernel, plain and bound times too."""
+    err, inputs = cases.check_rglru(case, "cuda")
+    row = dict(max_abs_err=err)
+    if timed:
+        B, S, D = case[:3]
+        sets = copies(inputs, limit=256)
+        row["ms"] = rotated_ms(ops.rglru_scan, sets, 50 if S < 64 else 10)
+        row["plain_ms"] = rotated_ms(ref.rglru_scan_ref, sets, 20 if S < 64 else 2)
+        nbytes = 4 * (3 * B * S * D + 2 * B * D)
+        row.update(zip(("bound_ms", "bound_by"),
+                       bound(2 * B * S * D, nbytes, torch.float32)))
+        row["library_ms"] = None            # no PyTorch call computes the scan
+    return row
+
+
+def rglru_phase(ops, ref, cases, cfg):
+    """Every RG-LRU case, then the recurrentgemma-2b path's two shapes,
+    timed."""
+    D = cfg.rnn_width
+    main = {"engine step": (1, 1, D, "bsd"), "prefill": (1, GRIFFIN_PREFILL, D, "bsd")}
+    rows = {}
+    for group, table in (("sweep", cases.RGLRU_SWEEP), ("edge", cases.RGLRU_EDGE),
+                         ("no token", cases.RGLRU_NO_TOKEN)):
+        for i, case in enumerate(table):
+            rows[f"{group} {i}"] = (case, rglru_row(ops, ref, cases, case, False))
+    for label, case in main.items():
+        rows[label] = (case, rglru_row(ops, ref, cases, case, True))
+    for label, (case, r) in rows.items():
+        times = ""
+        if "ms" in r:
+            times = (f", kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+                     f"library none, bound {r['bound_ms']:.7f} ms ({r['bound_by']})")
+        log(f"rglru float32 {label} {case}: max |err| {r['max_abs_err']:.3e}{times}")
+    return rows
+
+
+def griffin_model_phase(ops, tt, cfg):
+    """Full width in fp32: prefill(S) + decode_step against forward(S + 1),
+    with exact launch counts per call; then the time of a bf16 prefill of S
+    tokens. Returns the launches made."""
+    S = GRIFFIN_PREFILL
+    step_want = per_token(cfg)        # a prefill runs flash where a step runs decode
+    seq_want = dict(step_want, flash_attention=step_want["decode_attention"],
+                    decode_attention=0)
+    want = {"prefill": seq_want, "step": step_want, "forward": seq_want}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tt.init_params(gen, cfg, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    got = {}
+    with torch.inference_mode():
+        zero_counts(ops)
+        (_, cache), got["prefill"] = launched(
+            ops, lambda: tt.prefill(params, cfg, {"tokens": toks[:, :S]}, max_len=S + 1))
+        (step, _), got["step"] = launched(
+            ops, lambda: tt.decode_step(params, cfg, cache, toks[:, S:], S))
+        full, got["forward"] = launched(
+            ops, lambda: tt.forward(params, cfg, {"tokens": toks}))
+        err = float((step[0, 0] - full[0, -1]).abs().max())
+        scale = float(full[0, -1].abs().max())
+    ring = cache["units"]["k"].shape[2]
+    log(f"{GRIFFIN} fp32 prefill of {S} + decode_step vs forward of {S + 1} (ring "
+        f"{ring} slots, window {cfg.local_window}): last-position logits max |err| "
+        f"{err:.3e} (limit 5e-4; max |logit| {scale:.4f}); launches {got}")
+    if not err <= 5e-4 or not math.isfinite(scale):
+        raise AssertionError(f"{GRIFFIN}: prefill + step disagrees with forward")
+    if got != want:
+        raise AssertionError(f"{GRIFFIN}: launch counts {got}, want {want}")
+    del params, cache, step, full
+    bf16_prefill_ms(tt, cfg, toks[:, :S])
+    return {n: sum(g[n] for g in got.values()) for n in SOURCES}
+
+
+def describe(cfg) -> str:
+    if cfg.family == "ssm":
+        mixer = f"{cfg.num_rwkv_heads} wkv heads of {cfg.rwkv_head_dim}"
+    else:
+        mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, rnn "
+                 f"{cfg.rnn_width}, conv {cfg.conv_width}, window {cfg.local_window}")
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {mixer}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}")
+
+
+def snapshot_engine_phase(serve, ops, cases, arch):
     """The two-turn conversation through the state-snapshot route."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, eng = serve.build_engine(RWKV, device="cuda")
+    cfg, eng = serve.build_engine(arch, device="cuda")
     torch.cuda.synchronize()
-    log(f"{RWKV} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_rwkv_heads} wkv heads of {cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}; {str(eng.dtype)[6:]} weights drawn in "
+    log(f"{arch} full width: {describe(cfg)}; {str(eng.dtype)[6:]} weights drawn in "
         f"{time.perf_counter() - t0:.3f} s")
     ctx, extra, num_new = serve.conversation(cfg, False)
 
@@ -417,31 +574,30 @@ def rwkv_engine_phase(serve, ops, cases):
     r2 = eng.generate("conv-0", ctx2, num_new=num_new)
     launches = read_counts(ops)
 
-    L = cfg.num_layers
     steps = (len(ctx) + num_new) + (len(ctx2) - len(ctx) + num_new)
     if r1.reused_tokens != 0 or r2.reused_tokens != len(ctx) \
             or r2.prefill_tokens_computed != num_new + len(extra):
         raise AssertionError(f"reuse: turn 1 {r1.reused_tokens}, turn 2 "
                              f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
-    # one wkv6 launch per layer for every fed and every decoded token
-    if launches != {"flash_attention": 0, "decode_attention": 0, "wkv6": steps * L}:
+    # for every fed and every decoded token: rwkv6 one wkv6 launch per layer;
+    # griffin one rglru launch per recurrent layer, one decode per unit
+    if launches != {n: steps * c for n, c in per_token(cfg).items()}:
         raise AssertionError(f"launch counts {launches}")
     for i, r in ((1, r1), (2, r2)):
         if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
                 or not bool(torch.isfinite(r.last_logits).all()):
             raise AssertionError(f"turn {i}: bad output")
         fed = r.prefill_tokens_computed
-        log(f"{RWKV} turn {i}: fed {fed} tokens (reused {r.reused_tokens}) in "
+        log(f"{arch} turn {i}: fed {fed} tokens (reused {r.reused_tokens}) in "
             f"{r.prefill_time_s * 1e3:.3f} ms ({r.prefill_time_s / fed * 1e3:.3f} ms/token); "
             f"decode {num_new} tokens in {r.decode_time_s * 1e3:.3f} ms "
             f"({r.decode_time_s / num_new * 1e3:.3f} ms/token) -> {r.tokens}")
-    log(f"{RWKV} launches on the main path ({steps} steps x {L} layers): {launches}")
-    log(f"{RWKV} peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    snap_bytes = sum(t.numel() * t.element_size() for t in snap1[1].values())
-    log(f"{RWKV} stored snapshot: {snap_bytes} bytes; the store accounts "
+    log(f"{arch} launches on the main path ({steps} steps x {per_token(cfg)}): {launches}")
+    log(f"{arch} peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"{arch} stored snapshot: {tree_bytes(snap1[1])} bytes; the store accounts "
         f"{eng.store.entries['conv-0'].size_bytes:.0f} bytes for {len(ctx2)} tokens")
 
-    _, cold = serve.build_engine(RWKV, device="cuda", params=eng.params)
+    _, cold = serve.build_engine(arch, device="cuda", params=eng.params)
     rc = cold.generate("cold", ctx2, num_new=num_new)
     if rc.reused_tokens != 0:
         raise AssertionError("cold engine hit its empty store")
@@ -449,21 +605,21 @@ def rwkv_engine_phase(serve, ops, cases):
     scale = float(rc.last_logits.abs().max())
     tol = cases.TOL[torch.bfloat16] * scale
     err = float((rc.last_logits - r2.last_logits).abs().max())
-    log(f"{RWKV} hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} "
+    log(f"{arch} hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} "
         f"= 2e-2 x max |logit| {scale:.4f}); cold: fed {rc.prefill_tokens_computed} tokens "
         f"in {rc.prefill_time_s * 1e3:.3f} ms; tokens {rc.tokens}")
     if rc.tokens != r2.tokens or not err <= tol:
         raise AssertionError("hit path and cold path disagree")
 
     # replays of turn 2 from turn 1's stored state, unprofiled then profiled
-    _, rep = serve.build_engine(RWKV, device="cuda", params=eng.params)
+    _, rep = serve.build_engine(arch, device="cuda", params=eng.params)
     for key in ("replay", "prof"):
         rep.store.insert(key, len(ctx), time.time(), payload=snap1)
     t0 = time.perf_counter()
     r = rep.generate("replay", ctx2, num_new=num_new)
-    log(f"{RWKV} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
+    log(f"{arch} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(feed {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
-    r = profiled(f"{RWKV} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
+    r = profiled(f"{arch} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
     if r.reused_tokens != len(ctx) or r.tokens != r2.tokens:
         raise AssertionError("replay of turn 2 differs from turn 2")
     return launches
@@ -496,6 +652,7 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
 
     flash_main, decode_main = main_path_shapes(get_config("yi-6b"), serve)
+    decode_main["griffin turn 2"] = griffin_decode_shape(get_config(GRIFFIN), serve)
     t0 = time.perf_counter()
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
@@ -511,21 +668,35 @@ def main():
     model_launches = rwkv_model_phase(ops, tt, rwkv)
     log(f"{RWKV} model phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    by_path[RWKV] = rwkv_engine_phase(serve, ops, cases)
-    log(f"{RWKV} engine phase: {time.perf_counter() - t0:.3f} s; "
-        f"whole run {time.perf_counter() - t_start:.3f} s")
+    by_path[RWKV] = snapshot_engine_phase(serve, ops, cases, RWKV)
+    log(f"{RWKV} engine phase: {time.perf_counter() - t0:.3f} s")
     log(f"wkv6 launches outside the engine: {model_launches} in the model phase")
+
+    griffin = get_config(GRIFFIN)
+    t0 = time.perf_counter()
+    rg_rows = rglru_phase(ops, ref, cases, griffin)
+    log(f"rglru kernel phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    griffin_model = griffin_model_phase(ops, tt, griffin)
+    log(f"{GRIFFIN} model phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    by_path[GRIFFIN] = snapshot_engine_phase(serve, ops, cases, GRIFFIN)
+    log(f"{GRIFFIN} engine phase: {time.perf_counter() - t0:.3f} s")
+    log(f"launches outside the engine in the {GRIFFIN} model phase: {griffin_model}")
+    log(f"whole run: {time.perf_counter() - t_start:.3f} s")
 
     main_rows = {"flash_attention": rows[("flash_attention", torch.bfloat16, "turn 2")][1],
                  "decode_attention": rows[("decode_attention", torch.bfloat16, "turn 2")][1],
+                 "rglru_scan": rg_rows["engine step"][1],
                  "wkv6": wkv_rows["engine step"][1]}
-    main_path = {"flash_attention": "yi-6b", "decode_attention": "yi-6b", "wkv6": RWKV}
+    main_path = {"flash_attention": "yi-6b", "decode_attention": "yi-6b",
+                 "rglru_scan": GRIFFIN, "wkv6": RWKV}
     kernels = []
-    for name, replaces in SOURCES.items():
+    for name, (source, replaces) in SOURCES.items():
         r = main_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": by_path[main_path[name]][name],
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,5 +1,5 @@
 """Architecture registry of the port: ``get_config("yi-6b")``,
-``get_config("rwkv6-1.6b")``.
+``get_config("rwkv6-1.6b")``, ``get_config("recurrentgemma-2b")``.
 
 Only the architectures the port serves are registered; the rest of the
 reference's registry arrives with the slices that port their families.
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "yi-6b": "yi_6b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

@@ -1,8 +1,8 @@
 """Model architecture config (copy of ``repro.configs.base.ModelConfig``).
 
-Only the fields the dense and RWKV6 serving paths read are kept (the MoE,
-hybrid, enc-dec and VLM fields arrive with their families, the long-context
-window with the long-context mode); ``reduced()`` produces the same
+Only the fields the dense, RWKV6 and Griffin serving paths read are kept
+(the MoE, enc-dec and VLM fields arrive with their families, the
+long-context window with the long-context mode); ``reduced()`` produces the same
 smoke-test variant as the reference so that tests can build matching
 configs on both sides.
 """
@@ -39,6 +39,12 @@ class ModelConfig:
     # attention
     rope_theta: float = 10_000.0
     window_size: Optional[int] = None       # sliding window (SWA archs)
+
+    # hybrid (Griffin / RecurrentGemma)
+    griffin: bool = False
+    rnn_width: int = 0
+    conv_width: int = 4
+    local_window: int = 2048                # local-attn window in griffin blocks
 
     # ssm (RWKV6)
     rwkv_head_dim: int = 64
@@ -81,6 +87,8 @@ class ModelConfig:
             d_ff=d_model * 2,
             vocab_size=512,
             window_size=64 if self.window_size else None,
+            local_window=32,
+            rnn_width=d_model if self.griffin else 0,
             rwkv_head_dim=32,
         )
         return dataclasses.replace(self, **changes)

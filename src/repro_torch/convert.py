@@ -8,9 +8,14 @@ stacked leading-``L`` layout and the ``x @ w`` orientation are kept, so both
 packages compute the same function on the same weights.
 
 Leaves go to ``dtype``, except RWKV6's ``FP32_LEAVES`` (``mu``,
-``decay_base``, ``u``, ``mu_k``, ``mu_r``), which the reference keeps in
-fp32 whatever the model's dtype: rounding ``decay_base`` (about -4.5) to
-bf16 would move it by up to 0.016 and every decay ``exp(-exp(.))`` with it.
+``decay_base``, ``u``, ``mu_k``, ``mu_r``) and Griffin's (``ba``, ``bx``,
+``lam``), which the reference keeps in fp32 whatever the model's dtype:
+rounding ``decay_base`` (about -4.5) to bf16 would move it by up to 0.016
+and every decay ``exp(-exp(.))`` with it.
+
+A Griffin (``hybrid``) pytree holds ``units`` and, when ``num_layers`` is
+not a multiple of 3, ``tail`` instead of ``layers``. Its ``units`` stack may
+have length 0: the reference's ``reduced(num_layers=2)`` is two tail layers.
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.rwkv6 import FP32_LEAVES
-from repro_torch.models.transformer import PORTED_FAMILIES
+from repro_torch.models import griffin, rwkv6
+from repro_torch.models.transformer import PORTED_FAMILIES, griffin_layout
+
+FP32_LEAVES = rwkv6.FP32_LEAVES + griffin.FP32_LEAVES
 
 
 def _to_torch(tree, device, dtype):
@@ -37,16 +44,34 @@ def _first_leaf(tree):
     return tree
 
 
+def _stack_len(tree) -> int:
+    return np.shape(_first_leaf(tree))[0]
+
+
 def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
                     dtype=torch.float32):
-    """Convert a dense- or ssm-family parameter pytree (numpy leaves)."""
+    """Convert a dense-, ssm- or hybrid-family parameter pytree (numpy
+    leaves)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.family!r} parameters are not ported yet")
-    expected = {"embed", "final_ln", "unembed", "layers"}
+    expected = {"embed", "final_ln", "unembed"}
+    if cfg.family == "hybrid":
+        U, tail = griffin_layout(cfg)
+        expected |= {"units", "tail"} if tail else {"units"}
+    else:
+        expected |= {"layers"}
     if set(np_params) != expected:
         raise ValueError(f"{cfg.family} params have keys {sorted(expected)}; got "
                          f"{sorted(np_params)}")
-    L = np.shape(_first_leaf(np_params["layers"]))[0]
-    if L != cfg.num_layers:
-        raise ValueError(f"params stack {L} layers; config has {cfg.num_layers}")
+    if cfg.family == "hybrid":
+        got = (_stack_len(np_params["units"]),
+               _stack_len(np_params["tail"]) if tail else 0)
+        if got != (U, tail):
+            raise ValueError(f"params stack {got[0]} units and {got[1]} tail layers "
+                             f"(3·U + tail = {3 * got[0] + got[1]}); config has "
+                             f"{cfg.num_layers} layers, {U} units and {tail} tail")
+    else:
+        L = _stack_len(np_params["layers"])
+        if L != cfg.num_layers:
+            raise ValueError(f"params stack {L} layers; config has {cfg.num_layers}")
     return _to_torch(np_params, device, dtype)

@@ -4,8 +4,8 @@ the check itself.
 One table for every check: ``tests/test_torch_kernels.py`` runs the plain
 versions against the JAX package on the CPU at these shapes,
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run the CUDA kernels
-against the plain versions on the card through ``check_flash`` and
-``check_decode`` and ``check_wkv6``.
+against the plain versions on the card through ``check_flash``,
+``check_decode``, ``check_rglru`` and ``check_wkv6``.
 
 Flash cases are ``(B, H, KV, Sq, Sk, hd, q_offset, window, causal)``.
 Decode cases are ``(B, H, KV, W, hd, nvalid, start)``: the valid slots are
@@ -30,6 +30,14 @@ number sets every ``w`` to it; ``s0`` is normal times ``s0_scale``;
 model's ``(B,S,H,hd)`` activations passed as permuted views. fp32 only, at
 ``WKV6_TOL`` = 1e-4 in the same form (the ``atol = rtol = 1e-4`` of
 ``tests/test_kernels.py:95-98``), on ``y`` and ``s_n``.
+
+RG-LRU cases are ``(B, S, D, layout)``: ``a`` uniform in [0.7, 0.999),
+``b`` normal times 0.1 and ``h0`` normal, as ``tests/test_kernels.py``
+draws them; ``layout`` "bsd" gives contiguous tensors, "wide" passes ``a``
+and ``b`` as the two halves of one (B,S,2D) buffer and ``h0`` as half of a
+(B,2D) buffer, so rows are read by strides. fp32 only, at ``RGLRU_TOL`` =
+1e-5 in the same form (the ``atol`` 1e-5 of ``tests/test_kernels.py:79-80``),
+on ``y`` and ``h_S``.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from repro_torch.kernels import ops, ref
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WKV6_TOL = 1e-4
+RGLRU_TOL = 1e-5
 
 FLASH_SWEEP = [                           # the sweep of tests/test_kernels.py:23-28
     (1, 4, 4, 32, 32, 32, 0, None, True),       # MHA causal
@@ -67,6 +76,10 @@ FLASH_EMPTY_BAND = [
     (1, 4, 2, 12, 20, 32, 20, 8, False),        # not causal: rows 7-11 see none
     (1, 4, 4, 8, 16, 16, 0, 0, True),           # window 0: no row sees a key
 ]
+# recurrentgemma-2b's local attention: 10 query heads on one kv head of 256,
+# window 2048; the model phase's prefill of 2,560 tokens, where the window
+# masks keys
+FLASH_GRIFFIN = [(1, 10, 1, 2560, 2560, 256, 0, 2048, True)]
 DECODE_SWEEP = [                          # the sweep of tests/test_kernels.py:42-46
     (1, 4, 4, 64, 32, 64, 0),
     (2, 8, 2, 256, 64, 100, 0),
@@ -77,6 +90,10 @@ DECODE_RAGGED = [
     (1, 4, 2, 50, 8, 0, 0),               # no valid slot: mean of V over W
     (1, 8, 2, 300, 32, 0, 0),             # no valid slot, W over several chunks
     (1, 32, 4, 1000, 128, 700, 900),      # yi-6b's heads, a wrapped window
+]
+DECODE_GRIFFIN = [                        # recurrentgemma-2b's heads, a ring of 2,048
+    (1, 10, 1, 2048, 256, 2048, 1500),    # full, wrapped: the window at pos > 2048
+    (1, 10, 1, 2048, 256, 700, 1800),     # fewer valid slots, across the wrap
 ]
 
 WKV6_SWEEP = [                            # the sweep of tests/test_kernels.py:83-84
@@ -98,6 +115,21 @@ WKV6_EDGE = [
 ]
 # no token: y is empty and s_n is s0 (the Pallas kernel takes no S = 0)
 WKV6_NO_TOKEN = [(1, 2, 0, 32, None, 0.1, "bhsd")]
+
+RGLRU_SWEEP = [                           # the sweep of tests/test_kernels.py:70-71
+    (1, 16, 64, "bsd"),
+    (2, 33, 128, "bsd"),
+    (3, 8, 96, "bsd"),
+]
+RGLRU_EDGE = [
+    (1, 1, 2560, "bsd"),                  # recurrentgemma-2b's engine step
+    (1, 2560, 2560, "bsd"),               # its model phase's prefill
+    (3, 12, 77, "bsd"),                   # no block size divides D
+    (2, 9, 300, "bsd"),                   # two channel blocks, the last partial
+    (2, 19, 200, "wide"),                 # rows read by strides
+]
+# no token: y is empty and h_S is h0 (the Pallas kernel takes no S = 0)
+RGLRU_NO_TOKEN = [(1, 0, 64, "bsd")]
 
 
 def flash_visible(case):
@@ -167,6 +199,29 @@ def wkv6_inputs(case, device, seed=0):
     return [r, k, v, w, u, s0]
 
 
+def rglru_arrays(case, seed=0):
+    """numpy a, b (B,S,D) and h0 (B,D), all fp32."""
+    B, S, D, _ = case
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.7, 0.999, (B, S, D)).astype(np.float32)
+    b = (rng.standard_normal((B, S, D)) * 0.1).astype(np.float32)
+    h0 = rng.standard_normal((B, D)).astype(np.float32)
+    return a, b, h0
+
+
+def rglru_inputs(case, device, seed=0):
+    """The arrays of ``rglru_arrays`` as torch tensors on ``device``; in the
+    "wide" layout a and b are the halves of one (B,S,2D) buffer and h0 half
+    of a (B,2D) buffer."""
+    a, b, h0 = (torch.from_numpy(x).to(device) for x in rglru_arrays(case, seed))
+    if case[3] == "wide":
+        D = a.shape[-1]
+        ab = torch.cat([a, b], dim=-1)
+        a, b = ab[..., :D], ab[..., D:]
+        h0 = torch.cat([h0, torch.zeros_like(h0)], dim=-1)[:, :D]
+    return [a, b, h0]
+
+
 def held(name, case, out, want, tol=None) -> float:
     """max |out - want|; raises unless ``out`` is within the tolerance above
     (``TOL`` of the dtype unless ``tol`` is given)."""
@@ -210,4 +265,15 @@ def check_wkv6(case, device, seed=0):
     want_y, want_sn = ref.wkv6_ref(*inputs)
     err = max(held("wkv6 y", case, y, want_y, WKV6_TOL),
               held("wkv6 s_n", case, sn, want_sn, WKV6_TOL))
+    return err, inputs
+
+
+def check_rglru(case, device, seed=0):
+    """The kernel against its plain version on ``case``, on ``y`` and
+    ``h_S``; (max |err|, inputs)."""
+    inputs = rglru_inputs(case, device, seed)
+    y, hn = ops.rglru_scan(*inputs)
+    want_y, want_hn = ref.rglru_scan_ref(*inputs)
+    err = max(held("rglru y", case, y, want_y, RGLRU_TOL),
+              held("rglru h_S", case, hn, want_hn, RGLRU_TOL))
     return err, inputs

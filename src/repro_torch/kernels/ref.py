@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels (kernel layouts).
 
 Twins of ``repro.kernels.ref.flash_attention_ref``,
-``decode_attention_ref`` and ``wkv6_ref``: same layouts, fp32 internals,
+``decode_attention_ref``, ``rglru_scan_ref`` and ``wkv6_ref``: same layouts, fp32 internals,
 the finite mask value ``NEG_INF`` so that a fully masked row gives a
 uniform softmax rather than NaN. The wrappers run these for CPU tensors;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
@@ -47,6 +47,19 @@ def decode_attention_ref(q, k_cache, v_cache, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bkwd->bkgd", p, v_cache.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def rglru_scan_ref(a, b, h0):
+    """a, b: (B,S,D); h0: (B,D) -> (y (B,S,D), h_S (B,D)), one step at a
+    time: ``h_t = a_t * h_{t-1} + b_t``, ``y_t = h_t``. At S = 0, y is empty
+    and h_S is a copy of h0."""
+    h = h0
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys.append(h)
+    y = torch.stack(ys, dim=1) if ys else a.new_empty(a.shape)
+    return y, (h0.clone() if not ys else h)
 
 
 def wkv6_ref(r, k, v, w, u, s0):

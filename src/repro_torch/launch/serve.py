@@ -4,6 +4,7 @@ prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
     # full width in bf16 on the card (random weights from seed 0)
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --arch recurrentgemma-2b
 
     # the reference's reduced demo (2 layers, d_model 128, fp32) on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b \
@@ -11,8 +12,10 @@ prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
 
 Turn 1 serves a context and decodes; turn 2 sends the same context plus
 the generated tokens plus new ones, and must reuse the stored prefix: its
-K/V for yi-6b, its recurrent state for rwkv6-1.6b (whose uncached tokens are
-fed one at a time, as the reference does). The simulation modes of
+K/V for yi-6b, its recurrent state for rwkv6-1.6b and recurrentgemma-2b
+(whose uncached tokens are fed one at a time, as the reference does). The
+reduced demo keeps the reference's 2 layers for every arch, which for
+recurrentgemma-2b is 0 units and 2 tail recurrent layers. The simulation modes of
 ``repro.launch.serve`` are not ported.
 """
 from __future__ import annotations
@@ -30,10 +33,12 @@ from repro_torch.serving.realexec import RealExecutionEngine, resolve_device
 
 SEED = 0        # weights (torch.Generator) and prompts (numpy)
 # (context tokens, new tokens in turn 2, decoded tokens per turn, max_len),
-# at full width by arch. rwkv6-1.6b feeds every uncached token through a
-# decode step, so its conversation is shorter.
+# at full width by arch. rwkv6-1.6b and recurrentgemma-2b feed every
+# uncached token through a decode step, so their conversations are shorter;
+# recurrentgemma-2b's local-attention ring is min(max_len, 2048) slots.
 FULL_TURNS = {"yi-6b": (2048, 504, 8, 4096),
-              "rwkv6-1.6b": (512, 56, 8, 4096)}
+              "rwkv6-1.6b": (512, 56, 8, 4096),
+              "recurrentgemma-2b": (512, 56, 8, 1024)}
 REDUCED_TURNS = (24, 8, 4, 128)
 
 

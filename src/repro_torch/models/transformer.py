@@ -1,5 +1,5 @@
-"""Dense and RWKV6 (``ssm``) families: port of those branches of
-``repro/models/transformer.py``.
+"""Dense, RWKV6 (``ssm``) and Griffin (``hybrid``) families: port of those
+branches of ``repro/models/transformer.py``.
 
 Public API (plain functions over a dict of parameters):
     init_params(generator, cfg, dtype)                      -> params
@@ -14,10 +14,10 @@ from the JAX package (``repro_torch.convert``) compute the same function.
 The reference's ``lax.scan`` over the stack is a Python loop over ``L``.
 
 Two differences of idiom: ``decode_step`` writes the new K/V (dense) or the
-new recurrent state (ssm) into the cache tensors in place (JAX returns new
-arrays), and ``ring_kpos`` uses ``torch.remainder``, whose sign follows the
-divisor as ``jnp.mod`` does (C's ``%`` and ``torch.fmod`` follow the
-dividend and would give wrong slots).
+new recurrent state (ssm, hybrid) into the cache tensors in place (JAX
+returns new arrays), and ``ring_kpos`` uses ``torch.remainder``, whose sign
+follows the divisor as ``jnp.mod`` does (C's ``%`` and ``torch.fmod``
+follow the dividend and would give wrong slots).
 
 An RWKV6 cache is the recurrent state after the prompt, ``wkv`` (L,B,H,hd,hd)
 fp32 and the token shifts ``x_tm``, ``x_cm`` (L,B,d), which hold the last
@@ -26,9 +26,18 @@ of their own input). Its ``prefill`` takes no stored prefix: the reference
 serves a recurrent hit by restoring the state and feeding the suffix through
 ``decode_step``.
 
+A Griffin model is ``U`` units of (rec, rec, local attention) and ``tail``
+rec layers (``griffin_layout``: ``3·U + tail`` = ``num_layers``), stacked
+under ``params["units"]`` and ``params["tail"]``. Its cache nests the same
+way: ``units`` holds each unit's two recurrent states (``rec1_h``,
+``rec1_conv``, ``rec2_h``, ``rec2_conv``) and its local-attention ring
+``k``/``v`` of ``min(max_len, local_window)`` slots; ``tail`` holds ``h``
+and ``conv``. The local attention's window is ``cfg.local_window``, not
+``cfg.window_size``. Like RWKV6, its ``prefill`` takes no stored prefix.
+
 Not ported yet: the long-context window mode (the reference's
-``long_context`` flag) and the families other than dense and ssm, which
-raise ``NotImplementedError`` (ROADMAP.md Queue 1).
+``long_context`` flag) and the moe, vlm and encdec families, which raise
+``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -37,13 +46,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import griffin as gr
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (apply_rope, attention, decode_attend,
                                        dense_init, init_rmsnorm, mlp,
                                        normal_init, rmsnorm)
 
 Params = Dict[str, Any]
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig):
@@ -200,13 +210,60 @@ def _rwkv_empty_state(cfg: ModelConfig, B: int, dtype, device):
 
 
 # --------------------------------------------------------------------------- #
+# Griffin unit (rec, rec, local-attn), each with its own MLP
+# --------------------------------------------------------------------------- #
+
+def griffin_layout(cfg: ModelConfig):
+    """(num_units, num_tail_rec) such that 3*U + tail == num_layers."""
+    units = cfg.num_layers // 3
+    tail = cfg.num_layers - 3 * units
+    return units, tail
+
+
+def _rec_layer_fwd(p, cfg: ModelConfig, x, state):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    o, state = gr.rglru_block(p["rg"], h, state)
+    x = x + o
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x, state
+
+
+def _rec_layer_decode(p, cfg: ModelConfig, x_t, state):
+    h = rmsnorm(p["ln1"], x_t, cfg.norm_eps)
+    o, state = gr.rglru_block_step(p["rg"], h[:, 0], state)
+    x_t = x_t + o[:, None]
+    x_t = x_t + mlp(p["mlp"], rmsnorm(p["ln2"], x_t, cfg.norm_eps), cfg)
+    return x_t, state
+
+
+def _rec_state(cache, i: int, prefix: str = ""):
+    """Layer ``i``'s recurrent state in a stacked Griffin cache (views)."""
+    return {"h": cache[prefix + "h"][i], "conv": cache[prefix + "conv"][i]}
+
+
+def _write_rec_state(cache, i: int, st, prefix: str = ""):
+    """Layer ``i``'s new recurrent state into the stacked cache, in place."""
+    cache[prefix + "h"][i].copy_(st["h"])
+    cache[prefix + "conv"][i].copy_(st["conv"])
+
+
+# --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
 
-def _init_attn_layer(generator, cfg: ModelConfig, dtype):
+def _init_mlp(generator, cfg: ModelConfig, dtype):
     d, dff = cfg.d_model, cfg.d_ff
+    p = {"w_up": dense_init(generator, d, dff, dtype),
+         "w_down": dense_init(generator, dff, d, dtype)}
+    if cfg.gated_mlp:
+        p["w_gate"] = dense_init(generator, d, dff, dtype)
+    return p
+
+
+def _init_attn_layer(generator, cfg: ModelConfig, dtype):
+    d = cfg.d_model
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    layer = {
+    return {
         "ln1": init_rmsnorm(d, dtype, generator.device),
         "attn": {
             "wq": dense_init(generator, d, H * hd, dtype),
@@ -215,14 +272,21 @@ def _init_attn_layer(generator, cfg: ModelConfig, dtype):
             "wo": dense_init(generator, H * hd, d, dtype),
         },
         "ln2": init_rmsnorm(d, dtype, generator.device),
-        "mlp": {
-            "w_up": dense_init(generator, d, dff, dtype),
-            "w_down": dense_init(generator, dff, d, dtype),
-        },
+        "mlp": _init_mlp(generator, cfg, dtype),
     }
-    if cfg.gated_mlp:
-        layer["mlp"]["w_gate"] = dense_init(generator, d, dff, dtype)
-    return layer
+
+
+def _init_rec_layer(generator, cfg: ModelConfig, dtype):
+    return {"ln1": init_rmsnorm(cfg.d_model, dtype, generator.device),
+            "rg": gr.init_rglru_block(generator, cfg, dtype),
+            "ln2": init_rmsnorm(cfg.d_model, dtype, generator.device),
+            "mlp": _init_mlp(generator, cfg, dtype)}
+
+
+def _init_griffin_unit(generator, cfg: ModelConfig, dtype):
+    return {"rec1": _init_rec_layer(generator, cfg, dtype),
+            "rec2": _init_rec_layer(generator, cfg, dtype),
+            "attn": _init_attn_layer(generator, cfg, dtype)}
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
@@ -231,17 +295,24 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     ``generator`` on ``generator.device``. The draws differ from
     ``jax.random``; to compare with the JAX package, convert its weights
     with ``repro_torch.convert.params_from_jax`` instead. RWKV6's
-    ``rw.FP32_LEAVES`` are fp32 whatever ``dtype`` is, as in the reference."""
+    ``rw.FP32_LEAVES`` and Griffin's ``gr.FP32_LEAVES`` are fp32 whatever
+    ``dtype`` is, as in the reference."""
     _require_ported(cfg)
     V, d = cfg.padded_vocab, cfg.d_model
-    init_layer = _init_rwkv_layer if cfg.family == "ssm" else _init_attn_layer
-    return {
+    p = {
         "embed": normal_init(generator, (V, d), 0.02, dtype),
         "final_ln": init_rmsnorm(d, dtype, generator.device),
         "unembed": dense_init(generator, d, V, dtype),
-        "layers": _stacked_init(cfg.num_layers,
-                                lambda: init_layer(generator, cfg, dtype)),
     }
+    if cfg.family == "hybrid":
+        U, tail = griffin_layout(cfg)
+        p["units"] = _stacked_init(U, lambda: _init_griffin_unit(generator, cfg, dtype))
+        if tail:
+            p["tail"] = _stacked_init(tail, lambda: _init_rec_layer(generator, cfg, dtype))
+        return p
+    init_layer = _init_rwkv_layer if cfg.family == "ssm" else _init_attn_layer
+    p["layers"] = _stacked_init(cfg.num_layers, lambda: init_layer(generator, cfg, dtype))
+    return p
 
 
 # --------------------------------------------------------------------------- #
@@ -256,6 +327,16 @@ def forward(params: Params, cfg: ModelConfig, batch):
         st = _rwkv_empty_state(cfg, x.shape[0], x.dtype, x.device)
         for i in range(cfg.num_layers):
             x, _ = _rwkv_layer_fwd(layer_params(params["layers"], i), cfg, x, st)
+    elif cfg.family == "hybrid":
+        rst = gr.init_recurrent_state(cfg, x.shape[0], x.dtype, x.device)
+        U, tail = griffin_layout(cfg)
+        for i in range(U):
+            up = layer_params(params["units"], i)
+            x, _ = _rec_layer_fwd(up["rec1"], cfg, x, rst)
+            x, _ = _rec_layer_fwd(up["rec2"], cfg, x, rst)
+            x = _attn_layer_fwd(up["attn"], cfg, x, window=cfg.local_window)
+        for i in range(tail):
+            x, _ = _rec_layer_fwd(layer_params(params["tail"], i), cfg, x, rst)
     else:
         window = attn_window(cfg)
         for i in range(cfg.num_layers):
@@ -272,6 +353,24 @@ def forward(params: Params, cfg: ModelConfig, batch):
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     _require_ported(cfg)
+    if cfg.family == "hybrid":
+        U, tail = griffin_layout(cfg)
+        B, dr, cw = batch_size, cfg.rnn_width, cfg.conv_width
+        Wl = min(max_len, cfg.local_window)
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+        kv = (U, B, Wl, cfg.num_kv_heads, cfg.head_dim)
+        cache = {"units": {
+            "rec1_h": zeros((U, B, dr), torch.float32),
+            "rec1_conv": zeros((U, B, cw - 1, dr), dtype),
+            "rec2_h": zeros((U, B, dr), torch.float32),
+            "rec2_conv": zeros((U, B, cw - 1, dr), dtype),
+            "k": zeros(kv, dtype), "v": zeros(kv, dtype)}}
+        if tail:
+            cache["tail"] = {"h": zeros((tail, B, dr), torch.float32),
+                             "conv": zeros((tail, B, cw - 1, dr), dtype)}
+        return cache
     if cfg.family == "ssm":
         L, B, d = cfg.num_layers, batch_size, cfg.d_model
         H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
@@ -307,15 +406,17 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     path) — new tokens attend to prefix keys with q_offset = prefix_len.
     ``prefix_cache`` needs ``[:, :, :prefix_len]`` to hold positions
     ``0..prefix_len-1`` in order (a ring that has not wrapped). Dense family
-    only; an ssm prefill starts from the empty state.
+    only; an ssm or hybrid prefill starts from the empty state.
     """
     _require_ported(cfg)
     x = params["embed"][batch["tokens"]]
     B = x.shape[0]
+    if cfg.family in ("ssm", "hybrid") and (prefix_cache is not None or prefix_len):
+        raise ValueError(f"{cfg.name}: a recurrent prefill starts from the empty "
+                         "state; a stored state is resumed through decode_step")
+    if cfg.family == "hybrid":
+        return _griffin_prefill(params, cfg, x, max_len)
     if cfg.family == "ssm":
-        if prefix_cache is not None or prefix_len:
-            raise ValueError("an RWKV6 prefill starts from the empty state; a "
-                             "stored state is resumed through decode_step")
         st0 = _rwkv_empty_state(cfg, B, x.dtype, x.device)
         cache = init_cache(cfg, B, max_len, x.dtype, x.device)
         for i in range(cfg.num_layers):
@@ -340,6 +441,46 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     return x @ params["unembed"], cache
 
 
+def _griffin_prefill(params: Params, cfg: ModelConfig, x, max_len: int):
+    rst0 = gr.init_recurrent_state(cfg, x.shape[0], x.dtype, x.device)
+    Wl = min(max_len, cfg.local_window)
+    cache = init_cache(cfg, x.shape[0], max_len, x.dtype, x.device)
+    U, tail = griffin_layout(cfg)
+    uc = cache["units"]
+    for i in range(U):
+        up = layer_params(params["units"], i)
+        x, s1 = _rec_layer_fwd(up["rec1"], cfg, x, rst0)
+        x, s2 = _rec_layer_fwd(up["rec2"], cfg, x, rst0)
+        x, (k, v) = _attn_layer_fwd(up["attn"], cfg, x, window=cfg.local_window,
+                                    return_kv=True)
+        _write_rec_state(uc, i, s1, "rec1_")
+        _write_rec_state(uc, i, s2, "rec2_")
+        uc["k"][i] = _place_kv_in_ring(k, Wl)
+        uc["v"][i] = _place_kv_in_ring(v, Wl)
+    for i in range(tail):
+        x, st = _rec_layer_fwd(layer_params(params["tail"], i), cfg, x, rst0)
+        _write_rec_state(cache["tail"], i, st)
+    x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    return x @ params["unembed"], cache
+
+
+def _griffin_decode(params: Params, cfg: ModelConfig, cache, x, pos: int):
+    U, tail = griffin_layout(cfg)
+    uc = cache["units"]
+    for i in range(U):
+        up = layer_params(params["units"], i)
+        for name in ("rec1", "rec2"):
+            x, st = _rec_layer_decode(up[name], cfg, x, _rec_state(uc, i, name + "_"))
+            _write_rec_state(uc, i, st, name + "_")
+        x = _attn_layer_decode(up["attn"], cfg, x, uc["k"][i], uc["v"][i], pos,
+                               window=cfg.local_window)
+    for i in range(tail):
+        x, st = _rec_layer_decode(layer_params(params["tail"], i), cfg, x,
+                                  _rec_state(cache["tail"], i))
+        _write_rec_state(cache["tail"], i, st)
+    return x
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int):
     """One autoregressive step. tokens: (B,1) int64; pos: the absolute
     position being written. Returns (logits (B,1,V), cache); the cache's
@@ -347,6 +488,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int):
     _require_ported(cfg)
     pos = int(pos)
     x = params["embed"][tokens]
+    if cfg.family == "hybrid":
+        x = _griffin_decode(params, cfg, cache, x, pos)
+        x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+        return x @ params["unembed"], cache
     if cfg.family == "ssm":
         # single-token time/channel mix via the full-sequence path with S=1
         for i in range(cfg.num_layers):

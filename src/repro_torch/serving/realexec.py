@@ -1,7 +1,7 @@
 """Real-execution serving: a PyTorch model behind the GreenCache store.
 
-Port of ``repro/serving/realexec.py`` for the dense and RWKV6 (``ssm``)
-families. The paper's mechanism for a transformer, run for real on the
+Port of ``repro/serving/realexec.py`` for the dense, RWKV6 (``ssm``) and
+Griffin (``hybrid``) families. The paper's mechanism for a transformer, run for real on the
 card:
 
 1. look the context up in the KV store;
@@ -22,14 +22,17 @@ ring has not wrapped (the reference assumes the same and would read
 scrambled positions), so a hit whose stored prefix is longer than the cache
 width ``W`` raises.
 
-A recurrent model (RWKV6) caches a snapshot of its fixed-size state
+A recurrent model (RWKV6, Griffin) caches a snapshot of its state
 instead, as the reference does (``realexec.py:87-122``): on a hit the state
 after the stored prefix is restored, and every uncached prompt token (all of
-them on a miss) is fed through ``decode_step``, one wkv6 launch per layer
-and token; then ``num_new`` decode steps. The reference stores the cache
-object itself and relies on JAX's immutability; ``decode_step`` here updates
-the state in place, so the payload is a clone of the state after the prompt
-and a hit resumes from a clone of the payload. A hit whose stored prefix is
+them on a miss) is fed through ``decode_step`` (per layer and token one
+wkv6 launch for RWKV6; for Griffin one rglru launch per recurrent layer and
+one decode-attention launch per unit); then ``num_new`` decode steps. A
+Griffin state is nested (``units``, ``tail``) and holds the local-attention
+rings beside the recurrent states. The reference stores the cache object
+itself and relies on JAX's immutability; ``decode_step`` here updates the
+state in place, so the payload is a clone of the whole state after the
+prompt and a hit resumes from a clone of the payload. A hit whose stored prefix is
 the whole prompt leaves no token to feed and so no logits: the reference
 fails there at ``argmax`` of ``None``, the port raises ``ValueError``.
 """
@@ -45,6 +48,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvstore import KVStore
 from repro_torch.models.transformer import (PORTED_FAMILIES, cache_width,
                                             decode_step, init_cache, prefill)
+
+
+def _clone(tree):
+    """A copy of a (nested) dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,7 +93,7 @@ class RealExecutionEngine:
         self.max_len = max_len
         self.dtype = dtype
         self.width = cache_width(cfg, max_len)
-        self.recurrent = cfg.family == "ssm"
+        self.recurrent = cfg.family in ("ssm", "hybrid")
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -99,7 +109,7 @@ class RealExecutionEngine:
         """State-snapshot route: resume from a clone of the stored state (or
         the empty state) and feed the uncached tokens one at a time."""
         if prefix_cache is not None:
-            cache = {k: t.clone() for k, t in prefix_cache.items()}
+            cache = _clone(prefix_cache)
         else:
             cache = init_cache(self.cfg, 1, self.max_len, self.dtype, self.device)
         for pos in range(prefix_len, len(prompt_tokens)):
@@ -153,7 +163,7 @@ class RealExecutionEngine:
         # store the prompt's cache back (extends the prefix entry): a clone,
         # because decode below writes ``cache`` in place
         if self.recurrent:
-            snapshot = {k: t.clone() for k, t in cache.items()}
+            snapshot = _clone(cache)
         else:
             snapshot = {k: t[:, :, :min(n, self.width)].clone()
                         for k, t in cache.items()}

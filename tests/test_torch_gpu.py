@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-and the reduced engines (yi-6b, rwkv6-1.6b) on the card against the same
-engines on the CPU.
+and the reduced engines (yi-6b, rwkv6-1.6b, recurrentgemma-2b) on the card
+against the same engines on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, inside the ``cuda``
 fixture, when there is no card. The file imports no jax, so it runs on a
@@ -12,12 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.core.kvstore import KVStore
+from repro_torch.core.policies import POLICIES
 from repro_torch.kernels import cases, ops
 from repro_torch.launch import serve
+from repro_torch.models.transformer import griffin_layout, init_params
+from repro_torch.serving.realexec import RealExecutionEngine
 
-FLASH_CASES = cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
-DECODE_CASES = cases.DECODE_SWEEP + cases.DECODE_RAGGED
+FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
+               + cases.FLASH_GRIFFIN)
+DECODE_CASES = cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
 WKV6_CASES = cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
+RGLRU_CASES = cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
 
 
 @pytest.fixture
@@ -72,6 +79,28 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
     assert ops.wkv6.launches == n
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_kernel_matches_plain(cuda, case):
+    n = ops.rglru_scan.launches
+    cases.check_rglru(case, cuda)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches == n + 1
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
+    a, b, h0 = cases.rglru_inputs(cases.RGLRU_SWEEP[0], cuda)
+    n = ops.rglru_scan.launches
+    with pytest.raises(TypeError, match="float32"):
+        ops.rglru_scan(a.bfloat16(), b.bfloat16(), h0.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan(a[..., ::2], b[..., ::2], h0[..., ::2])
+    with pytest.raises(ValueError, match="one device"):
+        ops.rglru_scan(a, b, h0.cpu())
+    assert ops.rglru_scan.launches == n
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -111,3 +140,34 @@ def test_reduced_rwkv6_engine_on_card_matches_cpu(cuda):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
                                    c.last_logits.numpy(), atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_layers", [2, 4])
+def test_reduced_griffin_engine_on_card_matches_cpu(cuda, num_layers):
+    """2 layers (the --reduced demo) are two tail recurrent layers; the 4 of
+    the reference's tests add one unit, whose local attention runs the
+    decode kernel over a ring of 32 slots that the conversation passes."""
+    cfg = get_config("recurrentgemma-2b").reduced(num_layers=num_layers, d_model=128)
+    params = init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+
+    def engine(device, p):
+        store = KVStore(64e9, POLICIES["lcs"], cfg.kv_bytes_per_token)
+        return RealExecutionEngine(cfg, p, store, max_len=serve.REDUCED_TURNS[3],
+                                   dtype=torch.float32, device=device)
+
+    _, c1, c2 = serve.two_turns(cfg, engine("cpu", params), True)
+    before = {n: getattr(ops, n).launches for n in ops.__all__}
+    _, g1, g2 = serve.two_turns(cfg, engine(cuda, _to(params, cuda)), True)
+    launched = {n: getattr(ops, n).launches - before[n] for n in ops.__all__}
+    ctx, new, num_new, _ = serve.REDUCED_TURNS
+    steps = (ctx + num_new) + (num_new + new + num_new)
+    units, tail = griffin_layout(cfg)
+    # per fed or decoded token: one rglru launch per recurrent layer, one
+    # decode-attention launch per unit
+    assert launched == {"flash_attention": 0, "decode_attention": steps * units,
+                        "rglru_scan": steps * (2 * units + tail), "wkv6": 0}
+    for c, g in ((c1, g1), (c2, g2)):
+        assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
+        np.testing.assert_allclose(g.last_logits.cpu().numpy(),
+                                   c.last_logits.numpy(), atol=5e-4)

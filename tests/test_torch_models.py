@@ -173,6 +173,6 @@ def test_torch_init_params_shapes_and_scales():
 
 
 def test_other_families_name_their_queue():
-    cfg = dataclasses.replace(get_config("yi-6b").reduced(), family="hybrid")
+    cfg = dataclasses.replace(get_config("yi-6b").reduced(), family="moe")
     with pytest.raises(NotImplementedError, match="Queue 1"):
         tt.init_cache(cfg, 1, 16, device="cpu")
