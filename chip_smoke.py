@@ -90,11 +90,10 @@ PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # fp32 outside the tensor cores
 L2_BYTES = 50e6
 DTYPES = (torch.float32, torch.bfloat16)
-SOURCES = {   # ops entry -> (its CUDA source, the Pallas call it replaces)
-    "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:106"),
-    "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:77"),
-    "rglru_scan": ("rglru.cu", "src/repro/kernels/rglru.py:38"),
-    "wkv6": ("wkv6.cu", "src/repro/kernels/wkv6.py:55")}
+SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
+           "decode_attention": "src/repro/kernels/decode_attention.py:77",
+           "rglru_scan": "src/repro/kernels/rglru.py:38",
+           "wkv6": "src/repro/kernels/wkv6.py:55"}
 PORT_KERNELS = ("flash_kernel", "decode_partial_kernel", "decode_merge_kernel",
                 "rglru_kernel", "wkv6_kernel")   # device names of the port's kernels
 RWKV = "rwkv6-1.6b"
@@ -692,11 +691,11 @@ def main():
     main_path = {"flash_attention": "yi-6b", "decode_attention": "yi-6b",
                  "rglru_scan": GRIFFIN, "wkv6": RWKV}
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, replaces in SOURCES.items():
         r = main_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": by_path[main_path[name]][name],
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

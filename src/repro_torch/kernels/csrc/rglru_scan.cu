@@ -91,7 +91,7 @@ extern "C" {
 // each is contiguous. hn is contiguous (B,D). Returns a cudaError_t
 // (0 = launched; cudaErrorInvalidValue for B outside 1..65535, S < 0 or
 // D <= 0).
-int rglru_launch(const float* a, const float* b, const float* h0, float* y,
+int rglru_scan_launch(const float* a, const float* b, const float* h0, float* y,
                  float* hn, int B, int S, int D,
                  long long a_sb, long long a_ss, long long b_sb, long long b_ss,
                  long long y_sb, long long y_ss, long long h_sb, void* stream) {

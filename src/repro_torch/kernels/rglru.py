@@ -1,4 +1,4 @@
-"""RG-LRU linear recurrence: wrapper of ``csrc/rglru.cu``.
+"""RG-LRU linear recurrence: wrapper of ``csrc/rglru_scan.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rglru.py`` (``rglru_scan`` /
 ``_rglru_kernel``): per (batch, channel), ``h_t = a_t * h_{t-1} + b_t`` from
@@ -62,10 +62,10 @@ def _launch(a, b, h0):
     hn = torch.empty((B, D), dtype=torch.float32, device=a.device)
     if B * D == 0:
         return y, hn
-    lib = build.load("rglru")
+    lib = build.load("rglru_scan")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_launch(
+        err = lib.rglru_scan_launch(
             a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(), hn.data_ptr(),
             B, S, D, *a.stride()[:2], *b.stride()[:2], *y.stride()[:2],
             h0.stride(0), ctypes.c_void_p(stream))
