@@ -4,13 +4,19 @@
 
 1. Setup: card name and power limit, torch and nvcc versions; builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
-   all started together) and times the build. TF32 is off for matmuls and
-   cuDNN.
+   all started together) and times the build; ptxas's registers and
+   spills per entry function, and no flash instantiation may spill. TF32
+   is off for matmuls and cuDNN.
 2. Attention kernels: each against its plain PyTorch version, fp32 and
-   bf16, at the sweep, ragged and empty-band shapes of
+   bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
+   ragged, empty-band and tile-edge shapes of
    ``repro_torch/kernels/cases.py`` and at every shape the yi-6b path gives
    it, with the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute
-   term scaled to the output). For each: kernel time, plain time,
+   term scaled to the output). Then, at full width, the last 512 rows of a
+   cold bf16 flash call at yi-6b's (1,32,4,2560,2560,128) and at Griffin's
+   (1,10,1,2560,2560,256, window 2048) must equal a hit's call from
+   ``q_offset`` 2048 bit for bit (``cases.FLASH_IDENTITY``). For each
+   timed shape: kernel time, plain time,
    ``library_ms`` (``F.scaled_dot_product_attention`` on the same masked GQA
    problem, a yardstick only: the port never calls it) and the least time
    the card could take, max(operations / peak rate, bytes / 3.35 TB/s),
@@ -23,7 +29,9 @@
    and prefill 512. Launch counters are set to 0 just before and read just
    after. A cold engine on the turn-2 prompt must give the same greedy
    tokens, and last-position logits within the bf16 kernel tolerance scaled
-   by the largest logit it measures. Then a profile of a replay of turn 2.
+   by the largest logit it measures. Then a profile of a replay of turn 2,
+   which must show 32 launches of ``flash_mma_kernel`` (one per layer) and
+   none of the CUDA-core ``flash_kernel``.
 4. wkv6 kernel: fp32 against ``wkv6_ref`` at every ``WKV6_*`` case and at
    the rwkv6-1.6b path's two shapes, (1,32,1,64) per engine step and
    (1,32,2048,64) per layer of a 2,048-token prefill, both read in place
@@ -75,6 +83,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -94,8 +103,8 @@ SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
            "decode_attention": "src/repro/kernels/decode_attention.py:77",
            "rglru_scan": "src/repro/kernels/rglru.py:38",
            "wkv6": "src/repro/kernels/wkv6.py:55"}
-PORT_KERNELS = ("flash_kernel", "decode_partial_kernel", "decode_merge_kernel",
-                "rglru_kernel", "wkv6_kernel")   # device names of the port's kernels
+PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_partial_kernel",
+                "decode_merge_kernel", "rglru_kernel", "wkv6_kernel")   # device names
 RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
 GRIFFIN = "recurrentgemma-2b"
@@ -246,7 +255,7 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
     for dtype in DTYPES:
         for group, table in (("sweep", cases.FLASH_SWEEP), ("ragged", cases.FLASH_RAGGED),
                              ("empty band", cases.FLASH_EMPTY_BAND),
-                             ("griffin", cases.FLASH_GRIFFIN)):
+                             ("griffin", cases.FLASH_GRIFFIN), ("tiles", cases.FLASH_TILES)):
             for i, case in enumerate(table):
                 rows[("flash_attention", dtype, f"{group} {i}")] = (
                     case, flash_row(ops, ref, cases, case, dtype))
@@ -267,6 +276,14 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
             f"sdpa {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
     return rows
+
+
+def identity_phase(cases):
+    """Cold rows against a cache hit's, bit for bit, at full width."""
+    for case, first in cases.FLASH_IDENTITY:
+        cases.check_flash_hit_rows(case, first, torch.bfloat16, "cuda", seed=3)
+        log(f"flash bfloat16 {case}: rows {first}-{case[3] - 1} of the cold call equal "
+            f"the hit's from q_offset {first} bit for bit")
 
 
 # --------------------------------------------------------------------------- #
@@ -339,14 +356,22 @@ def profile_turn2(serve, params, ctx2):
     log(f"unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(prefill {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
     eng.generate("prof", ctx2[:ctx_len], num_new=num_new)
-    r = profiled("turn 2", lambda: eng.generate("prof", ctx2, num_new=num_new))
+    r, calls = profiled("turn 2", lambda: eng.generate("prof", ctx2, num_new=num_new))
     if r.reused_tokens != ctx_len:
         raise AssertionError("profiled replay of turn 2 missed the cache")
+    # the suffix prefill: one tensor-core flash launch per layer, no CUDA-core one
+    mma = sum(c for n, c in calls.items() if "flash_mma_kernel" in n)
+    cuda_core = sum(c for n, c in calls.items() if "flash_kernel<" in n)
+    log(f"profiled replay: {mma} flash_mma_kernel launches, {cuda_core} flash_kernel")
+    if mma != cfg.num_layers or cuda_core:
+        raise AssertionError(f"profiled replay: {mma} flash_mma_kernel and {cuda_core} "
+                             f"flash_kernel launches, want {cfg.num_layers} and 0")
 
 
 def profiled(label, fn):
     """Run ``fn()`` under the profiler; log the window, the device's busy
-    time and idle share, and device time by kernel. Returns fn's result."""
+    time and idle share, and device time by kernel. Returns fn's result and
+    the device calls by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -362,14 +387,14 @@ def profiled(label, fn):
     busy = sum(by_name.values())
     if not busy:
         log(f"profile of {label}: the profiler saw no device time (not measured)")
-        return result
+        return result, calls
     log(f"profile of {label}: window {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     ours = [kv for kv in ranked[10:] if any(k in kv[0] for k in PORT_KERNELS)]
     for name, us in ranked[:10] + ours:
         log(f"  {us / 1e3:9.3f} ms {us / wall_us:7.2%} {calls[name]:6d} calls  {name[:100]}")
-    return result
+    return result, calls
 
 
 # --------------------------------------------------------------------------- #
@@ -618,7 +643,7 @@ def snapshot_engine_phase(serve, ops, cases, arch):
     r = rep.generate("replay", ctx2, num_new=num_new)
     log(f"{arch} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(feed {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
-    r = profiled(f"{arch} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
+    r, _ = profiled(f"{arch} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
     if r.reused_tokens != len(ctx) or r.tokens != r2.tokens:
         raise AssertionError("replay of turn 2 differs from turn 2")
     return launches
@@ -647,13 +672,18 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.3f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        build.build_logs.get("flash_attention", ""))
+    if any(a != "0" or b != "0" for a, b in spills):
+        raise AssertionError(f"flash_attention spills: {spills}")
 
     flash_main, decode_main = main_path_shapes(get_config("yi-6b"), serve)
     decode_main["griffin turn 2"] = griffin_decode_shape(get_config(GRIFFIN), serve)
     t0 = time.perf_counter()
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
+    identity_phase(cases)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     by_path = {"yi-6b": engine_phase(serve, ops, cases)}

@@ -5,7 +5,8 @@ One table for every check: ``tests/test_torch_kernels.py`` runs the plain
 versions against the JAX package on the CPU at these shapes,
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run the CUDA kernels
 against the plain versions on the card through ``check_flash``,
-``check_decode``, ``check_rglru`` and ``check_wkv6``.
+``check_decode``, ``check_rglru`` and ``check_wkv6``, and the flash kernel's
+cache-hit rows against its cold rows through ``check_flash_hit_rows``.
 
 Flash cases are ``(B, H, KV, Sq, Sk, hd, q_offset, window, causal)``.
 Decode cases are ``(B, H, KV, W, hd, nvalid, start)``: the valid slots are
@@ -19,9 +20,17 @@ reference's ``atol = rtol = tol``. An attention output averages many values
 of V, so at long ``Sk`` its largest entries are far below 1 (about 0.15 at
 the main path's shapes), and a fixed ``atol`` of 2e-2 would pass a bf16
 fault of several percent; the absolute term therefore shrinks with the
-output's own scale. Kernel and plain version both accumulate in fp32 and
-round once, so in bf16 they differ by about one bf16 ulp (2**-8 of the
-value), well inside ``2e-2 * |want|``.
+output's own scale. Both accumulate in fp32 and round the output once; in
+bf16 the kernel also rounds P to bf16 before the PV product (as SDPA and
+FlashAttention do) while the plain version keeps P in fp32. So they differ
+by about one bf16 ulp of the output (2**-8 of the value) plus P's rounding,
+a relative 2**-9 per weight that averages out over the keys: well inside
+``2e-2 * (scale + |want|)``.
+
+``FLASH_TILES`` puts lengths, offsets and windows on either side of the
+bf16 kernel's tile edges (64 keys, 128 packed query rows);
+``FLASH_IDENTITY`` pairs a cold call with the cache hit on its last rows,
+which ``check_flash_hit_rows`` holds equal bit for bit.
 
 WKV6 cases are ``(B, H, S, hd, decay, s0_scale, layout)``: ``decay`` None
 draws ``w`` uniform in [0.8, 0.999) as ``tests/test_kernels.py`` does, a
@@ -75,6 +84,27 @@ FLASH_EMPTY_BAND = [
     (2, 6, 3, 40, 30, 64, 24, 6, True),         # a mixed block and an all-empty block
     (1, 4, 2, 12, 20, 32, 20, 8, False),        # not causal: rows 7-11 see none
     (1, 4, 4, 8, 16, 16, 0, 0, True),           # window 0: no row sees a key
+]
+# either side of the bf16 kernel's tiles: 64-key K/V tiles, 128 packed
+# query rows (G heads x 128/G positions)
+FLASH_TILES = [
+    (1, 8, 2, 63, 65, 64, 2, None, True),         # Sq one below, Sk one above a tile
+    (1, 8, 2, 65, 63, 64, 0, None, True),         # and the other way round
+    (1, 4, 1, 127, 129, 128, 2, None, True),      # around two tiles
+    (1, 4, 1, 129, 127, 128, 0, None, False),
+    (1, 32, 4, 70, 301, 128, 231, None, True),    # q_offset no multiple of a tile
+    (1, 64, 1, 5, 90, 64, 85, None, True),        # G = 64, the largest: 2 rows per head
+    (1, 10, 1, 30, 40, 256, 30, 16, True),        # rows 24-29 share a block: 24 sees a key, 25-29 none
+    (1, 4, 2, 50, 200, 80, 150, 37, True),        # hd 80, the window edge inside a tile
+    (1, 10, 1, 40, 300, 256, 260, 100, True),     # hd 256, the window edge inside a tile
+    (1, 4, 2, 33, 100, 136, 67, None, True),      # hd 136: a 64-column block wholly past hd
+]
+# (cold case, first hit row): the suffix rows of a cold prefill against the
+# hit's call on the same keys with q_offset at that row
+FLASH_IDENTITY = [
+    ((1, 32, 4, 2560, 2560, 128, 0, None, True), 2048),   # yi-6b, turn 2
+    ((1, 10, 1, 2560, 2560, 256, 0, 2048, True), 2048),   # recurrentgemma-2b
+    ((1, 10, 1, 700, 700, 256, 0, 300, True), 333),       # a hit row off the blocks' edges
 ]
 # recurrentgemma-2b's local attention: 10 query heads on one kv head of 256,
 # window 2048; the model phase's prefill of 2,560 tokens, where the window
@@ -247,6 +277,22 @@ def check_flash(case, dtype, device, seed=0):
     out = ops.flash_attention(q, k, v, q_offset=off, window=win, causal=causal)
     want = ref.flash_attention_ref(q, k, v, q_offset=off, window=win, causal=causal)
     return held("flash_attention", case, out, want), (q, k, v)
+
+
+def check_flash_hit_rows(case, first, dtype, device, seed=0):
+    """Rows ``first..`` of a cold call on ``case`` against a hit call that
+    starts its queries there (``q_offset=first``, the same K/V); the number
+    of rows that differ, and raises unless there is none."""
+    q, k, v = flash_inputs(case, dtype, device, seed)
+    win, causal = case[7:]
+    cold = ops.flash_attention(q, k, v, q_offset=0, window=win, causal=causal)
+    hit = ops.flash_attention(q[:, :, first:], k, v, q_offset=first, window=win,
+                              causal=causal)
+    differ = int((cold[:, :, first:] != hit).any(dim=-1).sum())
+    if differ:
+        raise AssertionError(f"flash_attention {case} hit at {first}: {differ} rows "
+                             "differ from the cold call's")
+    return differ
 
 
 def check_decode(case, dtype, device, seed=0):

@@ -5,13 +5,30 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 queries at absolute positions ``q_offset + i`` attend to cached-prefix plus
 suffix keys, causal, with an optional sliding window.
 
-On the H100 the main path's call (32 query heads of 512 suffix tokens
-against 2,560 keys, ``hd=128``) is bound by operations, not bytes. The CUDA
-kernel reads each K/V tile once for the G query heads that share it, skips
-key tiles outside the causal/window band (about half of the tiles of a
-cold causal prefill) unless a row of the block sees no key at all, and masks
-ragged tails in-kernel; this first version does its products in fp32 FMA on
-the CUDA cores, not on the tensor cores.
+One C entry, two routes chosen by dtype alone (no route falls back):
+
+* bf16, the serving path: ``flash_mma_kernel``, both products on the
+  tensor cores (``wgmma``, fp32 accumulation, P rounded to bf16 for the PV
+  product as SDPA and FlashAttention round it). At the main path's shapes
+  (yi-6b's 32 query heads of 512 suffix tokens against 2,560 keys, hd 128;
+  Griffin's 10 heads of 256 over 2,560 keys, window 2,048) the call does
+  900-1,400 flops per byte it must move, above the card's balance point of
+  295, so the tensor cores' 989 TFLOP/s bound it. A block packs 128 query
+  rows (the G heads that share a kv head times 128/G positions), so each
+  K/V tile is read once for the group; 64-key tiles arrive by TMA, issued
+  by one thread and completed on ``mbarrier``s, into a ring of
+  shared-memory slots while the previous ones are multiplied. What holds
+  it above that bound is the softmax between the two products, on the
+  CUDA cores (``repro_torch.kernels.phases`` splits a tile's time); the
+  kernel cuts it to one FFMA and one ``ex2`` per score.
+* fp32: ``flash_kernel``, fp32 FMA on the CUDA cores, for the fp32 model
+  phases and the 2e-5 tolerance, which TF32 products would miss; it is
+  bound by the CUDA cores' 67 TFLOP/s.
+
+Both skip key tiles outside the causal/window band of a block unless a row
+of the block sees no key at all, mask ragged tails in-kernel, and give a
+row the same bits whichever block it lands in, so a cache hit's suffix
+rows equal the cold prefill's.
 
 It computes the reference's function on every input, including rows whose
 band is empty (a window that ends before the keys begin): those get the mean
@@ -59,9 +76,21 @@ def _check(q, k, v, q_offset, window):
         raise ValueError(f"q_offset={q_offset}, window={window} out of int32 range")
 
 
-def _launch(q, k, v, q_offset, causal, window):
+def _entry_args(q, k, v, out, q_offset, causal, window, stream):
+    """The arguments of the C entry ``flash_attention_launch`` for this
+    call (pointers, shapes, strides in elements, masking, the stream)."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
+    return (DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KV, Sq, Sk, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(q_offset), int(causal), int(window is not None), int(window or 0),
+            ctypes.c_void_p(stream))
+
+
+def _launch(q, k, v, q_offset, causal, window):
+    B, H, Sq, hd = q.shape
+    KV = k.shape[1]
     if hd > MAX_HEAD_DIM or H // KV > MAX_GROUP:
         raise ValueError(f"kernel takes hd <= {MAX_HEAD_DIM} and H/KV <= "
                          f"{MAX_GROUP}; got hd={hd}, H/KV={H // KV}")
@@ -76,11 +105,7 @@ def _launch(q, k, v, q_offset, causal, window):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
-            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, H, KV, Sq, Sk, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(q_offset), int(causal), int(window is not None), int(window or 0),
-            ctypes.c_void_p(stream))
+            *_entry_args(q, k, v, out, q_offset, causal, window, stream))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1

@@ -21,7 +21,7 @@ from repro_torch.models.transformer import griffin_layout, init_params
 from repro_torch.serving.realexec import RealExecutionEngine
 
 FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
-               + cases.FLASH_GRIFFIN)
+               + cases.FLASH_GRIFFIN + cases.FLASH_TILES)
 DECODE_CASES = cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
 WKV6_CASES = cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
 RGLRU_CASES = cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
@@ -44,6 +44,16 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
     cases.check_flash(case, dtype, cuda)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,first", cases.FLASH_IDENTITY)
+def test_flash_hit_rows_equal_cold_rows(cuda, case, first):
+    """A cache hit's suffix rows equal the cold prefill's bit for bit in
+    bf16: a row's arithmetic does not depend on its block."""
+    n = ops.flash_attention.launches
+    assert cases.check_flash_hit_rows(case, first, torch.bfloat16, cuda) == 0
+    assert ops.flash_attention.launches == n + 2
 
 
 @pytest.mark.gpu

@@ -19,10 +19,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, cases, ops
+from repro_torch.kernels import build, cases, ops, phases
 from repro_torch.kernels.cases import (DECODE_RAGGED, DECODE_SWEEP, FLASH_EMPTY_BAND,
-                                       FLASH_RAGGED, FLASH_SWEEP)
+                                       FLASH_RAGGED, FLASH_SWEEP, FLASH_TILES)
 from repro_torch.kernels.decode_attention import TILE, split_plan
+from repro_torch.kernels.flash_attention import _entry_args
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -67,7 +68,7 @@ def test_flash_attention_matches_pallas(dtype, case):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FLASH_RAGGED + FLASH_EMPTY_BAND)
+@pytest.mark.parametrize("case", FLASH_RAGGED + FLASH_EMPTY_BAND + FLASH_TILES)
 def test_flash_attention_ragged_and_empty_band_match_reference(dtype, case):
     (jq, tq), (jk, tk), (jv, tv) = _flash_pairs(case, dtype, seed=1)
     off, win, causal = case[6:]
@@ -221,6 +222,46 @@ def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     assert build.library_path("flash_attention") != a
 
 
+def test_phase_clock_build_is_a_library_of_its_own():
+    """The clock build sits beside the shipped flash library under its own
+    name, so ``build.load`` never hands it to the serving path."""
+    plain = build.library_path("flash_attention")
+    clocks = phases.library_path()
+    assert clocks != plain and clocks.parent == plain.parent
+    assert clocks.name.startswith("libflash_attention_clocks-")
+    assert phases.FLAGS == build.NVCC_FLAGS + ("-DFLASH_PHASE_CLOCKS",)
+
+
+def test_flash_entry_args_carry_the_views_strides():
+    """The C entry gets the model's transposed (B,S,KV,hd) caches by their
+    strides, in elements, and the masking as flags."""
+    q = torch.zeros(1, 10, 8, 256, dtype=torch.bfloat16)
+    k, v = (torch.zeros(1, 24, 1, 256, dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    out = torch.empty_like(q)
+    args = _entry_args(q, k, v, out, 16, True, 12, 0)
+    assert len(args) == len(build._SIGNATURES["flash_attention"]
+                            ["flash_attention_launch"][1])
+    assert args[0] == 1 and args[1:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr())
+    assert args[5:11] == (1, 10, 1, 8, 24, 256)
+    assert args[11:23] == (q.stride()[:3] + (6144, 256, 256) + (6144, 256, 256)
+                           + out.stride()[:3])
+    assert args[23:27] == (16, 1, 1, 12)
+    assert _entry_args(q.float(), k.float(), v.float(), out.float(), 0, False, None,
+                       0)[23:27] == (0, 0, 0, 0)
+
+
+def test_phases_cover_the_main_paths_bf16_flash_calls():
+    got = phases.shapes()
+    assert got["yi-6b turn 2"] == (1, 32, 4, 512, 2560, 128, 2048, None, True)
+    assert got["yi-6b cold"] == (1, 32, 4, 2560, 2560, 128, 0, None, True)
+    assert got["recurrentgemma-2b prefill"] == cases.FLASH_GRIFFIN[0]
+    counts = [10, 20, 30, 40, 50, 5] + [0, 0, 0, 0, 0, 0]
+    assert phases.per_tile(counts) == {0: (5, [2.0, 4.0, 6.0, 8.0, 10.0]),
+                                       1: (0, [0.0] * 5)}
+
+
 def test_build_dir_in_checkout_and_installed(tmp_path, monkeypatch):
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
     site = tmp_path / "lib" / "python3.12" / "site-packages"
@@ -261,3 +302,7 @@ def test_kernel_sources_call_no_library_attention():
         text = src.read_text()
         for banned in ("cublas", "cudnn", "scaled_dot_product", "#include <torch"):
             assert banned not in text.lower(), f"{src.name}: {banned}"
+    # bf16 flash runs on the tensor-core kernel only: the CUDA-core one has
+    # no bf16 instantiation
+    flash = (build.CSRC / "flash_attention.cu").read_text()
+    assert re.search(r"flash_kernel<\s*__nv_bfloat16", flash) is None

@@ -205,3 +205,23 @@ def test_cuda_engine_never_falls_back_to_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RealExecutionEngine(cfg, tp, KVStore(1e9, POLICIES["lcs"], 1.0),
                             dtype=torch.float32)
+
+
+def test_first_hit_times_and_profiles_the_suffix_prefill(capsys):
+    """The first-hit script's prefill on the reduced demo, unprofiled and
+    under the profiler: a suffix-only prefill, timed, with its host calls."""
+    from repro_torch.launch import first_hit
+    cfg, eng = serve.build_engine("yi-6b", device="cpu", reduced=True)
+    ctx, extra, num_new = serve.conversation(cfg, True)
+    r1 = eng.generate("c", ctx, num_new=num_new)
+    ctx2 = ctx + r1.tokens + extra
+    ms, wall, prof = first_hit.timed_prefill(eng, "c", ctx2, profile=False)
+    assert ms > 0 and wall is None and prof is None
+    assert eng.store.entries["c"].payload[0] == len(ctx2)
+    eng.generate("d", ctx, num_new=num_new)
+    ms, wall, prof = first_hit.timed_prefill(eng, "d", ctx2, profile=True)
+    assert 0 < ms <= wall
+    first_hit.report("replay", ms, wall, prof, top=3)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("replay: prefill ") and "idle share" in out[1]
+    assert len(out) == 5 and all(line.startswith("  host ") for line in out[2:])
