@@ -22,7 +22,13 @@
    the card could take, max(operations / peak rate, bytes / 3.35 TB/s),
    with the term that binds. Times rotate over copies of the inputs that
    together exceed the 50 MB L2 cache, as each layer of the model reads its
-   own inputs.
+   own inputs. Each decode row also gives device time per call from the
+   profiler over the same rotated loop, for the kernel and for SDPA (every
+   device kernel a call launches, summed), and checks that the kernel's
+   calls ran only ``decode_mma_kernel`` (bf16, hd <= 256) or
+   ``decode_partial_kernel``. The floor row (``cases.DECODE_FLOOR``: one kv
+   head, W = 64, one valid slot) gives the fixed cost of a call that does
+   almost no work.
 3. yi-6b engine: full width in bf16 on random weights (``torch.Generator``
    seed 0), ``max_len`` 4096: a 2,048-token context, then the same context
    plus the 8 generated and 504 new tokens, which must reuse 2,048 tokens
@@ -31,7 +37,8 @@
    tokens, and last-position logits within the bf16 kernel tolerance scaled
    by the largest logit it measures. Then a profile of a replay of turn 2,
    which must show 32 launches of ``flash_mma_kernel`` (one per layer) and
-   none of the CUDA-core ``flash_kernel``.
+   none of the CUDA-core ``flash_kernel``, and 256 of ``decode_mma_kernel``
+   (8 tokens x 32 layers) and none of ``decode_partial_kernel<bf16>``.
 4. wkv6 kernel: fp32 against ``wkv6_ref`` at every ``WKV6_*`` case and at
    the rwkv6-1.6b path's two shapes, (1,32,1,64) per engine step and
    (1,32,2048,64) per layer of a 2,048-token prefill, both read in place
@@ -71,8 +78,11 @@
    route, ``max_len`` 1024: as step 6, with exactly (520 + 72) × 18 =
    10,656 rglru and (520 + 72) × 8 = 4,736 decode-attention launches and no
    flash or wkv6 launch; a cold engine, peak memory, the snapshot's bytes
-   and a profiled replay of turn 2.
-10. Prints a ``kernels`` JSON line, the card line, and last
+   and a profiled replay of turn 2, which must show (64 + 8) x 8 = 576
+   launches of ``decode_mma_kernel`` and none of
+   ``decode_partial_kernel<bf16>``.
+10. Prints a ``kernels`` JSON line (decode's entry with ``device_ms`` and
+   ``library_device_ms``), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero. Without a card, or without the rest
@@ -103,8 +113,9 @@ SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
            "decode_attention": "src/repro/kernels/decode_attention.py:77",
            "rglru_scan": "src/repro/kernels/rglru.py:38",
            "wkv6": "src/repro/kernels/wkv6.py:55"}
-PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_partial_kernel",
-                "decode_merge_kernel", "rglru_kernel", "wkv6_kernel")   # device names
+PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
+                "decode_partial_kernel", "rglru_kernel", "wkv6_kernel")   # device names
+DECODE_BF16_OLD = "decode_partial_kernel<__nv_bfloat16"   # bf16 decode must not run it
 RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
 GRIFFIN = "recurrentgemma-2b"
@@ -134,6 +145,35 @@ def rotated_ms(fn, sets, iters: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, sets, iters: int):
+    """Device time in ms of one call of ``fn(*s)``, over ``iters`` calls on
+    the rotated input sets, and the device launches by kernel name, from the
+    profiler's device events: each kernel's mean duration times the
+    launches it makes per call (its launches over those of the kernel
+    launched least). The profiler can miss the first kernels of a short
+    window; a window in which it saw none is run again, twice at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for s in sets[:3]:
+        fn(*s)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*sets[i % len(sets)])
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if us:
+            least = min(len(t) for t in us.values())
+            per_call = sum(sum(t) / len(t) * round(len(t) / least) for t in us.values())
+            return per_call / 1e3, {n: len(t) for n, t in us.items()}
+    raise AssertionError("the profiler saw no device time in three windows")
 
 
 def copies(tensors, limit: int = 16):
@@ -211,17 +251,33 @@ def flash_row(ops, ref, cases, case, dtype):
 
 def decode_row(ops, ref, cases, case, dtype):
     err, (q, k, v, valid) = cases.check_decode(case, dtype, "cuda")
-    B, H, KV, W, hd, nvalid, _ = case
+    B, H, KV, W, hd, nvalid, _ = case[:7]
     mask = valid.bool()[None, None, None, :]
     sets = copies([q, k, v, valid])
+
+    def sdpa(q_, k_, v_, _):
+        return F.scaled_dot_product_attention(q_[:, :, None], k_, v_, attn_mask=mask,
+                                              enable_gqa=True)
+
+    # SDPA's fused kernels take no view that starts off a 16-byte boundary
+    # (cases.DECODE_RAGGED's storage offset 1): it gets clones (same strides)
+    lib_sets = [[t.clone() for t in sets[0]]] + sets[1:]
     ms = rotated_ms(ops.decode_attention, sets, 50)
     plain = rotated_ms(ref.decode_attention_ref, sets, 20)
-    lib = rotated_ms(lambda q_, k_, v_, _: F.scaled_dot_product_attention(
-        q_[:, :, None], k_, v_, attn_mask=mask, enable_gqa=True), sets, 50)
+    lib = rotated_ms(sdpa, lib_sets, 50)
+    dev, calls = device_ms(ops.decode_attention, sets, 50)
+    lib_dev, _ = device_ms(sdpa, lib_sets, 50)
+    # one device kernel per call: the tensor-core kernel for bf16 up to hd 256
+    want = "decode_mma_kernel" if dtype == torch.bfloat16 and hd <= 256 else \
+        "decode_partial_kernel"
+    if sum(calls.values()) > 50 or not all(want in n for n in calls):
+        raise AssertionError(f"decode {case} {dtype}: device launches {calls}, want "
+                             f"50 of {want}")
     slots = nvalid or W                   # no valid slot: the mean of all W
     ops_n = B * H * (4 if nvalid else 2) * hd * slots
     nbytes = q.element_size() * (2 * q.numel() + 2 * B * KV * slots * hd) + 4 * W
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, device_ms=dev,
+                library_device_ms=lib_dev,
                 **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
 
 
@@ -263,7 +319,7 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
             rows[("flash_attention", dtype, label)] = (
                 case, flash_row(ops, ref, cases, case, dtype))
         for group, table in (("sweep", cases.DECODE_SWEEP), ("ragged", cases.DECODE_RAGGED),
-                             ("griffin", cases.DECODE_GRIFFIN)):
+                             ("griffin", cases.DECODE_GRIFFIN), ("floor", cases.DECODE_FLOOR)):
             for i, case in enumerate(table):
                 rows[("decode_attention", dtype, f"{group} {i}")] = (
                     case, decode_row(ops, ref, cases, case, dtype))
@@ -271,10 +327,14 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
             rows[("decode_attention", dtype, label)] = (
                 case, decode_row(ops, ref, cases, case, dtype))
     for (name, dtype, label), (case, r) in rows.items():
+        device = ""
+        if "device_ms" in r:
+            device = (f"; device per call: kernel {r['device_ms']:.5f} ms, "
+                      f"sdpa {r['library_device_ms']:.5f} ms")
         log(f"{name} {str(dtype)[6:]} {label} {case}: max |err| {r['max_abs_err']:.3e}, "
             f"kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
             f"sdpa {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}){device}")
     return rows
 
 
@@ -366,6 +426,21 @@ def profile_turn2(serve, params, ctx2):
     if mma != cfg.num_layers or cuda_core:
         raise AssertionError(f"profiled replay: {mma} flash_mma_kernel and {cuda_core} "
                              f"flash_kernel launches, want {cfg.num_layers} and 0")
+    # the decode: one tensor-core decode launch per layer and token
+    check_decode_calls("yi-6b", calls, num_new * cfg.num_layers)
+
+
+def check_decode_calls(label, calls, want):
+    """A profiled replay ran ``want`` launches of ``decode_mma_kernel`` and
+    none of the bf16 CUDA-core decode or of a separate merge."""
+    mma = sum(c for n, c in calls.items() if "decode_mma_kernel" in n)
+    old = sum(c for n, c in calls.items()
+              if DECODE_BF16_OLD in n or "decode_merge_kernel" in n)
+    log(f"{label} profiled replay: {mma} decode_mma_kernel launches, {old} "
+        f"decode_partial_kernel<bf16> or decode_merge_kernel")
+    if mma != want or old:
+        raise AssertionError(f"{label} profiled replay: {mma} decode_mma_kernel and {old} "
+                             f"older decode launches, want {want} and 0")
 
 
 def profiled(label, fn):
@@ -643,9 +718,12 @@ def snapshot_engine_phase(serve, ops, cases, arch):
     r = rep.generate("replay", ctx2, num_new=num_new)
     log(f"{arch} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(feed {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
-    r, _ = profiled(f"{arch} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
+    r, calls = profiled(f"{arch} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
     if r.reused_tokens != len(ctx) or r.tokens != r2.tokens:
         raise AssertionError("replay of turn 2 differs from turn 2")
+    # every fed and decoded token of turn 2: one decode launch per unit
+    check_decode_calls(arch, calls, (len(ctx2) - len(ctx) + num_new)
+                       * per_token(cfg)["decode_attention"])
     return launches
 
 
@@ -681,6 +759,9 @@ def main():
 
     flash_main, decode_main = main_path_shapes(get_config("yi-6b"), serve)
     decode_main["griffin turn 2"] = griffin_decode_shape(get_config(GRIFFIN), serve)
+    if list(decode_main.values()) != cases.DECODE_MAIN:
+        raise AssertionError(f"main-path decode shapes {decode_main} are not "
+                             f"cases.DECODE_MAIN {cases.DECODE_MAIN}")
     t0 = time.perf_counter()
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
     identity_phase(cases)
@@ -730,7 +811,8 @@ def main():
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("device_ms", "library_device_ms") if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ cache-hit rows against its cold rows through ``check_flash_hit_rows``.
 Flash cases are ``(B, H, KV, Sq, Sk, hd, q_offset, window, causal)``.
 Decode cases are ``(B, H, KV, W, hd, nvalid, start)``: the valid slots are
 ``start, start + 1, ... (mod W)``, ``nvalid`` of them, as a ring cache holds
-a window of positions.
+a window of positions. An eighth entry, where there is one, is the storage
+offset in elements at which the caches' data starts (1: off every 16-byte
+boundary).
 
 Tolerance: ``|out - want| <= tol * (scale + |want|)`` elementwise, with
 ``tol`` 2e-5 in fp32 and 2e-2 in bf16 (those of ``tests/test_kernels.py``)
@@ -120,7 +122,23 @@ DECODE_RAGGED = [
     (1, 4, 2, 50, 8, 0, 0),               # no valid slot: mean of V over W
     (1, 8, 2, 300, 32, 0, 0),             # no valid slot, W over several chunks
     (1, 32, 4, 1000, 128, 700, 900),      # yi-6b's heads, a wrapped window
+    (1, 40, 2, 300, 64, 170, 250),        # G = 20: two groups of 16 query rows
+    (2, 8, 2, 130, 72, 90, 100),          # hd 72, not a multiple of 16
+    (2, 4, 2, 1, 32, 1, 0),               # W = 1
+    (1, 8, 2, 300, 32, 1, 299),           # one valid slot, in the last chunk only
+    (1, 8, 2, 200, 64, 120, 150, 1),      # caches one element off a 16-byte boundary
+    (1, 2, 1, 40, 320, 30, 5),            # hd 320: bf16 on the CUDA-core kernel
+    (1, 4, 2, 90, 7, 60, 20),             # odd hd: element-by-element fill, scalar merge
 ]
+# the two main paths' shapes: yi-6b's step at the end of turn 2 (4,096 slots,
+# 2,568 valid), recurrentgemma-2b's (a ring of 1,024, 584 valid)
+DECODE_MAIN = [
+    (1, 32, 4, 4096, 128, 2568, 0),
+    (1, 10, 1, 1024, 256, 584, 0),
+]
+# the fixed cost of a call that does almost no work: one kv head, W = 64,
+# one valid slot
+DECODE_FLOOR = [(1, 8, 1, 64, 128, 1, 0)]
 DECODE_GRIFFIN = [                        # recurrentgemma-2b's heads, a ring of 2,048
     (1, 10, 1, 2048, 256, 2048, 1500),    # full, wrapped: the window at pos > 2048
     (1, 10, 1, 2048, 256, 700, 1800),     # fewer valid slots, across the wrap
@@ -196,12 +214,26 @@ def flash_inputs(case, dtype, device, seed=0):
             for x in _randn(seed, (B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd))]
 
 
+def at_offset(t, offset: int):
+    """A copy of contiguous ``t`` whose data starts ``offset`` elements into
+    its storage."""
+    if not offset:
+        return t
+    buf = t.new_empty(t.numel() + offset)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def decode_inputs(case, dtype, device, seed=0):
     """q (B,H,hd), caches as the model holds them, (B,W,KV,hd), passed as
-    permuted (B,KV,W,hd) views, and ``valid``."""
-    B, H, KV, W, hd, nvalid, start = case
+    permuted (B,KV,W,hd) views (at the case's storage offset), and
+    ``valid``."""
+    B, H, KV, W, hd, nvalid, start = case[:7]
+    offset = case[7] if len(case) > 7 else 0
     q, kc, vc = (torch.from_numpy(x).to(device=device, dtype=dtype)
                  for x in _randn(seed, (B, H, hd), (B, W, KV, hd), (B, W, KV, hd)))
+    kc, vc = at_offset(kc, offset), at_offset(vc, offset)
     valid = torch.from_numpy(decode_valid(W, nvalid, start)).to(device)
     return q, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), valid
 

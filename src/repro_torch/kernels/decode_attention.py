@@ -4,21 +4,25 @@ Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention`` / ``_decode_kernel``): one query token per sequence
 against the ring KV cache, with the slot mask given as ``valid (W,)``.
 
-On the H100 decode attention is bound by memory: every valid slot's K and
-V are read once for a handful of operations each. The CUDA kernel reads the
-model's ``(B, W, KV, hd)`` cache in place through the strides of a permuted
-view (no copy per step), skips key tiles without a valid slot, and masks a
-ragged tail of ``W``. One block per ``(batch, kv_head)`` would use 4 of the
-132 SMs at batch 1 for yi-6b, so ``W`` is split across blocks
-(flash-decoding): ``split_plan`` picks enough chunks for about two blocks per
-SM, each block reduces its chunk to ``(m, l, acc)`` in fp32 scratch that
-this wrapper allocates, and a second kernel merges the chunks. With no valid
+On the H100 decode attention is bound by memory, and at the serving shapes
+by latency: every valid slot's K and V are read once for a handful of
+operations each. The CUDA kernel reads the model's ``(B, W, KV, hd)`` cache
+in place through the strides of a permuted view (no copy per step), loads
+no K/V for a 16-slot tile without a valid slot, and masks a ragged tail of
+``W``. One block per ``(batch, kv_head)`` would use 1 to 4 of the 132 SMs
+at batch 1, so ``W`` is split into chunks (flash-decoding), one block each;
+the blocks of a ``(batch, kv_head)`` form one thread-block cluster, keep
+their chunk's ``(m, l, acc)`` in shared memory and merge through each
+other's shared memory in the same launch, so the call needs no scratch.
+``split_plan`` picks the chunks. bf16 runs both products on the tensor
+cores (``decode_mma_kernel``); fp32 runs on the CUDA cores. With no valid
 slot at all the result is the mean of V over all ``W`` slots, as the
 reference gives.
 
 A tensor on the CPU goes to the plain version (``ref.decode_attention_ref``);
 a CUDA tensor launches the kernel or raises. ``decode_attention.launches``
-counts kernel launches (one per call, which runs both passes).
+counts kernel launches (one per call, which runs both the chunks and the
+merge).
 """
 from __future__ import annotations
 
@@ -29,17 +33,22 @@ import torch
 from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64                   # slots per key tile (kBK in the source)
-BLOCKS_PER_SM = 2
+TILE = 16                   # slots per key tile (kBK in the source)
+MIN_TILES = 4               # tiles per chunk, at least (unless W is shorter)
+MAX_SPLITS = 16             # chunks: the blocks of one cluster (kMaxCluster)
+BLOCKS_PER_SM = 1
+
+_sm_count: dict = {}        # device index -> SMs
 
 
 def split_plan(B: int, KV: int, W: int, num_sms: int):
     """(nsplit, chunk): ``W`` in ``nsplit`` chunks of ``chunk`` slots, a
-    multiple of the tile, with about ``BLOCKS_PER_SM`` blocks per SM over
-    the ``B * KV`` rows of the grid."""
+    multiple of the tile: as many chunks as a cluster takes, as long as each
+    holds ``MIN_TILES`` tiles and the grid's ``B * KV * nsplit`` blocks stay
+    within about ``BLOCKS_PER_SM`` per SM."""
     tiles = -(-W // TILE)
-    want = max(1, -(-BLOCKS_PER_SM * num_sms // (B * KV)))
-    per_split = -(-tiles // min(tiles, want))
+    want = -(-BLOCKS_PER_SM * num_sms // (B * KV))
+    per_split = -(-tiles // max(1, min(MAX_SPLITS, tiles // MIN_TILES, want)))
     return -(-tiles // per_split), per_split * TILE
 
 
@@ -70,7 +79,6 @@ def _check(q, k_cache, v_cache, valid):
 def _launch(q, k_cache, v_cache, valid):
     B, H, hd = q.shape
     KV, W = k_cache.shape[1], k_cache.shape[2]
-    G = H // KV
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.shape[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dimension must be contiguous; "
@@ -79,19 +87,23 @@ def _launch(q, k_cache, v_cache, valid):
     if out.numel() == 0:
         return out
     lib = build.load("decode_attention")
-    nsplit, chunk = split_plan(
-        B, KV, W, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    dev = q.device.index
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    nsplit, chunk = split_plan(B, KV, W, sms)
     valid = valid.contiguous()
-    part_ml = torch.empty((B, KV, nsplit, G, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, KV, nsplit, G, hd), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.decode_attention_launch(
-            DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-            B, H, KV, W, hd, nsplit, chunk,
+    args = (DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), B, H, KV, W, hd, nsplit, chunk,
             *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
-            *out.stride()[:2], ctypes.c_void_p(stream))
+            *out.stride()[:2])
+    if dev == torch.cuda.current_device():
+        err = lib.decode_attention_launch(
+            *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.decode_attention_launch(
+                *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     decode_attention.launches += 1

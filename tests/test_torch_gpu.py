@@ -22,7 +22,8 @@ from repro_torch.serving.realexec import RealExecutionEngine
 
 FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
                + cases.FLASH_GRIFFIN + cases.FLASH_TILES)
-DECODE_CASES = cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
+DECODE_CASES = (cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
+                + cases.DECODE_MAIN + cases.DECODE_FLOOR)
 WKV6_CASES = cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
 RGLRU_CASES = cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
 
@@ -64,6 +65,17 @@ def test_decode_kernel_matches_plain_on_strided_cache(cuda, dtype, case):
     cases.check_decode(case, dtype, cuda)
     torch.cuda.synchronize()
     assert ops.decode_attention.launches == n + 1
+
+
+@pytest.mark.gpu
+def test_decode_kernel_repeats_bit_for_bit(cuda):
+    """The merge keeps no state between calls: the same call gives the same
+    bits after calls of other shapes (other cluster sizes) in between."""
+    griffin = cases.decode_inputs(cases.DECODE_MAIN[1], torch.bfloat16, cuda)
+    first = ops.decode_attention(*griffin)
+    for case in (cases.DECODE_MAIN[0], cases.DECODE_FLOOR[0], cases.DECODE_RAGGED[4]):
+        ops.decode_attention(*cases.decode_inputs(case, torch.bfloat16, cuda))
+    assert torch.equal(ops.decode_attention(*griffin), first)
 
 
 @pytest.mark.gpu

@@ -19,10 +19,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, cases, ops, phases
-from repro_torch.kernels.cases import (DECODE_RAGGED, DECODE_SWEEP, FLASH_EMPTY_BAND,
-                                       FLASH_RAGGED, FLASH_SWEEP, FLASH_TILES)
-from repro_torch.kernels.decode_attention import TILE, split_plan
+from repro_torch.kernels import build, cases, ops, phases, ref
+from repro_torch.kernels.cases import (DECODE_MAIN, DECODE_RAGGED, DECODE_SWEEP,
+                                       FLASH_EMPTY_BAND, FLASH_RAGGED, FLASH_SWEEP,
+                                       FLASH_TILES)
+from repro_torch.kernels.decode_attention import MAX_SPLITS, TILE, split_plan
 from repro_torch.kernels.flash_attention import _entry_args
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -108,19 +109,75 @@ def test_decode_attention_matches_pallas(dtype, case):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", DECODE_RAGGED)
+@pytest.mark.parametrize("case", DECODE_RAGGED + DECODE_MAIN)
 def test_decode_attention_ragged_strided_matches_reference(dtype, case):
-    """Caches as permuted (B,W,KV,hd) views the way the model passes them,
-    W that no tile divides, ring-wrapped and empty masks."""
-    B, H, KV, W, hd, nvalid, start = case
+    """Caches as permuted (B,W,KV,hd) views the way the model passes them
+    (at the case's storage offset), W that no tile divides, ring-wrapped and
+    empty masks, the main paths' shapes."""
+    B, H, KV, W, hd, nvalid, start = case[:7]
     q, kc, vc = _data(3, (B, H, hd), (B, W, KV, hd), (B, W, KV, hd))
     valid = cases.decode_valid(W, nvalid, start)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, kc, vc))
+    offset = case[7] if len(case) > 7 else 0
+    tk, tv = cases.at_offset(tk, offset), cases.at_offset(tv, offset)
+    assert tk.storage_offset() == offset
     a = jref.decode_attention_ref(jq, jk.transpose(0, 2, 1, 3),
                                   jv.transpose(0, 2, 1, 3), jnp.asarray(valid))
     b = ops.decode_attention(tq, tk.permute(0, 2, 1, 3), tv.permute(0, 2, 1, 3),
                              torch.from_numpy(valid))
     _close(a, b, dtype)
+
+
+def _split_merge(q, k, v, valid, num_sms=132):
+    """The kernel's rule in plain PyTorch: the chunks of ``split_plan``,
+    each reduced to (m, l, acc) over its TILE-slot tiles with the tiles that
+    hold no valid slot skipped, then merged; with no valid slot anywhere,
+    the mean of V over all W slots."""
+    B, H, hd = q.shape
+    KV, W = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).float() * hd ** -0.5
+    kf, vf, ok = k.float(), v.float(), valid > 0
+    nsplit, chunk = split_plan(B, KV, W, num_sms)
+    parts = []
+    for c in range(nsplit):
+        m = torch.full((B, KV, G), float("-inf"))
+        l, acc = torch.zeros(B, KV, G), torch.zeros(B, KV, G, hd)
+        for t0 in range(c * chunk, min(W, (c + 1) * chunk), TILE):
+            sl = slice(t0, min(W, t0 + TILE, (c + 1) * chunk))
+            if not bool(ok[sl].any()):
+                continue
+            s = torch.einsum("bkgd,bkwd->bkgw", qg, kf[:, :, sl])
+            s = torch.where(ok[sl], s, float("-inf"))
+            mn = torch.maximum(m, s.amax(-1))
+            alpha, p = torch.exp(m - mn), torch.exp(s - mn[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgw,bkwd->bkgd", p, vf[:, :, sl])
+            m = mn
+        parts.append((m, l, acc))
+    if not any(bool((l > 0).any()) for _, l, _ in parts):
+        out = vf.mean(dim=2, keepdim=True).expand(B, KV, G, hd)
+    else:
+        M = torch.stack([torch.where(l > 0, m, float("-inf")) for m, l, _ in parts]).amax(0)
+        w = [torch.where(l > 0, torch.exp(m - M), torch.zeros_like(l)) for m, l, _ in parts]
+        L = sum(wc * l for wc, (_, l, _) in zip(w, parts))
+        out = sum(wc[..., None] * a for wc, (_, _, a) in zip(w, parts)) / L[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [DECODE_RAGGED[2], DECODE_RAGGED[7]] + DECODE_MAIN)
+def test_decode_split_and_merge_rule_matches_reference(dtype, case):
+    """Chunks, skipped empty tiles and the merge (no valid slot anywhere;
+    one valid slot in the last chunk only; the main paths' shapes) give the
+    reference's result."""
+    q, k, v, valid = cases.decode_inputs(case, dtype, "cpu", seed=4)
+    nsplit, chunk = split_plan(q.shape[0], k.shape[1], k.shape[2], 132)
+    assert nsplit > 1
+    if case[5] == 1:                        # the one valid slot lies in the last chunk
+        assert int(valid.nonzero()[0]) >= (nsplit - 1) * chunk
+    cases.held("split-merge", case, _split_merge(q, k, v, valid),
+               ref.decode_attention_ref(q, k, v, valid))
 
 
 def test_decode_valid_wraps_the_ring():
@@ -190,12 +247,17 @@ def test_wrappers_reject_bad_inputs(bad):
 
 
 def test_split_plan_covers_the_cache():
-    assert split_plan(1, 4, 4096, 132) == (64, 64)          # yi-6b decode, batch 1
-    assert split_plan(64, 4, 4096, 132) == (2, 2048)
+    assert split_plan(1, 4, 4096, 132) == (16, 256)         # yi-6b decode, batch 1
+    assert split_plan(1, 1, 1024, 132) == (16, 64)          # recurrentgemma-2b's ring
+    assert split_plan(64, 4, 4096, 132) == (1, 4096)        # 256 blocks already
     assert split_plan(1, 1, 10, 132) == (1, TILE)
-    for B, KV, W in ((1, 4, 2568), (3, 2, 77), (8, 8, 32768), (1, 1, 1)):
+    assert split_plan(1, 1, 2**20, 132) == (MAX_SPLITS, 2**16)
+    for B, KV, W in ((1, 4, 2568), (3, 2, 77), (8, 8, 32768), (1, 1, 1), (1, 1, 2**20 + 1)):
         nsplit, chunk = split_plan(B, KV, W, 132)
+        # every chunk holds a slot, whole tiles, at least 4 of them unless W
+        # is shorter; no more chunks than a cluster holds
         assert chunk % TILE == 0 and nsplit * chunk >= W > (nsplit - 1) * chunk
+        assert chunk >= min(4 * TILE, -(-W // TILE) * TILE) and nsplit <= MAX_SPLITS
 
 
 def test_kernel_sources_export_the_bound_signatures():
