@@ -42,7 +42,7 @@
 // each a memory round trip or a barrier, with one or two warps on each of
 // an SM's four schedulers to hide them. The design keeps that chain short:
 // one launch, no round trip through device memory for the merge, every load
-// of a step issued before the first is used, and no instruction stream
+// of a step started before the first is used, and no instruction stream
 // longer than the copies it waits on.
 //
 // Two routes behind the one entry, decode_attention_launch:
@@ -658,13 +658,13 @@ __global__ void __launch_bounds__(kWarps * 32) decode_mma_kernel(const Params p)
   const int rs = hd == HDP ? 32 / NCP : nc > 0 ? 32 / nc : 0;
   const int lr = hd == HDP ? lane / NCP : nc > 0 ? lane / nc : 0;
   const int lc = lane - lr * nc;
-  int j_issue = next_tile(tmask, 0, my_tiles);
+  int j_load = next_tile(tmask, 0, my_tiles);
   #pragma unroll 1
   for (int s = 0; s < p.nstages; ++s) {
-    if (j_issue < my_tiles) {
-      load_tile<HDP>(p, ring + s * STAGE, k, v, w_begin + (warp + j_issue * nw) * kBK, w_end,
+    if (j_load < my_tiles) {
+      load_tile<HDP>(p, ring + s * STAGE, k, v, w_begin + (warp + j_load * nw) * kBK, w_end,
                      lane, lr, lc, rs);
-      j_issue = next_tile(tmask, j_issue + 1, my_tiles);
+      j_load = next_tile(tmask, j_load + 1, my_tiles);
     }
     cp_async_commit();
   }
@@ -757,10 +757,10 @@ __global__ void __launch_bounds__(kWarps * 32) decode_mma_kernel(const Params p)
       mma16816(o[2 * np + 1], pa, vb[2], vb[3]);
     }
     __syncwarp();                         // every lane is done with the stage: refill it
-    if (j_issue < my_tiles) {
-      load_tile<HDP>(p, ring + st * STAGE, k, v, w_begin + (warp + j_issue * nw) * kBK, w_end,
+    if (j_load < my_tiles) {
+      load_tile<HDP>(p, ring + st * STAGE, k, v, w_begin + (warp + j_load * nw) * kBK, w_end,
                      lane, lr, lc, rs);
-      j_issue = next_tile(tmask, j_issue + 1, my_tiles);
+      j_load = next_tile(tmask, j_load + 1, my_tiles);
     }
     cp_async_commit();
   }
