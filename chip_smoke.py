@@ -23,12 +23,19 @@
    with the term that binds. Times rotate over copies of the inputs that
    together exceed the 50 MB L2 cache, as each layer of the model reads its
    own inputs. Each decode row also gives device time per call from the
-   profiler over the same rotated loop, for the kernel and for SDPA (every
-   device kernel a call launches, summed), and checks that the kernel's
-   calls ran only ``decode_mma_kernel`` (bf16, hd <= 256) or
-   ``decode_partial_kernel``. The floor row (``cases.DECODE_FLOOR``: one kv
-   head, W = 64, one valid slot) gives the fixed cost of a call that does
-   almost no work.
+   profiler over the same rotated loop (the calls queued behind a spin
+   kernel, and read from a window whose every kernel ran a whole multiple
+   of the calls), for the kernel, for SDPA and for SDPA
+   given the additive mask it otherwise builds from the boolean one on
+   every call (every device kernel a call launches, summed; the SDPA
+   kernels by name at the main-path and floor rows), and checks that the
+   kernel's 50 calls ran 50 launches of ``decode_mma_kernel`` (bf16, hd <=
+   256) or ``decode_partial_kernel``. The floor row
+   (``cases.DECODE_FLOOR``: one kv head, W = 64, one valid slot) gives the
+   fixed cost of a call that does almost no work. Then, at the two
+   main-path decode shapes, the bf16 kernel's device time per call under
+   each plan a cluster allows (16, 8, 4, 1 chunks), each plan's result held
+   against the plain version.
 3. yi-6b engine: full width in bf16 on random weights (``torch.Generator``
    seed 0), ``max_len`` 4096: a 2,048-token context, then the same context
    plus the 8 generated and 504 new tokens, which must reuse 2,048 tokens
@@ -81,8 +88,9 @@
    and a profiled replay of turn 2, which must show (64 + 8) x 8 = 576
    launches of ``decode_mma_kernel`` and none of
    ``decode_partial_kernel<bf16>``.
-10. Prints a ``kernels`` JSON line (decode's entry with ``device_ms`` and
-   ``library_device_ms``), the card line, and last
+10. Prints a ``kernels`` JSON line (decode's entry with ``device_ms``,
+   ``library_device_ms`` and ``library_premasked_device_ms``), the card
+   line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero. Without a card, or without the rest
@@ -108,6 +116,7 @@ PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # fp32 outside the tensor cores
 L2_BYTES = 50e6
+SPIN_CYCLES = 10_000_000                # torch.cuda._sleep: about 5 ms
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
            "decode_attention": "src/repro/kernels/decode_attention.py:77",
@@ -148,32 +157,38 @@ def rotated_ms(fn, sets, iters: int) -> float:
 
 
 def device_ms(fn, sets, iters: int):
-    """Device time in ms of one call of ``fn(*s)``, over ``iters`` calls on
-    the rotated input sets, and the device launches by kernel name, from the
-    profiler's device events: each kernel's mean duration times the
-    launches it makes per call (its launches over those of the kernel
-    launched least). The profiler can miss the first kernels of a short
-    window; a window in which it saw none is run again, twice at most."""
+    """Device time in ms of one call of ``fn(*s)``: the duration of every
+    device kernel in a window of ``iters`` calls on the rotated input sets,
+    summed and divided by ``iters``; and by kernel name, (launches, ms per
+    call). A spin kernel of about 5 ms (not counted) opens and closes the
+    window, so the calls queue behind it and no call sits at the edge of
+    the profiler's trace. The profiler on the card still drops a launch
+    from a window now and then, so a window is read only when whole (every
+    name ran a whole multiple of ``iters`` times); one that is not is
+    logged and discarded, and after five such windows the call fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for s in sets[:3]:
         fn(*s)
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
             for i in range(iters):
                 fn(*sets[i % len(sets)])
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         us = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
                 us.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        if us:
-            least = min(len(t) for t in us.values())
-            per_call = sum(sum(t) / len(t) * round(len(t) / least) for t in us.values())
-            return per_call / 1e3, {n: len(t) for n, t in us.items()}
-    raise AssertionError("the profiler saw no device time in three windows")
+        if us and all(len(t) % iters == 0 for t in us.values()):
+            return (sum(map(sum, us.values())) / iters / 1e3,
+                    {n: (len(t), sum(t) / iters / 1e3) for n, t in us.items()})
+        log(f"  profiler window of {iters} calls not whole, not read: "
+            f"{ {n[:60]: len(t) for n, t in us.items()} }")
+    raise AssertionError(f"the profiler gave no whole window of {iters} calls in five")
 
 
 def copies(tensors, limit: int = 16):
@@ -253,10 +268,17 @@ def decode_row(ops, ref, cases, case, dtype):
     err, (q, k, v, valid) = cases.check_decode(case, dtype, "cuda")
     B, H, KV, W, hd, nvalid, _ = case[:7]
     mask = valid.bool()[None, None, None, :]
+    # the additive mask SDPA builds from the boolean one on every call
+    addmask = torch.zeros(mask.shape, dtype=dtype, device="cuda").masked_fill(
+        ~mask, float("-inf"))
     sets = copies([q, k, v, valid])
 
     def sdpa(q_, k_, v_, _):
         return F.scaled_dot_product_attention(q_[:, :, None], k_, v_, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def sdpa_premasked(q_, k_, v_, _):
+        return F.scaled_dot_product_attention(q_[:, :, None], k_, v_, attn_mask=addmask,
                                               enable_gqa=True)
 
     # SDPA's fused kernels take no view that starts off a 16-byte boundary
@@ -266,19 +288,48 @@ def decode_row(ops, ref, cases, case, dtype):
     plain = rotated_ms(ref.decode_attention_ref, sets, 20)
     lib = rotated_ms(sdpa, lib_sets, 50)
     dev, calls = device_ms(ops.decode_attention, sets, 50)
-    lib_dev, _ = device_ms(sdpa, lib_sets, 50)
+    lib_dev, lib_calls = device_ms(sdpa, lib_sets, 50)
+    pre_dev, pre_calls = device_ms(sdpa_premasked, lib_sets, 50)
     # one device kernel per call: the tensor-core kernel for bf16 up to hd 256
     want = "decode_mma_kernel" if dtype == torch.bfloat16 and hd <= 256 else \
         "decode_partial_kernel"
-    if sum(calls.values()) > 50 or not all(want in n for n in calls):
+    if sum(c for c, _ in calls.values()) != 50 or not all(want in n for n in calls):
         raise AssertionError(f"decode {case} {dtype}: device launches {calls}, want "
                              f"50 of {want}")
     slots = nvalid or W                   # no valid slot: the mean of all W
     ops_n = B * H * (4 if nvalid else 2) * hd * slots
     nbytes = q.element_size() * (2 * q.numel() + 2 * B * KV * slots * hd) + 4 * W
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, device_ms=dev,
-                library_device_ms=lib_dev,
+                library_device_ms=lib_dev, library_premasked_device_ms=pre_dev,
+                library_kernels={"sdpa": lib_calls, "sdpa premasked": pre_calls},
                 **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
+
+
+def plan_sweep(cases, dmod):
+    """Device ms per call of the bf16 kernel at each main-path decode shape
+    under every plan a cluster allows (16, 8, 4 and 1 chunks), beside the
+    plan ``split_plan`` picks; each plan's result held against the plain
+    version. The plan is forced by standing in for ``split_plan``."""
+    pick = dmod.split_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        for case in cases.DECODE_MAIN:
+            B, H, KV, W = case[:4]
+            q, k, v, valid = cases.decode_inputs(case, torch.bfloat16, "cuda", seed=5)
+            want = dmod.ref.decode_attention_ref(q, k, v, valid)
+            sets = copies([q, k, v, valid])
+            tiles = -(-W // dmod.TILE)
+            plans = {(-(-tiles // -(-tiles // n)), -(-tiles // n) * dmod.TILE)
+                     for n in (16, 8, 4, 1)}
+            for nsplit, chunk in sorted(plans, reverse=True):
+                dmod.split_plan = lambda *_: (nsplit, chunk)
+                cases.held("decode plan", case, dmod.decode_attention(q, k, v, valid), want)
+                dev, _ = device_ms(dmod.decode_attention, sets, 50)
+                picked = " (split_plan's)" if pick(B, KV, W, sms) == (nsplit, chunk) else ""
+                log(f"decode bfloat16 {case} plan {nsplit} x {chunk} slots{picked}: "
+                    f"device per call {dev:.5f} ms")
+    finally:
+        dmod.split_plan = pick
 
 
 def main_path_shapes(cfg, serve):
@@ -330,11 +381,17 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
         device = ""
         if "device_ms" in r:
             device = (f"; device per call: kernel {r['device_ms']:.5f} ms, "
-                      f"sdpa {r['library_device_ms']:.5f} ms")
+                      f"sdpa {r['library_device_ms']:.5f} ms, sdpa with its mask "
+                      f"precomputed {r['library_premasked_device_ms']:.5f} ms")
         log(f"{name} {str(dtype)[6:]} {label} {case}: max |err| {r['max_abs_err']:.3e}, "
             f"kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
             f"sdpa {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}){device}")
+        if name == "decode_attention" and dtype == torch.bfloat16 and \
+                (label.startswith("floor") or case in decode_main.values()):
+            for which, calls in r["library_kernels"].items():
+                for kname, (n, kms) in calls.items():
+                    log(f"  {which}: {n} launches, {kms:.5f} ms per call  {kname[:90]}")
     return rows
 
 
@@ -732,6 +789,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device")
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, cases, ops, ref
+    from repro_torch.kernels import decode_attention as dmod
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tt
 
@@ -764,6 +822,7 @@ def main():
                              f"cases.DECODE_MAIN {cases.DECODE_MAIN}")
     t0 = time.perf_counter()
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
+    plan_sweep(cases, dmod)
     identity_phase(cases)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
@@ -812,7 +871,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("device_ms", "library_device_ms") if key in r}})
+            **{key: r[key] for key in ("device_ms", "library_device_ms",
+                                       "library_premasked_device_ms") if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
