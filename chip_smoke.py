@@ -46,13 +46,23 @@
    which must show 32 launches of ``flash_mma_kernel`` (one per layer) and
    none of the CUDA-core ``flash_kernel``, and 256 of ``decode_mma_kernel``
    (8 tokens x 32 layers) and none of ``decode_partial_kernel<bf16>``.
-4. wkv6 kernel: fp32 against ``wkv6_ref`` at every ``WKV6_*`` case and at
-   the rwkv6-1.6b path's two shapes, (1,32,1,64) per engine step and
+4. wkv6 kernel: against ``wkv6_ref`` at every ``WKV6_*`` case (the step
+   kernel's ``WKV6_STEP``, ``WKV6_FLOOR``, bf16 and fp32 r/k/v) and at the
+   rwkv6-1.6b path's two shapes, (1,32,1,64) per engine step and
    (1,32,2048,64) per layer of a 2,048-token prefill, both read in place
-   from the model's (B,S,H,hd) layout, at ``|out - want| <= 1e-4 (scale +
-   |want|)``. Kernel, plain and bound times (bytes 4(5BHS·hd + 2BH·hd² +
-   H·hd) at 3.35 TB/s, operations 6BHS·hd² at 67 TFLOP/s fp32); no
-   PyTorch call computes the recurrence, so no library time.
+   from the model's (B,S,H,hd) layout with bf16 r/k/v as the model passes
+   them (and in fp32, as earlier slices timed them), at ``|out - want| <=
+   1e-4 (scale + |want|)``. Kernel, plain and bound times (bytes (2|4)·3BHS·hd
+   + 4(2BHS·hd + 2BH·hd² + H·hd) at 3.35 TB/s, operations 6BHS·hd² at 67
+   TFLOP/s fp32); no PyTorch call computes the recurrence, so no library
+   time. Each timed row also gives device time per call (``device_ms``, as
+   the decode rows: the calls behind a spin kernel, whole windows only),
+   with the state cold: each call of a window reads a copy no earlier call
+   of it touched, out of copies that exceed twice the L2 cache; the window
+   must hold only ``wkv6_step_kernel`` (S = 1) or ``wkv6_kernel`` launches,
+   one per call.
+   The floor row (``WKV6_FLOOR``, one head of 32) gives a step call's fixed
+   cost.
 5. rwkv6-1.6b model, full width in fp32: prefill of 2,048 tokens plus one
    ``decode_step`` against a prefill of the 2,049, last-position logits
    within 5e-4; 24 wkv6 launches per call. Then the time of a bf16 prefill
@@ -62,14 +72,22 @@
    new tokens, which must reuse 512 and feed 64; exactly (520 + 72) × 24 =
    14,208 wkv6 launches and no attention launch. A cold engine must give
    turn 2's tokens, last-position logits within 2e-2 × max |logit|. Peak
-   memory, and a profile of a replay of turn 2 from the stored state.
-7. rglru kernel: fp32 against ``rglru_scan_ref`` at every ``RGLRU_*`` case
-   (the reference's sweep, D 2,560 at S 1 and 2,560, D 77, two channel
-   blocks, strided rows, S 0), at ``|out - want| <= 1e-5 (scale + |want|)``.
-   Kernel, plain and bound times at recurrentgemma-2b's two shapes,
-   (1,1,2560) per recurrent layer and engine step and (1,2560,2560) per
-   recurrent layer of a 2,560-token prefill (bytes 4(3BSD + 2BD) at
-   3.35 TB/s); no PyTorch call computes the recurrence, so no library time.
+   memory, and a profile of a replay of turn 2 from the stored state, which
+   must show 72 × 24 = 1,728 ``wkv6_step_kernel`` launches and no
+   ``wkv6_kernel``, and logs device kernels per fed or decoded token.
+7. rglru kernels: the scan in fp32 against ``rglru_scan_ref`` at every
+   ``RGLRU_*`` scan case (the reference's sweep, D 2,560 at S 1 and 2,560,
+   D 77, two channel blocks, strided rows, S 0, the floor), at ``|out -
+   want| <= 1e-5 (scale + |want|)``; the fused step against
+   ``rglru_step_ref`` at every ``RGLRU_STEP`` case, ``h'`` at 1e-5 and ``y``
+   at 1e-5 (fp32) or 2e-2 (bf16). Kernel, plain, bound and device times (as
+   wkv6's, state cold) of the scan at (1,2560,2560) per recurrent layer of a
+   2,560-token prefill, at (1,1,2560) and at the floor (1,1,32) (bytes
+   4(3BSD + 2BD) at 3.35 TB/s); of the fused step at (1,2560) bf16 per
+   recurrent layer and engine step and at (1,32) (bytes 4(7BD) + 2·2BD),
+   beside the device time of its plain version, the PyTorch chain it
+   replaces on the step. No PyTorch call computes either, so no library
+   time.
    Griffin's attention shapes (10 query heads on one kv head of 256, window
    2048) run in phase 2 (``FLASH_GRIFFIN``, ``DECODE_GRIFFIN`` and the
    engine's last decode step).
@@ -78,22 +96,30 @@
    plus one ``decode_step`` against a ``forward`` of the 2,561,
    last-position logits within 5e-4. 2,560 passes the 2,048 window, so the
    window masks keys in flash, the ring wraps and the step reads a wrapped
-   ring. Exactly 18 rglru and 8 flash launches per prefill or forward, 18
-   rglru and 8 decode launches per step. Then the time of a bf16 prefill
-   of 2,560 tokens.
+   ring. Exactly 18 rglru scan and 8 flash launches per prefill or forward,
+   18 fused rglru steps and 8 decode launches per step. Then the time of a
+   bf16 prefill of 2,560 tokens.
 9. recurrentgemma-2b engine, full width in bf16, seed 0, state-snapshot
    route, ``max_len`` 1024: as step 6, with exactly (520 + 72) × 18 =
-   10,656 rglru and (520 + 72) × 8 = 4,736 decode-attention launches and no
-   flash or wkv6 launch; a cold engine, peak memory, the snapshot's bytes
-   and a profiled replay of turn 2, which must show (64 + 8) x 8 = 576
-   launches of ``decode_mma_kernel`` and none of
-   ``decode_partial_kernel<bf16>``.
-10. Prints a ``kernels`` JSON line (decode's entry with ``device_ms``,
-   ``library_device_ms`` and ``library_premasked_device_ms``), the card
-   line, and last
-   ``{"ok": true, "device": {...}}``.
+   10,656 fused rglru steps (``rglru_step``) and (520 + 72) × 8 = 4,736
+   decode-attention launches and no flash, rglru scan or wkv6 launch; a
+   cold engine, peak memory, the snapshot's bytes and a profiled replay of
+   turn 2, which must show (64 + 8) x 8 = 576 launches of
+   ``decode_mma_kernel`` and none of ``decode_partial_kernel<bf16>``, 72 ×
+   18 = 1,296 of ``rglru_step_kernel`` and none of ``rglru_kernel``, and
+   logs device kernels per fed or decoded token.
+10. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
+   ``library_device_ms`` and ``library_premasked_device_ms``; decode's,
+   wkv6's and the rglru kernels' with ``device_ms``; the fused step's with
+   ``plain_device_ms``), the card line, and last
+   ``{"ok": true, "device": {...}}``. Every kernel must have launched on
+   its main path: flash, decode on yi-6b; wkv6 on rwkv6-1.6b's engine; the
+   fused rglru step on recurrentgemma-2b's engine; the rglru scan in that
+   model's prefill and forward (the engine feeds every token by steps).
 
-Any failure raises and exits non-zero. Without a card, or without the rest
+Steps 4 and 7 run right after step 2, before any engine: after the yi-6b
+replay's profile (host and device activity), every profiler window of the
+wkv6 rows lost one launch. Any failure raises and exits non-zero. Without a card, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -121,9 +147,15 @@ DTYPES = (torch.float32, torch.bfloat16)
 SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
            "decode_attention": "src/repro/kernels/decode_attention.py:77",
            "rglru_scan": "src/repro/kernels/rglru.py:38",
+           # the same Pallas kernel at S = 1, with the step's elementwise
+           # chain (repro/models/griffin.py::rglru_step) fused in
+           "rglru_step": "src/repro/kernels/rglru.py:38",
            "wkv6": "src/repro/kernels/wkv6.py:55"}
+CSRC = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_attention.cu",
+        "rglru_scan": "rglru_scan.cu", "rglru_step": "rglru_scan.cu", "wkv6": "wkv6.cu"}
 PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
-                "decode_partial_kernel", "rglru_kernel", "wkv6_kernel")   # device names
+                "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
+                "wkv6_kernel", "wkv6_step_kernel")   # device names
 DECODE_BF16_OLD = "decode_partial_kernel<__nv_bfloat16"   # bf16 decode must not run it
 RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
@@ -165,18 +197,21 @@ def device_ms(fn, sets, iters: int):
     the profiler's trace. The profiler on the card still drops a launch
     from a window now and then, so a window is read only when whole (every
     name ran a whole multiple of ``iters`` times); one that is not is
-    logged and discarded, and after five such windows the call fails."""
+    logged and discarded, and after five such windows the call fails. Each
+    try starts where the last one stopped in the rotation, and the warm-up
+    takes the last three sets, so a try on fewer calls than there are sets
+    finds its inputs as cold as the first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for s in sets[:3]:
+    for s in sets[-3:]:
         fn(*s)
     torch.cuda.synchronize()
-    for _ in range(5):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(SPIN_CYCLES)
             for i in range(iters):
-                fn(*sets[i % len(sets)])
+                fn(*sets[(attempt * iters + i) % len(sets)])
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         us = {}
@@ -197,6 +232,22 @@ def copies(tensors, limit: int = 16):
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     n = max(1, min(limit, math.ceil(2 * L2_BYTES / nbytes)))
     return [tensors] + [[t.clone() for t in tensors] for _ in range(n - 1)]
+
+
+def cold_device_ms(fn, inputs, want=None, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` on ``inputs`` with its inputs cold: a
+    ``device_ms`` window of ``iters`` calls, each on a copy that no call of
+    the window touched before, out of copies that exceed twice the L2 cache
+    (up to 2,048 of them: the floor rows' copies stay in L2). The window is
+    short enough for the host to queue every call behind the spin kernel.
+    With ``want``, the window must hold one launch per call, all of kernels
+    whose name holds it."""
+    sets = copies(inputs, limit=2048)
+    dev, calls = device_ms(fn, sets, iters)
+    if want is not None and (sum(c for c, _ in calls.values()) != iters
+                             or not all(want in n for n in calls)):
+        raise AssertionError(f"device launches {calls}, want {iters} of {want}")
+    return dev
 
 
 def zero_counts(ops):
@@ -220,10 +271,10 @@ def per_token(cfg):
     from repro_torch.models.transformer import griffin_layout
     if cfg.family == "ssm":
         return {"flash_attention": 0, "decode_attention": 0, "rglru_scan": 0,
-                "wkv6": cfg.num_layers}
+                "rglru_step": 0, "wkv6": cfg.num_layers}
     units, tail = griffin_layout(cfg)
-    return {"flash_attention": 0, "decode_attention": units,
-            "rglru_scan": 2 * units + tail, "wkv6": 0}
+    return {"flash_attention": 0, "decode_attention": units, "rglru_scan": 0,
+            "rglru_step": 2 * units + tail, "wkv6": 0}
 
 
 def tree_bytes(tree) -> int:
@@ -429,7 +480,7 @@ def engine_phase(serve, ops, cases):
                              f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
     # one flash launch per layer and prefill, one decode launch per layer and token
     if launches != {"flash_attention": 2 * L, "decode_attention": 2 * num_new * L,
-                    "rglru_scan": 0, "wkv6": 0}:
+                    "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}:
         raise AssertionError(f"launch counts {launches}")
     for i, r in ((1, r1), (2, r2)):
         if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
@@ -535,7 +586,7 @@ def profiled(label, fn):
 
 def wkv6_row(ops, ref, cases, case, timed: bool):
     """The kernel against its plain version on ``case``; with ``timed``,
-    kernel, plain and bound times too."""
+    kernel, plain, bound and device times too."""
     err, inputs = cases.check_wkv6(case, "cuda")
     row = dict(max_abs_err=err)
     if timed:
@@ -543,7 +594,11 @@ def wkv6_row(ops, ref, cases, case, timed: bool):
         sets = copies(inputs, limit=256)
         row["ms"] = rotated_ms(ops.wkv6, sets, 50 if S < 64 else 10)
         row["plain_ms"] = rotated_ms(ref.wkv6_ref, sets, 20 if S < 64 else 2)
-        nbytes = 4 * (5 * B * H * S * hd + 2 * B * H * hd * hd + H * hd)
+        row["device_ms"] = cold_device_ms(
+            ops.wkv6, inputs, "wkv6_step_kernel" if S == 1 else "wkv6_kernel<",
+            iters=20 if S == 1 else 10)
+        nbytes = (3 * inputs[0].element_size() * B * H * S * hd
+                  + 4 * (2 * B * H * S * hd + 2 * B * H * hd * hd + H * hd))
         row.update(zip(("bound_ms", "bound_by"),
                        bound(6 * B * H * S * hd * hd, nbytes, torch.float32)))
         row["library_ms"] = None            # no PyTorch call computes WKV6
@@ -551,13 +606,21 @@ def wkv6_row(ops, ref, cases, case, timed: bool):
 
 
 def wkv6_phase(ops, ref, cases, cfg):
-    """Every WKV6 case, then the rwkv6-1.6b path's two shapes, timed."""
+    """Every WKV6 case, then the rwkv6-1.6b path's two shapes (r, k, v in
+    bf16 as the model passes them, and in fp32) and the floor, timed."""
     H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
-    main = {"engine step": (1, H, 1, hd, None, 0.1, "bshd"),
-            "prefill": (1, H, RWKV_PREFILL, hd, None, 0.1, "bshd")}
+    main = {"engine step": (1, H, 1, hd, None, 0.1, "bshd", "bf16"),
+            "engine step fp32": (1, H, 1, hd, None, 0.1, "bshd", "fp32"),
+            "floor": cases.WKV6_FLOOR[0],
+            "prefill": (1, H, RWKV_PREFILL, hd, None, 0.1, "bshd", "fp32"),
+            "prefill bf16": (1, H, RWKV_PREFILL, hd, None, 0.1, "bshd", "bf16")}
+    if main["engine step"] != cases.WKV6_STEP[0]:
+        raise AssertionError(f"the engine's wkv6 step {main['engine step']} is not "
+                             f"cases.WKV6_STEP[0] {cases.WKV6_STEP[0]}")
     rows = {}
     for group, table in (("sweep", cases.WKV6_SWEEP), ("edge", cases.WKV6_EDGE),
-                         ("no token", cases.WKV6_NO_TOKEN)):
+                         ("no token", cases.WKV6_NO_TOKEN), ("step", cases.WKV6_STEP),
+                         ("bf16", cases.WKV6_BF16)):
         for i, case in enumerate(table):
             rows[f"{group} {i}"] = (case, wkv6_row(ops, ref, cases, case, False))
     for label, case in main.items():
@@ -566,8 +629,10 @@ def wkv6_phase(ops, ref, cases, cfg):
         times = ""
         if "ms" in r:
             times = (f", kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-                     f"library none, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
-        log(f"wkv6 float32 {label} {case}: max |err| {r['max_abs_err']:.3e}{times}")
+                     f"library none, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+                     f"device per call {r['device_ms']:.6f} ms")
+        rkv = "bfloat16" if case[7:] == ("bf16",) else "float32"
+        log(f"wkv6 r/k/v {rkv} {label} {case}: max |err| {r['max_abs_err']:.3e}{times}")
     return rows
 
 
@@ -597,11 +662,11 @@ def rwkv_model_phase(ops, tt, cfg):
         raise AssertionError(f"{RWKV}: prefill + step disagrees with prefill")
     if (n_prefill, n_step, counts["wkv6"]) != (L, L, 3 * L) or \
             counts["flash_attention"] or counts["decode_attention"] or \
-            counts["rglru_scan"]:
+            counts["rglru_scan"] or counts["rglru_step"]:
         raise AssertionError(f"{RWKV}: launch counts {counts}")
     del params, cache, step, full
     bf16_prefill_ms(tt, cfg, toks[:, :S])
-    return 3 * L
+    return counts
 
 
 def bf16_prefill_ms(tt, cfg, toks):
@@ -628,8 +693,8 @@ def bf16_prefill_ms(tt, cfg, toks):
 # --------------------------------------------------------------------------- #
 
 def rglru_row(ops, ref, cases, case, timed: bool):
-    """The kernel against its plain version on ``case``; with ``timed``,
-    kernel, plain and bound times too."""
+    """The scan against its plain version on ``case``; with ``timed``,
+    kernel, plain, bound and device times too."""
     err, inputs = cases.check_rglru(case, "cuda")
     row = dict(max_abs_err=err)
     if timed:
@@ -637,6 +702,8 @@ def rglru_row(ops, ref, cases, case, timed: bool):
         sets = copies(inputs, limit=256)
         row["ms"] = rotated_ms(ops.rglru_scan, sets, 50 if S < 64 else 10)
         row["plain_ms"] = rotated_ms(ref.rglru_scan_ref, sets, 20 if S < 64 else 2)
+        row["device_ms"] = cold_device_ms(ops.rglru_scan, inputs, "rglru_kernel",
+                                          iters=20 if S == 1 else 10)
         nbytes = 4 * (3 * B * S * D + 2 * B * D)
         row.update(zip(("bound_ms", "bound_by"),
                        bound(2 * B * S * D, nbytes, torch.float32)))
@@ -644,25 +711,62 @@ def rglru_row(ops, ref, cases, case, timed: bool):
     return row
 
 
+def rglru_step_row(ops, ref, cases, case, timed: bool):
+    """The fused step against its plain version on ``case``; with
+    ``timed``, kernel, plain, bound and device times too, and the device
+    time of the plain version, the PyTorch chain the kernel replaces."""
+    err, inputs = cases.check_rglru_step(case, "cuda")
+    row = dict(max_abs_err=err)
+    if timed:
+        B, D = case[:2]
+        sets = copies(inputs, limit=256)
+        row["ms"] = rotated_ms(ops.rglru_step, sets, 50)
+        row["plain_ms"] = rotated_ms(ref.rglru_step_ref, sets, 50)
+        row["device_ms"] = cold_device_ms(ops.rglru_step, inputs, "rglru_step_kernel",
+                                          iters=20)
+        row["plain_device_ms"] = cold_device_ms(ref.rglru_step_ref, inputs, iters=10)
+        # gx_a, gx_x, h in and h' out (B,D), ba, bx, lam (D,) in fp32; x in, y out
+        nbytes = 4 * (4 * B * D + 3 * D) + 2 * inputs[5].element_size() * B * D
+        row.update(zip(("bound_ms", "bound_by"),
+                       bound(20 * B * D, nbytes, torch.float32)))
+        row["library_ms"] = None            # no PyTorch call computes the step
+    return row
+
+
 def rglru_phase(ops, ref, cases, cfg):
-    """Every RG-LRU case, then the recurrentgemma-2b path's two shapes,
-    timed."""
+    """Every RG-LRU scan and step case, then the recurrentgemma-2b path's
+    shapes and the floors, timed: the scan per layer of the model phase's
+    prefill, at one step and at the floor; the fused step per layer and
+    engine step, and at its floor."""
     D = cfg.rnn_width
-    main = {"engine step": (1, 1, D, "bsd"), "prefill": (1, GRIFFIN_PREFILL, D, "bsd")}
-    rows = {}
+    main = {"prefill": (1, GRIFFIN_PREFILL, D, "bsd"), "one step": (1, 1, D, "bsd"),
+            "floor": cases.RGLRU_FLOOR[0]}
+    step_main = {"engine step": (1, D, "bf16", "bd"), "floor": cases.RGLRU_STEP[-1]}
+    if step_main["engine step"] != cases.RGLRU_STEP[0]:
+        raise AssertionError(f"the engine's rglru step {step_main['engine step']} is not "
+                             f"cases.RGLRU_STEP[0] {cases.RGLRU_STEP[0]}")
+    rows, step_rows = {}, {}
     for group, table in (("sweep", cases.RGLRU_SWEEP), ("edge", cases.RGLRU_EDGE),
                          ("no token", cases.RGLRU_NO_TOKEN)):
         for i, case in enumerate(table):
             rows[f"{group} {i}"] = (case, rglru_row(ops, ref, cases, case, False))
     for label, case in main.items():
         rows[label] = (case, rglru_row(ops, ref, cases, case, True))
-    for label, (case, r) in rows.items():
-        times = ""
-        if "ms" in r:
-            times = (f", kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-                     f"library none, bound {r['bound_ms']:.7f} ms ({r['bound_by']})")
-        log(f"rglru float32 {label} {case}: max |err| {r['max_abs_err']:.3e}{times}")
-    return rows
+    for i, case in enumerate(cases.RGLRU_STEP):
+        step_rows[f"case {i}"] = (case, rglru_step_row(ops, ref, cases, case, False))
+    for label, case in step_main.items():
+        step_rows[label] = (case, rglru_step_row(ops, ref, cases, case, True))
+    for kind, table in (("rglru_scan", rows), ("rglru_step", step_rows)):
+        for label, (case, r) in table.items():
+            times = ""
+            if "ms" in r:
+                times = (f", kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+                         f"library none, bound {r['bound_ms']:.7f} ms ({r['bound_by']}); "
+                         f"device per call {r['device_ms']:.6f} ms")
+                if "plain_device_ms" in r:
+                    times += f", plain chain {r['plain_device_ms']:.6f} ms"
+            log(f"{kind} {label} {case}: max |err| {r['max_abs_err']:.3e}{times}")
+    return rows, step_rows
 
 
 def griffin_model_phase(ops, tt, cfg):
@@ -672,7 +776,7 @@ def griffin_model_phase(ops, tt, cfg):
     S = GRIFFIN_PREFILL
     step_want = per_token(cfg)        # a prefill runs flash where a step runs decode
     seq_want = dict(step_want, flash_attention=step_want["decode_attention"],
-                    decode_attention=0)
+                    decode_attention=0, rglru_scan=step_want["rglru_step"], rglru_step=0)
     want = {"prefill": seq_want, "step": step_want, "forward": seq_want}
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tt.init_params(gen, cfg, torch.float32)
@@ -736,7 +840,7 @@ def snapshot_engine_phase(serve, ops, cases, arch):
         raise AssertionError(f"reuse: turn 1 {r1.reused_tokens}, turn 2 "
                              f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
     # for every fed and every decoded token: rwkv6 one wkv6 launch per layer;
-    # griffin one rglru launch per recurrent layer, one decode per unit
+    # griffin one fused rglru step per recurrent layer, one decode per unit
     if launches != {n: steps * c for n, c in per_token(cfg).items()}:
         raise AssertionError(f"launch counts {launches}")
     for i, r in ((1, r1), (2, r2)):
@@ -778,10 +882,30 @@ def snapshot_engine_phase(serve, ops, cases, arch):
     r, calls = profiled(f"{arch} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
     if r.reused_tokens != len(ctx) or r.tokens != r2.tokens:
         raise AssertionError("replay of turn 2 differs from turn 2")
-    # every fed and decoded token of turn 2: one decode launch per unit
-    check_decode_calls(arch, calls, (len(ctx2) - len(ctx) + num_new)
-                       * per_token(cfg)["decode_attention"])
+    # every fed and decoded token of turn 2: one decode launch per unit, one
+    # step kernel per recurrent layer
+    steps2 = len(ctx2) - len(ctx) + num_new
+    check_decode_calls(arch, calls, steps2 * per_token(cfg)["decode_attention"])
+    check_recurrence_calls(arch, cfg, calls, steps2)
     return launches
+
+
+def check_recurrence_calls(arch, cfg, calls, steps):
+    """A profiled replay of ``steps`` fed or decoded tokens ran the
+    recurrence in the step kernels only, one launch per recurrent layer and
+    token; logs device kernels (and copies and fills) per token."""
+    new, old = (("wkv6_step_kernel", "wkv6_kernel<") if cfg.family == "ssm"
+                else ("rglru_step_kernel", "rglru_kernel"))
+    want = steps * (per_token(cfg)["wkv6"] + per_token(cfg)["rglru_step"])
+    got = sum(c for n, c in calls.items() if new in n)
+    stale = sum(c for n, c in calls.items() if old in n)
+    kernels = sum(c for n, c in calls.items() if not n.startswith(("Memcpy", "Memset")))
+    log(f"{arch} profiled replay: {got} {new} launches, {stale} {old}; per fed or "
+        f"decoded token {kernels / steps:.2f} device kernels and "
+        f"{(sum(calls.values()) - kernels) / steps:.2f} copies or fills")
+    if got != want or stale:
+        raise AssertionError(f"{arch} profiled replay: {got} {new} and {stale} {old} "
+                             f"launches, want {want} and 0")
 
 
 def main():
@@ -825,53 +949,60 @@ def main():
     plan_sweep(cases, dmod)
     identity_phase(cases)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    by_path = {"yi-6b": engine_phase(serve, ops, cases)}
-    log(f"yi-6b engine phase: {time.perf_counter() - t0:.3f} s")
-
-    rwkv = get_config(RWKV)
+    # the recurrent kernels' rows before any profile with host activity: after
+    # the yi-6b replay's, every profiler window of the wkv6 rows lost a launch
+    rwkv, griffin = get_config(RWKV), get_config(GRIFFIN)
     t0 = time.perf_counter()
     wkv_rows = wkv6_phase(ops, ref, cases, rwkv)
     log(f"wkv6 kernel phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    model_launches = rwkv_model_phase(ops, tt, rwkv)
+    rg_rows, rg_step_rows = rglru_phase(ops, ref, cases, griffin)
+    log(f"rglru kernel phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    by_path = {"yi-6b": engine_phase(serve, ops, cases)}
+    log(f"yi-6b engine phase: {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    by_path[f"{RWKV} model phase"] = rwkv_model_phase(ops, tt, rwkv)
     log(f"{RWKV} model phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     by_path[RWKV] = snapshot_engine_phase(serve, ops, cases, RWKV)
     log(f"{RWKV} engine phase: {time.perf_counter() - t0:.3f} s")
-    log(f"wkv6 launches outside the engine: {model_launches} in the model phase")
 
-    griffin = get_config(GRIFFIN)
     t0 = time.perf_counter()
-    rg_rows = rglru_phase(ops, ref, cases, griffin)
-    log(f"rglru kernel phase: {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    griffin_model = griffin_model_phase(ops, tt, griffin)
+    by_path[f"{GRIFFIN} model phase"] = griffin_model_phase(ops, tt, griffin)
     log(f"{GRIFFIN} model phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     by_path[GRIFFIN] = snapshot_engine_phase(serve, ops, cases, GRIFFIN)
     log(f"{GRIFFIN} engine phase: {time.perf_counter() - t0:.3f} s")
-    log(f"launches outside the engine in the {GRIFFIN} model phase: {griffin_model}")
+    log(f"launches by path: {by_path}")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
 
     main_rows = {"flash_attention": rows[("flash_attention", torch.bfloat16, "turn 2")][1],
                  "decode_attention": rows[("decode_attention", torch.bfloat16, "turn 2")][1],
-                 "rglru_scan": rg_rows["engine step"][1],
+                 "rglru_scan": rg_rows["prefill"][1],
+                 "rglru_step": rg_step_rows["engine step"][1],
                  "wkv6": wkv_rows["engine step"][1]}
+    # the engine feeds every token by steps, so the scan's path is the model's
+    # prefill and forward
     main_path = {"flash_attention": "yi-6b", "decode_attention": "yi-6b",
-                 "rglru_scan": GRIFFIN, "wkv6": RWKV}
+                 "rglru_scan": f"{GRIFFIN} model phase", "rglru_step": GRIFFIN,
+                 "wkv6": RWKV}
     kernels = []
     for name, replaces in SOURCES.items():
         r = main_rows[name]
+        launches = by_path[main_path[name]][name]
+        if not launches:
+            raise AssertionError(f"{name} did not launch on its main path {main_path[name]}")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": by_path[main_path[name]][name],
+            "source": f"src/repro_torch/kernels/csrc/{CSRC[name]}",
+            "replaces": replaces, "launches": launches,
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("device_ms", "library_device_ms",
+            **{key: r[key] for key in ("device_ms", "plain_device_ms", "library_device_ms",
                                        "library_premasked_device_ms") if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -21,7 +21,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
+
+import torch
 
 
 def build_dir_for(module: Path) -> Path:
@@ -52,9 +54,10 @@ _SIGNATURES = {
     },
     "rglru_scan": {
         "rglru_scan_launch": (_I, [_P] * 5 + [_I] * 3 + [_L] * 7 + [_P]),
+        "rglru_step_launch": (_I, [_P] * 9 + [_I] * 3 + [_L] * 4 + [_P]),
     },
     "wkv6": {
-        "wkv6_launch": (_I, [_P] * 8 + [_I] * 4 + [_L] * 19 + [_P]),
+        "wkv6_launch": (_I, [_P] * 8 + [_I] * 5 + [_L] * 19 + [_P]),
     },
 }
 
@@ -115,6 +118,17 @@ def build_all(names: Iterable[str] = KERNELS) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def on_device(device: torch.device, launch: Callable[[int], int]) -> int:
+    """``launch(stream)``, ``stream`` the handle of ``device``'s current
+    stream, inside a ``torch.cuda.device`` guard only when ``device`` is not
+    the current device: the guard costs host time on every call, and the
+    recurrent steps launch once per layer and token."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream().cuda_stream)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -34,11 +34,17 @@ bf16 kernel's tile edges (64 keys, 128 packed query rows);
 ``FLASH_IDENTITY`` pairs a cold call with the cache hit on its last rows,
 which ``check_flash_hit_rows`` holds equal bit for bit.
 
-WKV6 cases are ``(B, H, S, hd, decay, s0_scale, layout)``: ``decay`` None
-draws ``w`` uniform in [0.8, 0.999) as ``tests/test_kernels.py`` does, a
-number sets every ``w`` to it; ``s0`` is normal times ``s0_scale``;
-``layout`` "bhsd" gives contiguous ``(B,H,S,hd)`` tensors, "bshd" the
-model's ``(B,S,H,hd)`` activations passed as permuted views. fp32 only, at
+WKV6 cases are ``(B, H, S, hd, decay, s0_scale, layout[, rkv])``:
+``decay`` None draws ``w`` uniform in [0.8, 0.999) as
+``tests/test_kernels.py`` does, a number sets every ``w`` to it; ``s0`` is
+normal times ``s0_scale``; ``layout`` "bhsd" gives contiguous ``(B,H,S,hd)``
+tensors, "bshd" the model's ``(B,S,H,hd)`` activations passed as permuted
+views, "off" contiguous tensors whose data starts one element into their
+storage (off every 16-byte boundary: the step kernel's element path);
+``rkv`` "bf16" passes ``r``, ``k`` and ``v`` in bf16 (drawn in fp32 and
+rounded, so the fp32 arrays hold the same values), "fp32" or absent in fp32.
+``WKV6_STEP`` holds the one-token calls (the step kernel),
+``WKV6_FLOOR`` the smallest, whose time is a launch's fixed cost. Held at
 ``WKV6_TOL`` = 1e-4 in the same form (the ``atol = rtol = 1e-4`` of
 ``tests/test_kernels.py:95-98``), on ``y`` and ``s_n``.
 
@@ -48,7 +54,19 @@ draws them; ``layout`` "bsd" gives contiguous tensors, "wide" passes ``a``
 and ``b`` as the two halves of one (B,S,2D) buffer and ``h0`` as half of a
 (B,2D) buffer, so rows are read by strides. fp32 only, at ``RGLRU_TOL`` =
 1e-5 in the same form (the ``atol`` 1e-5 of ``tests/test_kernels.py:79-80``),
-on ``y`` and ``h_S``.
+on ``y`` and ``h_S``. ``RGLRU_FLOOR`` is the smallest call, a launch's fixed
+cost.
+
+RG-LRU step cases (``ops.rglru_step``) are ``(B, D, x dtype, layout)``:
+``gx_a`` and ``gx_x`` normal times 2, ``ba`` and ``bx`` normal times 0.5,
+``lam`` uniform in [0.0013, 0.132) as the model draws it, ``x`` and ``h``
+normal; channel 0 has ``ba`` -1e4 (r = 0: a = 1 and the clamped scale
+1e-6) and channel 1 ``lam`` 25 (softplus's linear branch). ``layout`` "bd"
+gives contiguous tensors, "wide" passes ``gx_a``/``gx_x``, ``x`` and ``h``
+as halves of (B,2D) buffers (rows by strides), "off" every tensor one
+element into its storage (the element path). ``h'`` is held at
+``RGLRU_TOL``, ``y`` at ``RGLRU_TOL`` in fp32 and ``TOL`` in bf16 (one
+bf16 rounding of ``h'``).
 """
 from __future__ import annotations
 
@@ -163,6 +181,24 @@ WKV6_EDGE = [
 ]
 # no token: y is empty and s_n is s0 (the Pallas kernel takes no S = 0)
 WKV6_NO_TOKEN = [(1, 2, 0, 32, None, 0.1, "bhsd")]
+# one token: the step kernel (8-column slices, one warp each)
+WKV6_STEP = [
+    (1, 32, 1, 64, None, 0.1, "bshd", "bf16"),  # rwkv6-1.6b's engine step
+    (1, 32, 1, 64, None, 0.1, "bshd", "fp32"),
+    (2, 32, 1, 64, None, 0.1, "bhsd", "bf16"),  # B·H 64
+    (1, 4, 1, 128, None, 0.1, "bshd", "bf16"),  # the widest head: 8 slices
+    (2, 3, 1, 100, None, 0.1, "bshd", "bf16"),  # a partial slice, rows past hd
+    (1, 5, 1, 32, None, 0.1, "bhsd", "fp32"),
+    (1, 2, 1, 48, 0.0, 0.0, "bshd", "bf16"),    # decay 0, zero state
+    (1, 3, 1, 64, None, 0.1, "off", "bf16"),    # off 16 bytes: element path
+    (1, 3, 1, 64, None, 0.1, "off", "fp32"),
+    (1, 2, 1, 7, None, 0.1, "bhsd", "fp32"),    # odd hd: element path
+    (1, 1, 1, 1, None, 0.1, "bhsd", "bf16"),    # hd 1
+]
+# the fixed cost of a step call: one head of 32
+WKV6_FLOOR = [(1, 1, 1, 32, None, 0.1, "bhsd", "bf16")]
+# the time loop with bf16 r, k, v, as the model's prefill passes them
+WKV6_BF16 = [(1, 3, 20, 64, None, 0.1, "bshd", "bf16")]
 
 RGLRU_SWEEP = [                           # the sweep of tests/test_kernels.py:70-71
     (1, 16, 64, "bsd"),
@@ -178,6 +214,17 @@ RGLRU_EDGE = [
 ]
 # no token: y is empty and h_S is h0 (the Pallas kernel takes no S = 0)
 RGLRU_NO_TOKEN = [(1, 0, 64, "bsd")]
+# the fixed cost of a scan call: one step of 32 channels
+RGLRU_FLOOR = [(1, 1, 32, "bsd")]
+RGLRU_STEP = [
+    (1, 2560, "bf16", "bd"),              # recurrentgemma-2b's engine step
+    (1, 2560, "fp32", "bd"),
+    (2, 77, "bf16", "wide"),              # B 2, odd D, rows by strides
+    (2, 77, "fp32", "bd"),
+    (3, 1030, "fp32", "wide"),            # three blocks, D % 4 = 2
+    (2, 300, "bf16", "off"),              # off 16 bytes: element path
+    (1, 32, "bf16", "bd"),                # the step's floor
+]
 
 
 def flash_visible(case):
@@ -238,11 +285,19 @@ def decode_inputs(case, dtype, device, seed=0):
     return q, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), valid
 
 
+def _bf16_values(x):
+    """fp32 ``x`` rounded to bf16 (to nearest even) and back: exact in bf16."""
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
 def wkv6_arrays(case, seed=0):
-    """numpy r, k, v, w (B,H,S,hd), u (H,hd), s0 (B,H,hd,hd), all fp32."""
-    B, H, S, hd, decay, s0_scale, _ = case
+    """numpy r, k, v, w (B,H,S,hd), u (H,hd), s0 (B,H,hd,hd), all fp32; for
+    a bf16 case r, k and v hold bf16 values."""
+    B, H, S, hd, decay, s0_scale = case[:6]
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, H, S, hd)).astype(np.float32) for _ in range(3))
+    if case[7:] == ("bf16",):
+        r, k, v = map(_bf16_values, (r, k, v))
     if decay is None:
         w = rng.uniform(0.8, 0.999, (B, H, S, hd)).astype(np.float32)
     else:
@@ -253,11 +308,17 @@ def wkv6_arrays(case, seed=0):
 
 
 def wkv6_inputs(case, device, seed=0):
-    """The arrays of ``wkv6_arrays`` as torch tensors on ``device``; in the
-    "bshd" layout r, k, v, w are permuted views of (B,S,H,hd) buffers."""
+    """The arrays of ``wkv6_arrays`` as torch tensors on ``device``, r, k, v
+    in the case's dtype; in the "bshd" layout r, k, v, w are permuted views
+    of (B,S,H,hd) buffers, in "off" every tensor starts one element into its
+    storage."""
     r, k, v, w, u, s0 = (torch.from_numpy(x).to(device) for x in wkv6_arrays(case, seed))
+    if case[7:] == ("bf16",):
+        r, k, v = (t.bfloat16() for t in (r, k, v))
     if case[6] == "bshd":
         r, k, v, w = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, w))
+    elif case[6] == "off":
+        r, k, v, w, u, s0 = (at_offset(t, 1) for t in (r, k, v, w, u, s0))
     return [r, k, v, w, u, s0]
 
 
@@ -282,6 +343,41 @@ def rglru_inputs(case, device, seed=0):
         a, b = ab[..., :D], ab[..., D:]
         h0 = torch.cat([h0, torch.zeros_like(h0)], dim=-1)[:, :D]
     return [a, b, h0]
+
+
+def rglru_step_arrays(case, seed=0):
+    """numpy gx_a, gx_x (B,D), ba, bx, lam (D,), x (B,D) (bf16 values for a
+    bf16 case) and h (B,D), all fp32, as the table above draws them."""
+    B, D = case[:2]
+    rng = np.random.default_rng(seed)
+    gx_a, gx_x = ((rng.standard_normal((B, D)) * 2).astype(np.float32) for _ in range(2))
+    ba, bx = ((rng.standard_normal(D) * 0.5).astype(np.float32) for _ in range(2))
+    lam = rng.uniform(0.0013, 0.1320, D).astype(np.float32)
+    ba[0] = -1e4
+    if D > 1:
+        lam[1] = 25.0
+    x, h = (rng.standard_normal((B, D)).astype(np.float32) for _ in range(2))
+    if case[2] == "bf16":
+        x = _bf16_values(x)
+    return gx_a, gx_x, ba, bx, lam, x, h
+
+
+def rglru_step_inputs(case, device, seed=0):
+    """The arrays of ``rglru_step_arrays`` as tensors on ``device``, x in the
+    case's dtype, laid out as the case says."""
+    gx_a, gx_x, ba, bx, lam, x, h = (torch.from_numpy(a).to(device)
+                                     for a in rglru_step_arrays(case, seed))
+    if case[2] == "bf16":
+        x = x.bfloat16()
+    if case[3] == "wide":
+        D = x.shape[1]
+        g = torch.cat([gx_a, gx_x], dim=1)
+        gx_a, gx_x = g[:, :D], g[:, D:]
+        x, h = (torch.cat([t, torch.zeros_like(t)], dim=1)[:, :D] for t in (x, h))
+    elif case[3] == "off":
+        gx_a, gx_x, ba, bx, lam, x, h = (at_offset(t, 1)
+                                         for t in (gx_a, gx_x, ba, bx, lam, x, h))
+    return [gx_a, gx_x, ba, bx, lam, x, h]
 
 
 def held(name, case, out, want, tol=None) -> float:
@@ -354,4 +450,16 @@ def check_rglru(case, device, seed=0):
     want_y, want_hn = ref.rglru_scan_ref(*inputs)
     err = max(held("rglru y", case, y, want_y, RGLRU_TOL),
               held("rglru h_S", case, hn, want_hn, RGLRU_TOL))
+    return err, inputs
+
+
+def check_rglru_step(case, device, seed=0):
+    """The fused step against its plain version on ``case``, on ``y`` and
+    ``h'``; (max |err|, inputs)."""
+    inputs = rglru_step_inputs(case, device, seed)
+    y, hn = ops.rglru_step(*inputs)
+    want_y, want_hn = ref.rglru_step_ref(*inputs)
+    y_tol = RGLRU_TOL if want_y.dtype == torch.float32 else None
+    err = max(held("rglru_step y", case, y, want_y, y_tol),
+              held("rglru_step h", case, hn, want_hn, RGLRU_TOL))
     return err, inputs

@@ -1,7 +1,10 @@
 // RG-LRU diagonal linear recurrence for Hopper (sm_90a), plain CUDA C++, fp32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/rglru.py (rglru_scan /
-// _rglru_kernel). Per (batch, channel):
+// _rglru_kernel), and at the decode step the XLA fusion around the
+// reference's step (repro/models/griffin.py::rglru_step). Two entries:
+//
+// rglru_scan_launch -> rglru_kernel, the sequence. Per (batch, channel):
 //
 //   h = h0[b, d];  for t < S:  h = a[b, t, d] * h + b[b, t, d];  y[b, t, d] = h
 //   hn[b, d] = h
@@ -10,30 +13,57 @@
 //   strides with the channel dimension contiguous, so the model's tensors
 //   are read and written in place; hn is contiguous.
 //
-// Design. One thread per channel, blocks of kThreads channels over
-// (d-block, batch), so every load and store of a time step is coalesced
-// along D. a_t and b_t do not depend on h: they are loaded kAhead steps
-// ahead into registers (the next chunk's loads are issued before the
-// current chunk's chain runs), so only the multiply-add chain is serial.
-// The product and the sum are rounded separately (__fmul_rn, __fadd_rn),
-// as the plain version `a_t * h + b_t` rounds them; the compiler would
-// otherwise contract them into one FMA. Any D (the Pallas kernel's block_d
-// and its divisibility assert are TPU tiling), any S >= 0 (S = 0 copies h0
-// to hn), any B up to the grid's 65,535 rows.
+//   Design. One thread per channel, blocks of kThreads channels over
+//   (d-block, batch), so every load and store of a time step is coalesced
+//   along D. a_t and b_t do not depend on h: they are loaded kAhead steps
+//   ahead into registers (the next chunk's loads are issued before the
+//   current chunk's chain runs), so only the multiply-add chain is serial.
+//   The product and the sum are rounded separately (__fmul_rn, __fadd_rn),
+//   as the plain version `a_t * h + b_t` rounds them; the compiler would
+//   otherwise contract them into one FMA. Any D (the Pallas kernel's block_d
+//   and its divisibility assert are TPU tiling), any S >= 0 (S = 0 copies h0
+//   to hn), any B up to the grid's 65,535 rows.
 //
-// Bound on the H100: bytes, 4·(3·B·S·D + 2·B·D) at 3.35 TB/s (2·B·S·D
-// fp32 operations are far below the 67 TFLOP/s line). At the engine's step
-// (1,1,2560) that is 51,200 bytes, 0.015 µs, so launch latency decides; at
-// the model phase's prefill (1,2560,2560) 78.7 MB, 23 µs. There, batch 1
-// gives 10 blocks for 132 SMs, each walking a 2,560-step chain, so this
-// first version sits far above the bound; a chunked two-pass scan
-// (per-chunk products and carries, then a fix-up) is later work.
+//   Bound on the H100: bytes, 4·(3·B·S·D + 2·B·D) at 3.35 TB/s (2·B·S·D
+//   fp32 operations are far below the 67 TFLOP/s line): at the model
+//   phase's prefill (1,2560,2560) 78.7 MB, 23 µs. There, batch 1 gives 10
+//   blocks for 132 SMs, each walking a 2,560-step chain, so this first
+//   version sits far above the bound; a chunked two-pass scan (per-chunk
+//   products and carries, then a fix-up) is later work.
+//
+// rglru_step_launch -> rglru_step_kernel<T, VEC>, one decode step with its
+// whole elementwise chain, from the two fp32 GEMV outputs gx_a = x·wa and
+// gx_x = x·wx (torch.matmul, outside the kernel). Per (batch, channel):
+//
+//   r = σ(gx_a + ba), i = σ(gx_x + bx), log_a = -8·softplus(λ)·r,
+//   a = exp(log_a), b = sqrt(max(1 - exp(2·log_a), 1e-12))·i·x,
+//   h' = a·h + b;   y = h' rounded to x's type T (bf16: to nearest even)
+//
+//   gx_a, gx_x, h (B,D) fp32 and x (B,D) T by a batch stride, the channel
+//   dimension contiguous; ba, bx, lam (D,) fp32; y (B,D) T and hn (B,D)
+//   fp32 contiguous. Every elementwise operation rounds as the plain
+//   version's PyTorch op does (__fadd_rn, __fmul_rn: no contraction into
+//   FMAs); exp, log1p and sqrt are the precise library functions.
+//
+//   Design. At the engine's step (1,2560) the call moves 4·(7·D) + 2·2·D
+//   bytes, 82 KB, 0.025 µs at 3.35 TB/s: far below the fixed cost of a
+//   launch. So the gain is in launches: this one replaces the ~15 PyTorch
+//   launches of the chain around the recurrence (bias adds, sigmoids,
+//   softplus, exps, clamp, square root, products, the recurrence, y's
+//   cast), as XLA's fusion does on the TPU. A thread takes 4 adjacent
+//   channels, every load 16 bytes (8 for bf16) and issued before the first
+//   use; VEC is that vector path (D % 4 == 0, bases and batch strides
+//   aligned to 4 elements), otherwise the same threads load element by
+//   element. Any D, B up to 65,535.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // channels per block
+constexpr int kThreads = 256;   // channels per block (scan)
 constexpr int kAhead = 8;       // time steps loaded ahead of the chain
+constexpr int kStepThreads = 128;   // threads per block (step), 4 channels each
 
 struct Params {
   const float* __restrict__ a;
@@ -83,6 +113,133 @@ __global__ void __launch_bounds__(kThreads) rglru_kernel(const Params p) {
   p.hn[(long long)bi * p.D + d] = h;
 }
 
+struct StepParams {
+  const float* __restrict__ ga;
+  const float* __restrict__ gx;
+  const float* __restrict__ ba;
+  const float* __restrict__ bx;
+  const float* __restrict__ lam;
+  const void* __restrict__ x;     // T
+  const float* __restrict__ h;
+  void* __restrict__ y;           // T
+  float* __restrict__ hn;
+  int D;
+  long long ga_sb, gx_sb, x_sb, h_sb;
+};
+
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// o[0..3] = p[0..3] as fp32; elements at or past n read as 0. With VEC, p
+// is aligned to 4 elements and n >= 4 (D % 4 == 0).
+template <bool VEC>
+__device__ __forceinline__ void load4(const float* p, int n, float* o) {
+  if (VEC) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = e < n ? ld1(p + e) : 0.f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, int n, float* o) {
+  if (VEC) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    o[0] = __uint_as_float(q.x << 16);
+    o[1] = __uint_as_float(q.x & 0xffff0000u);
+    o[2] = __uint_as_float(q.y << 16);
+    o[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = e < n ? ld1(p + e) : 0.f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* p, int n, const float* o) {
+  if (VEC) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) p[e] = o[e];
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(__nv_bfloat16* p, int n, const float* o) {
+  unsigned short q[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) q[e] = __bfloat16_as_ushort(__float2bfloat16_rn(o[e]));
+  if (VEC) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(q[0] | (unsigned)q[1] << 16,
+                                              q[2] | (unsigned)q[3] << 16);
+  } else {
+    unsigned short* u = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) u[e] = q[e];
+  }
+}
+
+// torch.sigmoid and F.softplus (beta 1, threshold 20) as PyTorch computes them
+__device__ __forceinline__ float sigmoid(float v) {
+  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
+}
+__device__ __forceinline__ float softplus(float v) { return v > 20.f ? v : log1pf(expf(v)); }
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kStepThreads) rglru_step_kernel(const StepParams p) {
+  const int d0 = (blockIdx.x * kStepThreads + threadIdx.x) * 4;
+  const long long bi = blockIdx.y;
+  if (d0 >= p.D) return;
+  const int n = p.D - d0;
+  float ga[4], gx[4], ba[4], bx[4], lam[4], x[4], h[4];
+  load4<VEC>(p.ga + bi * p.ga_sb + d0, n, ga);
+  load4<VEC>(p.gx + bi * p.gx_sb + d0, n, gx);
+  load4<VEC>(p.ba + d0, n, ba);
+  load4<VEC>(p.bx + d0, n, bx);
+  load4<VEC>(p.lam + d0, n, lam);
+  load4<VEC>(static_cast<const T*>(p.x) + bi * p.x_sb + d0, n, x);
+  load4<VEC>(p.h + bi * p.h_sb + d0, n, h);
+  float hn[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float r = sigmoid(__fadd_rn(ga[e], ba[e]));
+    const float i = sigmoid(__fadd_rn(gx[e], bx[e]));
+    const float log_a = __fmul_rn(__fmul_rn(-8.f, softplus(lam[e])), r);
+    const float a = expf(log_a);
+    const float s = sqrtf(fmaxf(__fsub_rn(1.f, expf(__fmul_rn(2.f, log_a))), 1e-12f));
+    const float b = __fmul_rn(__fmul_rn(s, i), x[e]);
+    hn[e] = __fadd_rn(__fmul_rn(a, h[e]), b);
+  }
+  store4<VEC>(p.hn + bi * p.D + d0, n, hn);
+  store4<VEC>(static_cast<T*>(p.y) + bi * p.D + d0, n, hn);
+}
+
+template <typename T>
+void launch_step(const StepParams& p, int B, cudaStream_t st) {
+  auto ok = [](const void* q, int elem) {
+    return reinterpret_cast<uintptr_t>(q) % (4u * elem) == 0;
+  };
+  const int et = (int)sizeof(T);
+  const bool vec = p.D % 4 == 0 && p.ga_sb % 4 == 0 && p.gx_sb % 4 == 0 &&
+                   p.x_sb % 4 == 0 && p.h_sb % 4 == 0 && ok(p.ga, 4) && ok(p.gx, 4) &&
+                   ok(p.ba, 4) && ok(p.bx, 4) && ok(p.lam, 4) && ok(p.x, et) &&
+                   ok(p.h, 4) && ok(p.y, et) && ok(p.hn, 4);
+  const int quads = (p.D + 3) / 4;
+  const dim3 grid((unsigned)((quads + kStepThreads - 1) / kStepThreads), (unsigned)B);
+  if (vec)
+    rglru_step_kernel<T, true><<<grid, kStepThreads, 0, st>>>(p);
+  else
+    rglru_step_kernel<T, false><<<grid, kStepThreads, 0, st>>>(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -103,6 +260,28 @@ int rglru_scan_launch(const float* a, const float* b, const float* h0, float* y,
   p.y_sb = y_sb; p.y_ss = y_ss; p.h_sb = h_sb;
   const dim3 grid((unsigned)((D + kThreads - 1) / kThreads), (unsigned)B);
   rglru_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// gx_a, gx_x, x, h: batch strides (the channel dimension contiguous); ba,
+// bx, lam (D,) and y, hn (B,D) contiguous; x and y bf16 if x_bf16, else
+// fp32. Returns a cudaError_t (0 = launched; cudaErrorInvalidValue for B
+// outside 1..65535 or D <= 0).
+int rglru_step_launch(const float* gx_a, const float* gx_x, const float* ba,
+                      const float* bx, const float* lam, const void* x, const float* h,
+                      void* y, float* hn, int B, int D, int x_bf16,
+                      long long ga_sb, long long gx_sb, long long x_sb, long long h_sb,
+                      void* stream) {
+  if (B <= 0 || B > 65535 || D <= 0) return (int)cudaErrorInvalidValue;
+  StepParams p;
+  p.ga = gx_a; p.gx = gx_x; p.ba = ba; p.bx = bx; p.lam = lam; p.x = x; p.h = h;
+  p.y = y; p.hn = hn; p.D = D;
+  p.ga_sb = ga_sb; p.gx_sb = gx_sb; p.x_sb = x_sb; p.h_sb = h_sb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    launch_step<__nv_bfloat16>(p, B, st);
+  else
+    launch_step<float>(p, B, st);
   return (int)cudaGetLastError();
 }
 

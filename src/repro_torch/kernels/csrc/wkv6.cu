@@ -1,4 +1,4 @@
-// RWKV6 ("Finch") WKV recurrence for Hopper (sm_90a), plain CUDA C++, fp32.
+// RWKV6 ("Finch") WKV recurrence for Hopper (sm_90a), plain CUDA C++.
 //
 // Replaces the Pallas TPU kernel repro/kernels/wkv6.py (wkv6 / _wkv_kernel).
 // Per (batch, head) the hd x hd state S is carried through the sequence:
@@ -6,39 +6,69 @@
 //   y_t     = (S_t + u ⊙ (k_t ⊗ v_t))ᵀ r_t        (state before the update)
 //   S_{t+1} = diag(w_t) S_t + k_t ⊗ v_t
 //
-//   r, k, v, w, y (B,H,S,hd), u (H,hd), s0 and s_n (B,H,hd,hd), all fp32.
-//   Every tensor but s_n comes by strides with its last dimension contiguous,
-//   so the model's (B,S,H,hd) activations are read, and y written, in place
-//   through permuted views. s_n is contiguous.
+//   r, k, v (B,H,S,hd) fp32 or bf16 (all three alike; bf16 is upcast in
+//   registers, exactly, so the function is the fp32 one on the upcast
+//   values); w and y (B,H,S,hd), u (H,hd), s0 and s_n (B,H,hd,hd), fp32.
+//   Every tensor but s_n comes by strides with its last dimension
+//   contiguous, so the model's (B,S,H,hd) activations are read, and y
+//   written, in place through permuted views. s_n is contiguous.
 //
-// Design. One block per (b, h); the time loop runs inside the block. Thread
-// (j, g) owns column j of the state and the kRows rows g*kRows .. of it, in
-// registers, so the state never leaves the chip between steps. Time steps
-// are staged kChunk at a time in shared memory (r_t, k_t, v_t, w_t), so a
-// chunk costs two barriers, not two per step. Each thread adds its rows'
-// share of y_t[j] = sum_i r_i (S_ij + u_i k_i v_j) to a shared partial; after
-// the chunk the kGroups partials of each column are summed and written.
+// Two kernels behind the one entry, wkv6_launch:
+//
+//  * S == 1, the engine's step -> wkv6_step_kernel<HD, T, P>. The call is
+//    one read and one write of the state, 2·hd² of the 5·hd + 2·hd² words a
+//    head moves, and no time loop; what it costs is latency, and with the
+//    state cold in device memory (the model's weights pass through L2
+//    between two steps of a layer) the latency of its reads. y_j needs only
+//    column j of S and every row, so the columns of a head are split into
+//    8-column slices, one warp (one CTA) per (b, h, slice): 256 CTAs at
+//    rwkv6-1.6b's (1,32,1,64), two on most SMs. Lane (g, c) owns columns
+//    4c..4c+3 of its slice and the hd/16 rows g·HD/16.., all in registers.
+//    Every load of the call (its state rows as 16-byte float4, r, k, w, u
+//    for its rows and v for its columns) is issued before the first is
+//    used, so the call is one memory round trip; no shared memory, no
+//    barrier: y's sum over rows is a shuffle tree over the 16 row groups,
+//    and the new state is stored as float4. P is how memory is reached:
+//    kFull (hd equals the template width, every base and stride aligned to
+//    4 elements: no mask), kVec (aligned, hd below the width: whole vectors
+//    or none) or kElem (element by element). Wider slices (16 columns, 128
+//    CTAs) and per-vector masks on the full-width path were each slower
+//    at the engine's shape with the state cold, in development builds.
+//  * S == 0 or S >= 2 -> wkv6_kernel<HD, T>: one block per (b, h), the time
+//    loop inside the block. Thread (j, g) owns column j of the state and the
+//    kRows rows g*kRows .. of it, in registers, so the state never leaves the
+//    chip between steps. Time steps are staged kChunk at a time in shared
+//    memory (r_t, k_t, v_t, w_t), so a chunk costs two barriers, not two per
+//    step. Each thread adds its rows' share of y_t[j] to a shared partial;
+//    after the chunk the kGroups partials of each column are summed and
+//    written. S = 0 copies s0 to s_n.
+//
 // Columns and rows past hd (hd below the template width) hold zeros and are
-// never stored. S = 0 copies s0 to s_n.
+// never stored; any hd from 1 to 128.
 //
-// Bound on the H100: at the engine's shape (1,32,1,64) the 4·(5·B·H·S·hd +
-// 2·B·H·hd² + H·hd) bytes (0.33 µs at 3.35 TB/s), dominated by the state's
-// read and write; at the prefill shape (1,32,2048,64) bytes (25 µs) and the
-// 6·B·H·S·hd² fp32 operations (24 µs at 67 TFLOP/s) are close. This first
-// version sits far above both at long S: B·H = 32 blocks for 132 SMs, each
-// carrying an S-step dependent chain. A chunked tensor-core formulation
+// Bound on the H100: bytes, (2|4)·3·B·H·S·hd for r, k, v plus
+// 4·(2·B·H·S·hd + 2·B·H·hd² + H·hd) for w, y, the state in and out and u,
+// at 3.35 TB/s: at the engine's shape (1,32,1,64) with bf16 r, k, v about
+// 0.32 µs, dominated by the state, far below the fixed cost of a launch; at
+// the prefill shape (1,32,2048,64) bytes (25 µs in fp32) and the
+// 6·B·H·S·hd² fp32 operations (24 µs at 67 TFLOP/s) are close. The time loop
+// sits far above both at long S: B·H = 32 blocks for 132 SMs, each carrying
+// an S-step dependent chain. A chunked tensor-core formulation
 // (repro/models/rwkv6.py::wkv_scan_chunked) is later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kGroups = 4;               // row groups sharing one column
+constexpr int kGroups = 4;               // row groups sharing one column (time loop)
 constexpr int kMaxHd = 128;
+constexpr int kSlice = 8;                // state columns per warp (step)
 
 struct Params {
-  const float* r;
-  const float* k;
-  const float* v;
+  const void* r;                         // T
+  const void* k;                         // T
+  const void* v;                         // T
   const float* w;
   const float* u;
   const float* s0;
@@ -54,7 +84,137 @@ struct Params {
   long long s_sb, s_sh, s_si;
 };
 
-template <int HD>
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// How the step kernel reaches memory: kFull, hd equals the template width
+// and every base and stride is aligned to 4 elements (no mask at all); kVec,
+// the same alignment with hd below the width (a vector is loaded whole or
+// not at all); kElem, element by element (an odd hd or an unaligned view).
+enum Path { kFull, kVec, kElem };
+
+// o[0..N) = p[0..N) upcast to fp32; elements at or past n read as 0 (not
+// looked at on kFull). N = 4, 2 or 1 elements: one 16-, 8- or 4-byte load
+// in fp32, half that in bf16.
+template <int N, Path P>
+__device__ __forceinline__ void loadn(const float* p, int n, float* o) {
+  if (P == kElem || (P == kVec && n <= 0)) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) o[e] = e < n ? ld1(p + e) : 0.f;
+  } else if (N == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
+  } else if (N == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = q.x; o[1] = q.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+
+template <int N, Path P>
+__device__ __forceinline__ void loadn(const __nv_bfloat16* p, int n, float* o) {
+  if (P == kElem || (P == kVec && n <= 0)) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) o[e] = e < n ? ld1(p + e) : 0.f;
+  } else if (N == 4) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    o[0] = __uint_as_float(q.x << 16);
+    o[1] = __uint_as_float(q.x & 0xffff0000u);
+    o[2] = __uint_as_float(q.y << 16);
+    o[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else if (N == 2) {
+    const unsigned q = __ldg(reinterpret_cast<const unsigned*>(p));
+    o[0] = __uint_as_float(q << 16);
+    o[1] = __uint_as_float(q & 0xffff0000u);
+  } else {
+    o[0] = ld1(p);
+  }
+}
+
+// p[0..4) = o[0..4), elements at or past n not stored (n not looked at on
+// kFull); one 16-byte store off kElem.
+template <Path P>
+__device__ __forceinline__ void store4(float* p, int n, const float* o) {
+  if (P == kElem) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) p[e] = o[e];
+  } else if (P == kFull || n > 0) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+template <int HD, typename T, Path P>
+__global__ void __launch_bounds__(32) wkv6_step_kernel(const Params p) {
+  constexpr int kRpt = HD / 16;                   // state rows per lane
+  constexpr int kRv = kRpt < 4 ? kRpt : 4;        // elements per row-vector load
+  const int lane = threadIdx.x;
+  const int c = lane & 1, g = lane >> 1;          // column group, row group
+  const int hd = P == kFull ? HD : p.hd;
+  const int nslice = (hd + kSlice - 1) / kSlice;
+  const int bh = blockIdx.x / nslice;
+  const int b = bh / p.H, h = bh % p.H;
+  const int j0 = (blockIdx.x % nslice) * kSlice + c * 4;   // first of 4 columns
+  const int i0 = g * kRpt;                                  // first of kRpt rows
+  const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* w = p.w + b * p.w_sb + h * p.w_sh;
+  const float* u = p.u + h * p.u_sh;
+  const float* s0 = p.s0 + b * p.s_sb + h * p.s_sh;
+
+  // every load of the call, before any is used
+  float rr[kRpt], kk[kRpt], ww[kRpt], uu[kRpt], vv[4], st[kRpt][4];
+#pragma unroll
+  for (int a = 0; a < kRpt; a += kRv) {
+    const int n = hd - (i0 + a);
+    loadn<kRv, P>(r + i0 + a, n, rr + a);
+    loadn<kRv, P>(k + i0 + a, n, kk + a);
+    loadn<kRv, P>(w + i0 + a, n, ww + a);
+    loadn<kRv, P>(u + i0 + a, n, uu + a);
+  }
+  loadn<4, P>(v + j0, hd - j0, vv);
+#pragma unroll
+  for (int a = 0; a < kRpt; ++a) {
+    const int i = i0 + a;
+    loadn<4, P>(s0 + i * p.s_si + j0, i < hd ? hd - j0 : 0, st[a]);
+  }
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int a = 0; a < kRpt; ++a) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float kv = kk[a] * vv[e];
+      acc[e] = fmaf(rr[a], fmaf(uu[a], kv, st[a][e]), acc[e]);
+      st[a][e] = fmaf(st[a][e], ww[a], kv);
+    }
+  }
+  // y_j: the sum over the 16 row groups (lane bits 1-4)
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+  }
+  if (g == 0) store4<P>(p.y + b * p.y_sb + h * p.y_sh + j0, hd - j0, acc);
+
+  float* sn = p.sn + ((long long)b * p.H + h) * hd * hd;
+#pragma unroll
+  for (int a = 0; a < kRpt; ++a) {
+    const int i = i0 + a;
+    if (P == kFull || i < hd) store4<P>(sn + i * hd + j0, hd - j0, st[a]);
+  }
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <int HD, typename T>
 __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
   constexpr int kThreads = HD * kGroups;
   constexpr int kRows = HD / kGroups;             // state rows per thread
@@ -66,9 +226,9 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
   const int j = tid % HD, g = tid / HD;
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int hd = p.hd, S = p.S;
-  const float* r = p.r + b * p.r_sb + h * p.r_sh;
-  const float* k = p.k + b * p.k_sb + h * p.k_sh;
-  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* w = p.w + b * p.w_sb + h * p.w_sh;
   float* y = p.y + b * p.y_sb + h * p.y_sh;
   const float* s0 = p.s0 + b * p.s_sb + h * p.s_sh;
@@ -87,9 +247,9 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
       const int c = e / HD, d = e % HD;
       const bool in = c < n && d < hd;
       const long long t = t0 + c;
-      Rs[c][d] = in ? r[t * p.r_ss + d] : 0.f;
-      Ks[c][d] = in ? k[t * p.k_ss + d] : 0.f;
-      Vs[c][d] = in ? v[t * p.v_ss + d] : 0.f;
+      Rs[c][d] = in ? to_f(r[t * p.r_ss + d]) : 0.f;
+      Ks[c][d] = in ? to_f(k[t * p.k_ss + d]) : 0.f;
+      Vs[c][d] = in ? to_f(v[t * p.v_ss + d]) : 0.f;
       Ws[c][d] = in ? w[t * p.w_ss + d] : 0.f;
     }
     __syncthreads();                 // the chunk is staged; Part is free
@@ -125,17 +285,58 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
   }
 }
 
+// Whether the step may load and store 4 elements at a time (kFull, kVec): hd
+// a multiple of 4 and every base and stride it reads or writes aligned to 4
+// elements.
+bool vec4(const Params& p, int elem_rkv) {
+  auto ok = [](const void* q, int elem) {
+    return reinterpret_cast<uintptr_t>(q) % (4u * elem) == 0;
+  };
+  const long long strides[] = {p.r_sb, p.r_sh, p.k_sb, p.k_sh, p.v_sb, p.v_sh, p.w_sb,
+                               p.w_sh, p.y_sb, p.y_sh, p.u_sh, p.s_sb, p.s_sh, p.s_si};
+  for (long long s : strides)
+    if (s % 4 != 0) return false;
+  return p.hd % 4 == 0 && ok(p.r, elem_rkv) && ok(p.k, elem_rkv) && ok(p.v, elem_rkv) &&
+         ok(p.w, 4) && ok(p.u, 4) && ok(p.s0, 4) && ok(p.y, 4) && ok(p.sn, 4);
+}
+
+template <int HD, typename T>
+void launch(const Params& p, int B, cudaStream_t st) {
+  if (p.S == 1) {
+    const dim3 grid((unsigned)B * (unsigned)p.H * (unsigned)((p.hd + kSlice - 1) / kSlice));
+    if (!vec4(p, (int)sizeof(T)))
+      wkv6_step_kernel<HD, T, kElem><<<grid, 32, 0, st>>>(p);
+    else if (p.hd == HD)
+      wkv6_step_kernel<HD, T, kFull><<<grid, 32, 0, st>>>(p);
+    else
+      wkv6_step_kernel<HD, T, kVec><<<grid, 32, 0, st>>>(p);
+  } else {
+    wkv6_kernel<HD, T><<<(unsigned)B * (unsigned)p.H, HD * kGroups, 0, st>>>(p);
+  }
+}
+
+template <typename T>
+void launch_hd(const Params& p, int B, cudaStream_t st) {
+  if (p.hd <= 32)
+    launch<32, T>(p, B, st);
+  else if (p.hd <= 64)
+    launch<64, T>(p, B, st);
+  else
+    launch<128, T>(p, B, st);
+}
+
 }  // namespace
 
 extern "C" {
 
-// r, k, v, w, y: strides of (batch, head, step); u: of head; s0: of (batch,
-// head, row); the last dimension of each is contiguous. s_n is contiguous
-// (B,H,hd,hd). Returns a cudaError_t (0 = launched; cudaErrorInvalidValue
-// for hd outside 1..kMaxHd or a negative size).
-int wkv6_launch(const float* r, const float* k, const float* v, const float* w,
+// r, k, v (bf16 if rkv_bf16, else fp32), w, y: strides of (batch, head,
+// step); u: of head; s0: of (batch, head, row); the last dimension of each
+// is contiguous. s_n is contiguous (B,H,hd,hd). Returns a cudaError_t
+// (0 = launched; cudaErrorInvalidValue for hd outside 1..kMaxHd or a
+// negative size).
+int wkv6_launch(const void* r, const void* k, const void* v, const float* w,
                 const float* u, const float* s0, float* y, float* sn,
-                int B, int H, int S, int hd,
+                int B, int H, int S, int hd, int rkv_bf16,
                 long long r_sb, long long r_sh, long long r_ss,
                 long long k_sb, long long k_sh, long long k_ss,
                 long long v_sb, long long v_sh, long long v_ss,
@@ -155,13 +356,10 @@ int wkv6_launch(const float* r, const float* k, const float* v, const float* w,
   p.y_sb = y_sb; p.y_sh = y_sh; p.y_ss = y_ss;
   p.u_sh = u_sh; p.s_sb = s_sb; p.s_sh = s_sh; p.s_si = s_si;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)B * (unsigned)H);
-  if (hd <= 32)
-    wkv6_kernel<32><<<grid, 32 * kGroups, 0, st>>>(p);
-  else if (hd <= 64)
-    wkv6_kernel<64><<<grid, 64 * kGroups, 0, st>>>(p);
+  if (rkv_bf16)
+    launch_hd<__nv_bfloat16>(p, B, st);
   else
-    wkv6_kernel<128><<<grid, 128 * kGroups, 0, st>>>(p);
+    launch_hd<float>(p, B, st);
   return (int)cudaGetLastError();
 }
 

@@ -3,16 +3,21 @@
 Twins of ``repro.kernels.ref.flash_attention_ref``,
 ``decode_attention_ref``, ``rglru_scan_ref`` and ``wkv6_ref``: same layouts, fp32 internals,
 the finite mask value ``NEG_INF`` so that a fully masked row gives a
-uniform softmax rather than NaN. The wrappers run these for CPU tensors;
-``chip_smoke.py`` holds the CUDA kernels against them on the card.
+uniform softmax rather than NaN. ``rglru_step_ref`` is the RG-LRU decode
+step of ``repro/models/griffin.py`` (``_rglru_coeffs`` after its two
+products, then ``a * h + b``), the function the fused step kernel computes.
+The wrappers run these for CPU tensors; ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+RG_C = 8.0          # the RG-LRU's decay scale, repro/models/griffin.py
 
 
 def flash_attention_ref(q, k, v, *, q_offset: int = 0, causal: bool = True,
@@ -62,13 +67,34 @@ def rglru_scan_ref(a, b, h0):
     return y, (h0.clone() if not ys else h)
 
 
+def rglru_step_ref(gx_a, gx_x, ba, bx, lam, x, h):
+    """One RG-LRU step from the two fp32 products ``gx_a = x @ wa`` and
+    ``gx_x = x @ wx`` (B,D); ba, bx, lam (D,) fp32; x (B,D) in the model's
+    dtype; h (B,D) fp32. Returns (y in x's dtype, h' fp32):
+
+        r = σ(gx_a + ba), i = σ(gx_x + bx), log_a = -8·softplus(λ)·r,
+        a = exp(log_a), b = sqrt(max(1 - exp(2·log_a), 1e-12))·i·x,
+        h' = a·h + b.
+    """
+    x32 = x.float()
+    r = torch.sigmoid(gx_a + ba)
+    i = torch.sigmoid(gx_x + bx)
+    log_a = -RG_C * F.softplus(lam) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * i * x32
+    h = a * h.float() + b
+    return h.to(x.dtype), h
+
+
 def wkv6_ref(r, k, v, w, u, s0):
-    """RWKV6 recurrence, one token at a time. r,k,v,w: (B,H,S,hd) fp32;
-    u: (H,hd); s0: (B,H,hd,hd). Returns (y (B,H,S,hd), s_n (B,H,hd,hd)):
+    """RWKV6 recurrence, one token at a time. r,k,v: (B,H,S,hd) fp32 or
+    bf16, upcast first; w: (B,H,S,hd) fp32; u: (H,hd); s0: (B,H,hd,hd).
+    Returns (y (B,H,S,hd), s_n (B,H,hd,hd)), fp32:
 
         y_t     = (S_t + u ⊙ (k_t ⊗ v_t))ᵀ r_t
         S_{t+1} = diag(w_t) S_t + k_t ⊗ v_t
     """
+    r, k, v = r.float(), k.float(), v.float()
     B, H, S, hd = r.shape
     s = s0
     ys = []

@@ -1,27 +1,36 @@
-"""RG-LRU linear recurrence: wrapper of ``csrc/rglru_scan.cu``.
+"""RG-LRU linear recurrence: wrappers of ``csrc/rglru_scan.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rglru.py`` (``rglru_scan`` /
 ``_rglru_kernel``): per (batch, channel), ``h_t = a_t * h_{t-1} + b_t`` from
 ``h0``, every ``h_t`` returned as ``y`` and the last as ``h_S``.
 
-On the H100 the kernel is bound by bytes, ``4·(3·B·S·D + 2·B·D)`` at
-3.35 TB/s: 0.015 µs at the engine's step (1,1,2560), where launch latency
-decides, and 23 µs at a 2,560-token prefill (1,2560,2560). The CUDA kernel
-gives each channel one thread, blocks of 256 channels over (d-block, batch),
-coalesced along D, and loads ``a`` and ``b`` eight steps ahead so that only
-the multiply-add chain is serial. At batch 1 and D 2,560 that is 10 blocks
-for 132 SMs, so a long S sits far above the bound (see ``PERF.md``).
+``rglru_scan`` (the sequence, ``rglru_kernel``) is bound on the H100 by
+bytes, ``4·(3·B·S·D + 2·B·D)`` at 3.35 TB/s: 23 µs at a 2,560-token prefill
+(1,2560,2560). The CUDA kernel gives each channel one thread, blocks of 256
+channels over (d-block, batch), coalesced along D, and loads ``a`` and ``b``
+eight steps ahead so that only the multiply-add chain is serial. At batch 1
+and D 2,560 that is 10 blocks for 132 SMs, so a long S sits far above the
+bound (see ``PERF.md``).
+
+``rglru_step`` (the decode step, ``rglru_step_kernel``) takes the step's
+whole elementwise chain in one launch, from the two fp32 GEMV outputs to
+``y`` and ``h'`` (``ref.rglru_step_ref``), as XLA fuses it around the
+reference's step on the TPU: at (1,2560) its bytes take 0.025 µs, far below
+a launch's fixed cost, so the gain is the ~15 PyTorch launches it replaces.
+Its host work per call is the checks (no device sync), ``y`` and ``h'``,
+and the launch; the device guard is entered only when the tensors are not
+on the current device.
 
 ``a``, ``b`` and ``h0`` go by strides with the channel dimension contiguous,
-so the model's tensors (the step's ``a[:, None]``, the cache's ``h`` rows)
-are read in place; ``y`` is allocated in ``a``'s memory layout
+so the model's tensors (the coefficients, the cache's ``h`` rows) are read
+in place; ``y`` is allocated in ``a``'s memory layout
 (``torch.empty_like``), ``h_S`` contiguous. fp32 only, as the reference's
 signature says; any ``D`` (no block size has to divide it), any ``S >= 0``
 (at ``S = 0``, ``y`` is empty and ``h_S`` equals ``h0``), ``B`` up to 65,535.
 
-A tensor on the CPU goes to the plain version (``ref.rglru_scan_ref``); a
-CUDA tensor launches the kernel or raises. ``rglru_scan.launches`` counts
-kernel launches.
+A tensor on the CPU goes to the plain version (``ref.rglru_scan_ref``,
+``ref.rglru_step_ref``); a CUDA tensor launches the kernel or raises.
+``rglru_scan.launches`` and ``rglru_step.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -87,3 +96,59 @@ def rglru_scan(a, b, h0):
 
 
 rglru_scan.launches = 0
+
+
+def _check_step(gx_a, gx_x, ba, bx, lam, x, h):
+    if x.dim() != 2:
+        raise ValueError(f"rglru_step wants x (B,D); got {tuple(x.shape)}")
+    D = x.shape[1]
+    for name, t in (("gx_a", gx_a), ("gx_x", gx_x), ("h", h)):
+        if t.shape != x.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match x {tuple(x.shape)}")
+    for name, t in (("ba", ba), ("bx", bx), ("lam", lam)):
+        if t.shape != (D,):
+            raise ValueError(f"want {name} ({D},); got {tuple(t.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rglru_step takes x in float32 or bfloat16; got {x.dtype}")
+    if any(t.dtype != torch.float32 for t in (gx_a, gx_x, ba, bx, lam, h)):
+        raise TypeError("rglru_step takes gx_a, gx_x, ba, bx, lam and h in float32")
+    dev = x.device
+    if any(t.device != dev for t in (gx_a, gx_x, ba, bx, lam, h)):
+        raise ValueError("gx_a, gx_x, ba, bx, lam, x and h must be on one device")
+
+
+def _launch_step(gx_a, gx_x, ba, bx, lam, x, h):
+    B, D = x.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"kernel takes B <= {MAX_BATCH}; got B={B}")
+    if D > 1 and any(t.stride(-1) != 1 for t in (gx_a, gx_x, ba, bx, lam, x, h)):
+        raise ValueError("rglru_step's channel dimensions must be contiguous")
+    y = torch.empty((B, D), dtype=x.dtype, device=x.device)
+    hn = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    if B * D == 0:
+        return y, hn
+    lib = build.load("rglru_scan")
+    err = build.on_device(x.device, lambda stream: lib.rglru_step_launch(
+        gx_a.data_ptr(), gx_x.data_ptr(), ba.data_ptr(), bx.data_ptr(), lam.data_ptr(),
+        x.data_ptr(), h.data_ptr(), y.data_ptr(), hn.data_ptr(), B, D,
+        int(x.dtype == torch.bfloat16), gx_a.stride(0), gx_x.stride(0), x.stride(0),
+        h.stride(0), stream))
+    if err != 0:
+        raise RuntimeError(f"rglru step kernel launch failed: CUDA error {err}")
+    rglru_step.launches += 1
+    return y, hn
+
+
+def rglru_step(gx_a, gx_x, ba, bx, lam, x, h):
+    """One RG-LRU decode step. gx_a, gx_x: (B, D) fp32 products x·wa and
+    x·wx; ba, bx, lam: (D,) fp32; x: (B, D) fp32 or bf16; h: (B, D) fp32.
+    Returns (y (B, D) in x's dtype, h' (B, D) fp32)."""
+    _check_step(gx_a, gx_x, ba, bx, lam, x, h)
+    if x.device.type == "cpu":
+        return ref.rglru_step_ref(gx_a, gx_x, ba, bx, lam, x, h)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru_step runs on cpu or cuda, not {x.device}")
+    return _launch_step(gx_a, gx_x, ba, bx, lam, x, h)
+
+
+rglru_step.launches = 0

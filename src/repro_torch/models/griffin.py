@@ -10,12 +10,14 @@ RG-LRU (Real-Gated Linear Recurrent Unit):
 State per layer: ``h`` (B, dr) fp32 and ``conv`` (B, W-1, dr), the last
 ``W-1`` inputs of the causal conv.
 
-The recurrence runs in ``ops.rglru_scan`` (the hand-written CUDA kernel on
-the card, its plain version on the CPU), in the full-sequence block and in
-the decode step alike: the step is the same recurrence at ``S = 1``. The
-reference's model path runs an ``associative_scan`` with ``h0`` folded into
-``b[:, 0]`` and its step computes ``a * h + b`` inline; both are the same
-function as the kernel's sequential loop, rounded in another order.
+The full-sequence block runs the recurrence in ``ops.rglru_scan`` after
+``_rglru_coeffs``; the decode step runs ``ops.rglru_step``, which takes the
+coefficients' elementwise chain and ``a * h + b`` in one launch, from the two
+fp32 products. Each is a hand-written CUDA kernel on the card and its plain
+version on the CPU. The reference's model path runs an ``associative_scan``
+with ``h0`` folded into ``b[:, 0]`` and its step computes ``a * h + b``
+inline; the scan is the same function as the kernel's sequential loop,
+rounded in another order, and the step rounds as the reference's does.
 
 Numerics against the reference, where PyTorch would otherwise differ:
 
@@ -93,10 +95,12 @@ def rglru_scan(p, x, h0):
 
 
 def rglru_step(p, x_t, h):
-    """Decode step: the same recurrence at S = 1. x_t: (B,dr); h: (B,dr)."""
-    a, b = _rglru_coeffs(p, x_t)
-    y, h = ops.rglru_scan(a[:, None], b[:, None], h.float())
-    return y[:, 0].to(x_t.dtype), h
+    """Decode step. x_t: (B,dr); h: (B,dr) fp32. The two products stay
+    ``torch.matmul``, as in ``_rglru_coeffs``; the rest of the chain and the
+    recurrence are one ``ops.rglru_step``. Returns (y in x_t's dtype, h fp32)."""
+    x32 = x_t.float()
+    return ops.rglru_step(x32 @ p["wa"].float(), x32 @ p["wx"].float(), p["ba"],
+                          p["bx"], p["lam"], x_t, h)
 
 
 def rglru_block(p, x, state):

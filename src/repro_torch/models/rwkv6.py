@@ -22,6 +22,9 @@ Numerics against the reference, where PyTorch would otherwise differ:
   JAX, and ``torch.matmul`` refuses mixed dtypes, so the weight is cast up
   to the activation's dtype, never the activation down.
 * The decay ``w = exp(-exp(decay_base + lora))`` is taken in fp32.
+* ``r``, ``k`` and ``v`` reach ``ops.wkv6`` in the model's dtype; the
+  recurrence upcasts them to fp32 (exact), as the reference's ``astype``
+  does before its scan.
 """
 from __future__ import annotations
 
@@ -115,10 +118,11 @@ def time_mix(p, cfg: ModelConfig, x, x_prev, state):
         + (torch.tanh(mixed["w"] @ p["decay_w1"]) @ p["decay_w2"]).float()))
     w = w.reshape(B, S, H, hd)                              # (0,1), fp32
 
-    # the kernel reads the (B,S,H,hd) activations through (B,H,S,hd) views
-    # and writes y in r's layout, so y.transpose(1, 2) is (B,S,H,hd) in place
-    y, state = ops.wkv6(*(t.float().transpose(1, 2) for t in (r, k, v, w)),
-                        p["u"].float(), state)
+    # the kernel reads the (B,S,H,hd) activations through (B,H,S,hd) views,
+    # r, k and v in the model's dtype (upcast in registers, exactly), and
+    # writes fp32 y in r's layout, so y.transpose(1, 2) is (B,S,H,hd) in place
+    y, state = ops.wkv6(*(t.transpose(1, 2) for t in (r, k, v, w)), p["u"].float(),
+                        state)
     out = groupnorm_heads(p["ln_x"], y.transpose(1, 2)).reshape(B, S, d).to(x.dtype)
     out = (out * g) @ p["wo"]
     return out, x[:, -1], state

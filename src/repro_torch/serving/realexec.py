@@ -26,7 +26,7 @@ A recurrent model (RWKV6, Griffin) caches a snapshot of its state
 instead, as the reference does (``realexec.py:87-122``): on a hit the state
 after the stored prefix is restored, and every uncached prompt token (all of
 them on a miss) is fed through ``decode_step`` (per layer and token one
-wkv6 launch for RWKV6; for Griffin one rglru launch per recurrent layer and
+wkv6 launch for RWKV6; for Griffin one fused rglru step per recurrent layer and
 one decode-attention launch per unit); then ``num_new`` decode steps. A
 Griffin state is nested (``units``, ``tail``) and holds the local-attention
 rings beside the recurrent states. The reference stores the cache object

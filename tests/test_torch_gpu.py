@@ -24,8 +24,12 @@ FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
                + cases.FLASH_GRIFFIN + cases.FLASH_TILES)
 DECODE_CASES = (cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
                 + cases.DECODE_MAIN + cases.DECODE_FLOOR)
-WKV6_CASES = cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
-RGLRU_CASES = cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
+WKV6_CASES = (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
+              + cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16)
+RGLRU_CASES = (cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
+               + cases.RGLRU_FLOOR)
+WKV6_BF16_CASES = [c for c in cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16
+                   if c[7] == "bf16"]
 
 
 @pytest.fixture
@@ -88,6 +92,17 @@ def test_wkv6_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV6_BF16_CASES)
+def test_wkv6_bf16_and_fp32_calls_are_bit_identical(cuda, case):
+    """The kernels upcast bf16 r, k, v in registers, exactly: the bf16 call
+    and the fp32 call on the upcast values give the same bits."""
+    inputs = cases.wkv6_inputs(case, cuda)
+    y, sn = ops.wkv6(*inputs)
+    y32, sn32 = ops.wkv6(*(t.float() for t in inputs[:3]), *inputs[3:])
+    assert torch.equal(y, y32) and torch.equal(sn, sn32)
+
+
+@pytest.mark.gpu
 def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
     r, k, v, w, u, s0 = cases.wkv6_inputs((1, 1, 2, 129, None, 0.1, "bhsd"), cuda)
     n = ops.wkv6.launches
@@ -108,6 +123,17 @@ def test_rglru_kernel_matches_plain(cuda, case):
     cases.check_rglru(case, cuda)
     torch.cuda.synchronize()
     assert ops.rglru_scan.launches == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", cases.RGLRU_STEP)
+def test_rglru_step_kernel_matches_plain(cuda, case):
+    """The fused step against ref.rglru_step_ref: h' at RGLRU_TOL, y at
+    RGLRU_TOL in fp32 and TOL in bf16; one launch."""
+    n, m = ops.rglru_step.launches, ops.rglru_scan.launches
+    cases.check_rglru_step(case, cuda)
+    torch.cuda.synchronize()
+    assert (ops.rglru_step.launches, ops.rglru_scan.launches) == (n + 1, m)
 
 
 @pytest.mark.gpu
@@ -185,10 +211,11 @@ def test_reduced_griffin_engine_on_card_matches_cpu(cuda, num_layers):
     ctx, new, num_new, _ = serve.REDUCED_TURNS
     steps = (ctx + num_new) + (num_new + new + num_new)
     units, tail = griffin_layout(cfg)
-    # per fed or decoded token: one rglru launch per recurrent layer, one
+    # per fed or decoded token: one fused rglru step per recurrent layer, one
     # decode-attention launch per unit
     assert launched == {"flash_attention": 0, "decode_attention": steps * units,
-                        "rglru_scan": steps * (2 * units + tail), "wkv6": 0}
+                        "rglru_scan": 0, "rglru_step": steps * (2 * units + tail),
+                        "wkv6": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),

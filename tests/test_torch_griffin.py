@@ -3,14 +3,17 @@ package, on the CPU.
 
 Inputs are drawn with numpy from a seed and handed to both sides; the JAX
 model's weights reach the port through ``repro_torch.convert``. On the CPU
-the port's ``ops.rglru_scan`` runs its plain version
-(``kernels/ref.rglru_scan_ref``); the CUDA kernel is held against that plain
-version on the card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``
-through the same case tables (``repro_torch.kernels.cases``).
+the port's ``ops.rglru_scan`` and ``ops.rglru_step`` run their plain
+versions (``kernels/ref.rglru_scan_ref``, ``rglru_step_ref``); the CUDA
+kernels are held against those plain versions on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py`` through the same case
+tables (``repro_torch.kernels.cases``).
 
 Tolerances, each from the reference's own tests:
 
-* the recurrence: ``atol`` 1e-5 (``tests/test_kernels.py:79-80``);
+* the recurrence: ``atol`` 1e-5 (``tests/test_kernels.py:79-80``), and
+  the decode step (``cases.RGLRU_TOL``), with a bf16 ``y`` at the bf16
+  kernel tolerance 2e-2 (``cases.TOL``, ``tests/test_kernels.py``);
 * the model, prefill + step against forward and the port against the JAX
   model: ``atol`` 5e-4 (``tests/test_models_smoke.py:84-85``). The JAX
   model's ``rglru_scan`` is an ``associative_scan`` with ``h0`` folded into
@@ -255,17 +258,83 @@ def test_rglru_step_matches():
 
 
 def test_rglru_step_goes_through_the_kernel_entry(monkeypatch):
-    """The step is one call of ops.rglru_scan at S = 1, so the kernel runs
-    on the serving path (the reference computes a*h + b inline)."""
+    """The step is one call of ops.rglru_step (the fused step kernel on the
+    card) and none of ops.rglru_scan: the recurrence and its elementwise
+    chain run in one launch, where the reference computes them inline."""
     jcfg, jp, tcfg, tp = _models()
     _, trg = _rg0(jp, tp)
     seen = []
-    real = ops.rglru_scan
-    monkeypatch.setattr(ops, "rglru_scan",
-                        lambda a, b, h: seen.append(tuple(a.shape)) or real(a, b, h))
+    real = ops.rglru_step
+    monkeypatch.setattr(ops, "rglru_step",
+                        lambda *a: seen.append(tuple(a[5].shape)) or real(*a))
+    monkeypatch.setattr(ops, "rglru_scan", None)
     x, h = _rand(6, (2, 128), (2, 128))
     tgr.rglru_step(trg, T(x), T(h))
-    assert seen == [(2, 1, 128)]
+    assert seen == [(2, 128)]
+
+
+# (B, D, dtype of x and of wa/wx, h as a strided view): B = 2, an odd D,
+# recurrentgemma-2b's width, bf16 as the served model holds it
+STEP_MODEL_CASES = [(2, 77, "float32", True), (2, 77, "bfloat16", True),
+                    (1, 2560, "bfloat16", False), (3, 128, "float32", False)]
+
+
+def _step_params(D, seed):
+    """wa, wx (D,D), ba, bx, lam (D,) from numpy; channel 0 gets r = 0 (the
+    clamped scale), channel 1 softplus's linear branch."""
+    rng = np.random.default_rng(seed)
+    wa, wx = ((rng.standard_normal((D, D)) * D ** -0.5).astype(np.float32) for _ in range(2))
+    ba, bx = ((rng.standard_normal(D) * 0.5).astype(np.float32) for _ in range(2))
+    lam = rng.uniform(0.0013, 0.1320, D).astype(np.float32)
+    ba[0], lam[1] = -1e4, 25.0
+    return {"wa": wa, "wx": wx, "ba": ba, "bx": bx, "lam": lam}
+
+
+@pytest.mark.parametrize("case", STEP_MODEL_CASES)
+def test_rglru_step_and_plain_step_match_reference_step(case):
+    """The port's griffin.rglru_step (ops.rglru_step) and the kernel's plain
+    version ref.rglru_step_ref, called directly on the two products, against
+    repro.models.griffin.rglru_step on the same params, x and h: h' at
+    cases.RGLRU_TOL, y at RGLRU_TOL in fp32 and cases.TOL in bf16 (one bf16
+    rounding of h')."""
+    B, D, dtype, strided = case
+    jp = _step_params(D, seed=D)
+    x, h = _rand(9, (B, D), (B, D))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tp = {k: T(v) for k, v in jp.items()}
+    tp["wa"], tp["wx"] = tp["wa"].to(tdt), tp["wx"].to(tdt)
+    jpar = dict(jp, wa=jnp.asarray(jp["wa"], jdt), wx=jnp.asarray(jp["wx"], jdt))
+    tx = T(x).to(tdt)
+    th = torch.cat([T(h), torch.zeros_like(T(h))], dim=1)[:, :D] if strided else T(h)
+    assert th.is_contiguous() != strided
+    jy, jh = jgr.rglru_step(jpar, jnp.asarray(x, jdt), jnp.asarray(h))
+    x32 = tx.float()
+    for ty, th2 in (tgr.rglru_step(tp, tx, th),
+                    tref.rglru_step_ref(x32 @ tp["wa"].float(), x32 @ tp["wx"].float(),
+                                        tp["ba"], tp["bx"], tp["lam"], tx, th)):
+        assert ty.dtype == tdt and th2.dtype == torch.float32
+        _close(jh, th2, cases.RGLRU_TOL)
+        _close(jy, ty, cases.RGLRU_TOL if dtype == "float32" else cases.TOL[torch.bfloat16])
+
+
+def test_rglru_step_wrapper_rejects_bad_inputs():
+    gx_a, gx_x, ba, bx, lam, x, h = cases.rglru_step_inputs(cases.RGLRU_STEP[3], "cpu")
+    with pytest.raises(TypeError, match="float32"):
+        ops.rglru_step(gx_a, gx_x, ba, bx, lam, x, h.bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        ops.rglru_step(gx_a, gx_x, ba, bx, lam, x.half(), h)
+    with pytest.raises(ValueError):
+        ops.rglru_step(gx_a[:, :-1], gx_x, ba, bx, lam, x, h)
+    with pytest.raises(ValueError):
+        ops.rglru_step(gx_a, gx_x, ba[:-1], bx, lam, x, h)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.rglru_step(*(t.to("meta") for t in (gx_a, gx_x, ba, bx, lam, x, h)))
+
+
+def test_rglru_step_cpu_path_counts_no_launch():
+    n, m = ops.rglru_step.launches, ops.rglru_scan.launches
+    cases.check_rglru_step(cases.RGLRU_STEP[2], "cpu")
+    assert (ops.rglru_step.launches, ops.rglru_scan.launches) == (n, m)
 
 
 @pytest.mark.parametrize("S", [2, 16])

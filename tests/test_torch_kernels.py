@@ -205,6 +205,21 @@ def test_card_checks_run_on_cpu(dtype):
     assert int(valid.sum()) == DECODE_RAGGED[0][5]
 
 
+def test_recurrent_step_checks_run_on_cpu():
+    """The checks that hold the step kernels on the card, on the plain path:
+    every step case's layout reaches the wrapper as the case says."""
+    for case in cases.WKV6_STEP + cases.WKV6_FLOOR:
+        err, (r, *_) = cases.check_wkv6(case, "cpu")
+        assert err == 0.0 and r.shape[2] == 1
+        assert r.dtype == (torch.bfloat16 if case[7] == "bf16" else torch.float32)
+        assert (r.storage_offset() == 1) == (case[6] == "off")
+    for case in cases.RGLRU_STEP:
+        err, (gx_a, _, _, _, _, x, h) = cases.check_rglru_step(case, "cpu")
+        assert err == 0.0 and x.dtype == getattr(torch, {"bf16": "bfloat16",
+                                                        "fp32": "float32"}[case[2]])
+        assert h.stride(0) == (2 * case[1] if case[3] == "wide" else case[1])
+
+
 def test_tolerance_scales_with_the_output():
     want = torch.full((4, 8), 0.1, dtype=torch.bfloat16)
     assert cases.held("x", "c", want, want) == 0.0

@@ -133,10 +133,30 @@ def test_wkv6_matches_chunked_scan(B, S, H, hd, chunk, decay_lo, decay_hi):
     _close(js, sn, KERNEL_TOL)
 
 
+@pytest.mark.parametrize("case", cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16)
+def test_wkv6_bf16_rkv_is_the_fp32_call_on_upcast_values(case):
+    """bf16 r, k, v (the model's activations, passed without a cast) give
+    the fp32 call on the upcast values bit for bit, and match the Pallas
+    kernel in interpret mode on those values at KERNEL_TOL; the one-token
+    cases are the ones the step kernel takes on the card."""
+    inputs = cases.wkv6_inputs(case, "cpu")
+    y, sn = ops.wkv6(*inputs)
+    y32, sn32 = ops.wkv6(*(t.float() for t in inputs[:3]), *inputs[3:])
+    assert y.dtype == sn.dtype == torch.float32
+    assert torch.equal(y, y32) and torch.equal(sn, sn32)
+    jy, js = jops.wkv6(*[jnp.asarray(a) for a in cases.wkv6_arrays(case)])
+    _close(jy, y, KERNEL_TOL)
+    _close(js, sn, KERNEL_TOL)
+
+
 def test_wkv6_wrapper_rejects_bad_inputs():
     r, k, v, w, u, s0 = cases.wkv6_inputs(cases.WKV6_SWEEP[0], "cpu")
     with pytest.raises(TypeError, match="float32"):
-        ops.wkv6(r.bfloat16(), k, v, w, u, s0)
+        ops.wkv6(r.bfloat16(), k, v, w, u, s0)         # r, k, v in one dtype
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv6(*(t.half() for t in (r, k, v)), w, u, s0)
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv6(r, k, v, w.bfloat16(), u, s0)         # w, u, s0 stay fp32
     with pytest.raises(ValueError):
         ops.wkv6(r, k[:, :, :-1], v, w, u, s0)
     with pytest.raises(ValueError):
