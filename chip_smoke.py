@@ -119,7 +119,9 @@
 
 Steps 4 and 7 run right after step 2, before any engine: after the yi-6b
 replay's profile (host and device activity), every profiler window of the
-wkv6 rows lost one launch. Any failure raises and exits non-zero. Without a card, or without the rest
+wkv6 rows lost one launch.
+
+Any failure raises and exits non-zero. Without a card, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
