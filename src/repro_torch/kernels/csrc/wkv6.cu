@@ -39,9 +39,11 @@
 //    kRows rows g*kRows .. of it, in registers, so the state never leaves the
 //    chip between steps. Time steps are staged kChunk at a time in shared
 //    memory (r_t, k_t, v_t, w_t), so a chunk costs two barriers, not two per
-//    step. Each thread adds its rows' share of y_t[j] to a shared partial;
-//    after the chunk the kGroups partials of each column are summed and
-//    written. S = 0 copies s0 to s_n.
+//    step; the staging loads are unconditional (an element outside the call
+//    reads element (0, 0) and is stored as 0), so they issue together. Each
+//    thread adds its rows' share of y_t[j] to a shared partial; after the
+//    chunk the kGroups partials of each column are summed and written.
+//    S = 0 copies s0 to s_n.
 //
 // Columns and rows past hd (hd below the template width) hold zeros and are
 // never stored; any hd from 1 to 128.
@@ -211,8 +213,11 @@ __global__ void __launch_bounds__(32) wkv6_step_kernel(const Params p) {
   }
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// plain loads (not the read-only path, which was slower in this loop)
+__device__ __forceinline__ float ldp(const float* p) { return *p; }
+__device__ __forceinline__ float ldp(const __nv_bfloat16* p) {
+  return __uint_as_float((unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
 
 template <int HD, typename T>
 __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
@@ -243,14 +248,20 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
 
   for (int t0 = 0; t0 < S; t0 += kChunk) {
     const int n = min(kChunk, S - t0);
+    // every element loads, from element (0, 0) where it lies outside, so
+    // no load waits on a branch and all of them issue together
+#pragma unroll
     for (int e = tid; e < kChunk * HD; e += kThreads) {
       const int c = e / HD, d = e % HD;
       const bool in = c < n && d < hd;
-      const long long t = t0 + c;
-      Rs[c][d] = in ? to_f(r[t * p.r_ss + d]) : 0.f;
-      Ks[c][d] = in ? to_f(k[t * p.k_ss + d]) : 0.f;
-      Vs[c][d] = in ? to_f(v[t * p.v_ss + d]) : 0.f;
-      Ws[c][d] = in ? w[t * p.w_ss + d] : 0.f;
+      const long long t = in ? t0 + c : 0;
+      const int dd = in ? d : 0;
+      const float rv = ldp(r + t * p.r_ss + dd), kv = ldp(k + t * p.k_ss + dd),
+                  vv = ldp(v + t * p.v_ss + dd), wv = w[t * p.w_ss + dd];
+      Rs[c][d] = in ? rv : 0.f;
+      Ks[c][d] = in ? kv : 0.f;
+      Vs[c][d] = in ? vv : 0.f;
+      Ws[c][d] = in ? wv : 0.f;
     }
     __syncthreads();                 // the chunk is staged; Part is free
     for (int c = 0; c < n; ++c) {
