@@ -1,5 +1,5 @@
 """Device kernels, device time and host time per decode step of the
-recurrent models, on the card.
+recurrent models, and of their bf16 prefill, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.step_kernels [--steps N]
 
@@ -14,7 +14,10 @@ on a shared host the CPU time varies less), device kernels and other device
 operations (copies, fills) the profiler records, device busy ms, and the
 kernels with the most device time with their launches per step; a profiler
 window is read only if the recurrence ran exactly one launch per recurrent
-layer and step (five tries). Ends with the card's name and power limit.
+layer and step (five tries). Then the model phase's bf16 ``prefill`` of
+``PREFILL`` tokens (as ``chip_smoke.py`` times it): host ms of three runs
+after a warm-up, and the device busy ms of a fourth under the profiler.
+Ends with the card's name and power limit.
 
 It uses only entry points that every slice of the port has had, so two
 trees can be compared on one card by running this file with the other
@@ -31,6 +34,7 @@ import time
 import torch
 
 ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
+PREFILL = {"rwkv6-1.6b": 2048, "recurrentgemma-2b": 2560}   # chip_smoke.py's lengths
 SPIN_CYCLES = 10_000_000                # torch.cuda._sleep: about 5 ms
 # the recurrence's device kernels, one launch per recurrent layer and step
 RECURRENCE = ("wkv6", "rglru")
@@ -77,6 +81,32 @@ def profile_steps(tt, params, cfg, cache, pos: int, n: int, gen):
     raise AssertionError("the profiler gave no whole window in five")
 
 
+def prefill_ms(tt, params, cfg, n: int, gen):
+    """Log three host-timed bf16 prefills of ``n`` tokens after a warm-up,
+    and the device busy ms of a fourth under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, n), device="cuda",
+                                     generator=gen)}
+    with torch.inference_mode():
+        tt.prefill(params, cfg, batch, max_len=n)                 # warm-up
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tt.prefill(params, cfg, batch, max_len=n)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tt.prefill(params, cfg, batch, max_len=n)
+            torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"{cfg.name}: bf16 prefill of {n} tokens, host {', '.join(f'{t:.3f}' for t in host)}"
+          f" ms; device busy {busy:.3f} ms", flush=True)
+
+
 def run(arch: str, warmup: int, steps: int, top: int):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tt
@@ -109,7 +139,9 @@ def run(arch: str, warmup: int, steps: int, top: int):
           f"busy {busy:.5f} ms", flush=True)
     for name, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / steps / 1e3:9.5f} ms {c / steps:6.2f} per step  {name[:100]}")
-    del params, cache
+    del cache
+    prefill_ms(tt, params, cfg, PREFILL[arch], gen)
+    del params
     torch.cuda.empty_cache()
 
 
