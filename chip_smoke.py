@@ -144,7 +144,6 @@ PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # fp32 outside the tensor cores
 L2_BYTES = 50e6
-SPIN_CYCLES = 10_000_000                # torch.cuda._sleep: about 5 ms
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
            "decode_attention": "src/repro/kernels/decode_attention.py:77",
@@ -191,41 +190,10 @@ def rotated_ms(fn, sets, iters: int) -> float:
 
 
 def device_ms(fn, sets, iters: int):
-    """Device time in ms of one call of ``fn(*s)``: the duration of every
-    device kernel in a window of ``iters`` calls on the rotated input sets,
-    summed and divided by ``iters``; and by kernel name, (launches, ms per
-    call). A spin kernel of about 5 ms (not counted) opens and closes the
-    window, so the calls queue behind it and no call sits at the edge of
-    the profiler's trace. The profiler on the card still drops a launch
-    from a window now and then, so a window is read only when whole (every
-    name ran a whole multiple of ``iters`` times); one that is not is
-    logged and discarded, and after five such windows the call fails. Each
-    try starts where the last one stopped in the rotation, and the warm-up
-    takes the last three sets, so a try on fewer calls than there are sets
-    finds its inputs as cold as the first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for s in sets[-3:]:
-        fn(*s)
-    torch.cuda.synchronize()
-    for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_CYCLES)
-            for i in range(iters):
-                fn(*sets[(attempt * iters + i) % len(sets)])
-            torch.cuda._sleep(SPIN_CYCLES)
-            torch.cuda.synchronize()
-        us = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
-                us.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        if us and all(len(t) % iters == 0 for t in us.values()):
-            return (sum(map(sum, us.values())) / iters / 1e3,
-                    {n: (len(t), sum(t) / iters / 1e3) for n, t in us.items()})
-        log(f"  profiler window of {iters} calls not whole, not read: "
-            f"{ {n[:60]: len(t) for n, t in us.items()} }")
-    raise AssertionError(f"the profiler gave no whole window of {iters} calls in five")
+    """``repro_torch.launch.device_time.device_ms``: device ms per call of
+    ``fn(*s)`` over the rotated sets, from whole profiler windows only."""
+    from repro_torch.launch.device_time import device_ms as window_ms
+    return window_ms(fn, sets, iters, log=log)
 
 
 def copies(tensors, limit: int = 16):

@@ -124,7 +124,8 @@ def on_device(device: torch.device, launch: Callable[[int], int]) -> int:
     """``launch(stream)``, ``stream`` the handle of ``device``'s current
     stream, inside a ``torch.cuda.device`` guard only when ``device`` is not
     the current device: the guard costs host time on every call, and the
-    recurrent steps launch once per layer and token."""
+    recurrent steps launch once per layer and token. Every kernel wrapper
+    launches through this."""
     if device.index == torch.cuda.current_device():
         return launch(torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(device):

@@ -28,22 +28,25 @@
 //    for its rows and v for its columns) is issued before the first is
 //    used, so the call is one memory round trip; no shared memory, no
 //    barrier: y's sum over rows is a shuffle tree over the 16 row groups,
-//    and the new state is stored as float4. P is how memory is reached:
-//    kFull (hd equals the template width, every base and stride aligned to
-//    4 elements: no mask), kVec (aligned, hd below the width: whole vectors
-//    or none) or kElem (element by element). Wider slices (16 columns, 128
-//    CTAs) and per-vector masks on the full-width path were each slower
-//    at the engine's shape with the state cold, in development builds.
-//  * S == 0 or S >= 2 -> wkv6_kernel<HD, T>: one block per (b, h), the time
-//    loop inside the block. Thread (j, g) owns column j of the state and the
-//    kRows rows g*kRows .. of it, in registers, so the state never leaves the
-//    chip between steps. Time steps are staged kChunk at a time in shared
+//    and the new state is stored as float4.
+//  * S == 0 or S >= 2 -> wkv6_kernel<HD, T, P>: one block per (b, h), the
+//    time loop inside the block. Thread (j, g) owns column j of the state and
+//    the kRows rows g*kRows .. of it, in registers, so the state never leaves
+//    the chip between steps. Time steps are staged kChunk at a time in shared
 //    memory (r_t, k_t, v_t, w_t), so a chunk costs two barriers, not two per
-//    step; the staging loads are unconditional (an element outside the call
-//    reads element (0, 0) and is stored as 0), so they issue together. Each
-//    thread adds its rows' share of y_t[j] to a shared partial; after the
-//    chunk the kGroups partials of each column are summed and written.
-//    S = 0 copies s0 to s_n.
+//    step. Each thread adds its rows' share of y_t[j] to a shared partial;
+//    after the chunk the kGroups partials of each column are summed and
+//    written. S = 0 copies s0 to s_n.
+//
+// P is how memory is reached. kFull (hd equals the template width, every
+// base and stride aligned to 4 elements; the models' calls): the step loads
+// 4 elements at a time with no mask, and the time loop stages 4 adjacent
+// elements of r, k, v and w per thread, loaded one chunk ahead into
+// registers, so the loads of chunk n+1 are in flight while chunk n is
+// computed (with bf16 r, k, v an 8-byte load). kElem (any other hd or
+// view): element by element; the time loop's staging loads are
+// unconditional (an element outside the call reads element (0, 0) and is
+// stored as 0), so they issue together.
 //
 // Columns and rows past hd (hd below the template width) hold zeros and are
 // never stored; any hd from 1 to 128.
@@ -92,18 +95,17 @@ __device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
       (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
-// How the step kernel reaches memory: kFull, hd equals the template width
-// and every base and stride is aligned to 4 elements (no mask at all); kVec,
-// the same alignment with hd below the width (a vector is loaded whole or
-// not at all); kElem, element by element (an odd hd or an unaligned view).
-enum Path { kFull, kVec, kElem };
+// How a kernel reaches memory: kFull, hd equals the template width and every
+// base and stride is aligned to 4 elements (4 elements a load, no mask);
+// kElem, element by element (any other hd or view).
+enum Path { kFull, kElem };
 
-// o[0..N) = p[0..N) upcast to fp32; elements at or past n read as 0 (not
-// looked at on kFull). N = 4, 2 or 1 elements: one 16-, 8- or 4-byte load
+// o[0..N) = p[0..N) upcast to fp32; on kElem, elements at or past n read
+// as 0 (n is not looked at on kFull). N = 4, 2 or 1 elements: one 16-, 8- or 4-byte load
 // in fp32, half that in bf16.
 template <int N, Path P>
 __device__ __forceinline__ void loadn(const float* p, int n, float* o) {
-  if (P == kElem || (P == kVec && n <= 0)) {
+  if (P == kElem) {
 #pragma unroll
     for (int e = 0; e < N; ++e) o[e] = e < n ? ld1(p + e) : 0.f;
   } else if (N == 4) {
@@ -119,7 +121,7 @@ __device__ __forceinline__ void loadn(const float* p, int n, float* o) {
 
 template <int N, Path P>
 __device__ __forceinline__ void loadn(const __nv_bfloat16* p, int n, float* o) {
-  if (P == kElem || (P == kVec && n <= 0)) {
+  if (P == kElem) {
 #pragma unroll
     for (int e = 0; e < N; ++e) o[e] = e < n ? ld1(p + e) : 0.f;
   } else if (N == 4) {
@@ -137,15 +139,15 @@ __device__ __forceinline__ void loadn(const __nv_bfloat16* p, int n, float* o) {
   }
 }
 
-// p[0..4) = o[0..4), elements at or past n not stored (n not looked at on
-// kFull); one 16-byte store off kElem.
+// p[0..4) = o[0..4); on kElem, elements at or past n are not stored (n is
+// not looked at on kFull, one 16-byte store).
 template <Path P>
 __device__ __forceinline__ void store4(float* p, int n, const float* o) {
   if (P == kElem) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (e < n) p[e] = o[e];
-  } else if (P == kFull || n > 0) {
+  } else {
     *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
   }
 }
@@ -219,18 +221,40 @@ __device__ __forceinline__ float ldp(const __nv_bfloat16* p) {
   return __uint_as_float((unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
 }
 
-template <int HD, typename T>
+// The time loop's kFull staging: thread tid < kChunk·HD/4 takes 4 adjacent
+// elements (step t0 + tid / (HD/4), columns 4·(tid % (HD/4))..) of r, k, v
+// and w, upcast into o; a thread past the chunk or a step at or past S
+// loads element (0, 0) (there when S > 0) and keeps zeros.
+template <int HD, int kChunk, typename T>
+__device__ __forceinline__ void fetch4(const T* r, const T* k, const T* v, const float* w,
+                                       const Params& p, int t0, float (&o)[4][4]) {
+  const int tid = threadIdx.x, c = tid / (HD / 4), d = tid % (HD / 4) * 4;
+  const bool in = tid < kChunk * HD / 4 && c < p.S - t0;
+  const long long t = in ? t0 + c : 0;
+  const int dd = in ? d : 0;
+  loadn<4, kFull>(r + t * p.r_ss + dd, 4, o[0]);
+  loadn<4, kFull>(k + t * p.k_ss + dd, 4, o[1]);
+  loadn<4, kFull>(v + t * p.v_ss + dd, 4, o[2]);
+  loadn<4, kFull>(w + t * p.w_ss + dd, 4, o[3]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[q][e] = in ? o[q][e] : 0.f;
+}
+
+template <int HD, typename T, Path P>
 __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
   constexpr int kThreads = HD * kGroups;
   constexpr int kRows = HD / kGroups;             // state rows per thread
   constexpr int kChunk = HD >= 128 ? 8 : 16;      // time steps per staging
-  __shared__ float Rs[kChunk][HD], Ks[kChunk][HD], Vs[kChunk][HD], Ws[kChunk][HD];
+  __shared__ __align__(16) float Rs[kChunk][HD], Ks[kChunk][HD], Vs[kChunk][HD],
+      Ws[kChunk][HD];
   __shared__ float Part[kChunk][kGroups][HD];
 
   const int tid = threadIdx.x;
   const int j = tid % HD, g = tid / HD;
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int hd = p.hd, S = p.S;
+  const int hd = P == kFull ? HD : p.hd, S = p.S;
   const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -246,24 +270,41 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
     ur[a] = i < hd ? p.u[h * p.u_sh + i] : 0.f;
   }
 
+  float pre[4][4];                   // kFull: the next chunk's r, k, v, w
+  if constexpr (P == kFull)
+    if (S > 0) fetch4<HD, kChunk>(r, k, v, w, p, 0, pre);
+
   for (int t0 = 0; t0 < S; t0 += kChunk) {
     const int n = min(kChunk, S - t0);
-    // every element loads, from element (0, 0) where it lies outside, so
-    // no load waits on a branch and all of them issue together
+    if constexpr (P == kFull) {
+      if (tid < kChunk * HD / 4) {
+        const int c = tid / (HD / 4), d = tid % (HD / 4) * 4;
+        float* rows[4] = {&Rs[c][d], &Ks[c][d], &Vs[c][d], &Ws[c][d]};
 #pragma unroll
-    for (int e = tid; e < kChunk * HD; e += kThreads) {
-      const int c = e / HD, d = e % HD;
-      const bool in = c < n && d < hd;
-      const long long t = in ? t0 + c : 0;
-      const int dd = in ? d : 0;
-      const float rv = ldp(r + t * p.r_ss + dd), kv = ldp(k + t * p.k_ss + dd),
-                  vv = ldp(v + t * p.v_ss + dd), wv = w[t * p.w_ss + dd];
-      Rs[c][d] = in ? rv : 0.f;
-      Ks[c][d] = in ? kv : 0.f;
-      Vs[c][d] = in ? vv : 0.f;
-      Ws[c][d] = in ? wv : 0.f;
+        for (int q = 0; q < 4; ++q)
+          *reinterpret_cast<float4*>(rows[q]) =
+              make_float4(pre[q][0], pre[q][1], pre[q][2], pre[q][3]);
+      }
+    } else {
+      // every element loads, from element (0, 0) where it lies outside, so
+      // no load waits on a branch and all of them issue together
+#pragma unroll
+      for (int e = tid; e < kChunk * HD; e += kThreads) {
+        const int c = e / HD, d = e % HD;
+        const bool in = c < n && d < hd;
+        const long long t = in ? t0 + c : 0;
+        const int dd = in ? d : 0;
+        const float rv = ldp(r + t * p.r_ss + dd), kv = ldp(k + t * p.k_ss + dd),
+                    vv = ldp(v + t * p.v_ss + dd), wv = w[t * p.w_ss + dd];
+        Rs[c][d] = in ? rv : 0.f;
+        Ks[c][d] = in ? kv : 0.f;
+        Vs[c][d] = in ? vv : 0.f;
+        Ws[c][d] = in ? wv : 0.f;
+      }
     }
     __syncthreads();                 // the chunk is staged; Part is free
+    if constexpr (P == kFull)        // in flight while this chunk is computed
+      if (t0 + kChunk < S) fetch4<HD, kChunk>(r, k, v, w, p, t0 + kChunk, pre);
     for (int c = 0; c < n; ++c) {
       const float vj = Vs[c][j];
       float acc = 0.f;
@@ -296,34 +337,38 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
   }
 }
 
-// Whether the step may load and store 4 elements at a time (kFull, kVec): hd
-// a multiple of 4 and every base and stride it reads or writes aligned to 4
-// elements.
+// Whether a kernel may load and store 4 elements at a time (kFull, with hd
+// the template width): every base and stride it reads or writes aligned to
+// 4 elements.
 bool vec4(const Params& p, int elem_rkv) {
   auto ok = [](const void* q, int elem) {
     return reinterpret_cast<uintptr_t>(q) % (4u * elem) == 0;
   };
-  const long long strides[] = {p.r_sb, p.r_sh, p.k_sb, p.k_sh, p.v_sb, p.v_sh, p.w_sb,
-                               p.w_sh, p.y_sb, p.y_sh, p.u_sh, p.s_sb, p.s_sh, p.s_si};
+  const long long strides[] = {p.r_sb, p.r_sh, p.r_ss, p.k_sb, p.k_sh, p.k_ss,
+                               p.v_sb, p.v_sh, p.v_ss, p.w_sb, p.w_sh, p.w_ss,
+                               p.y_sb, p.y_sh, p.u_sh, p.s_sb, p.s_sh, p.s_si};
   for (long long s : strides)
     if (s % 4 != 0) return false;
-  return p.hd % 4 == 0 && ok(p.r, elem_rkv) && ok(p.k, elem_rkv) && ok(p.v, elem_rkv) &&
+  return ok(p.r, elem_rkv) && ok(p.k, elem_rkv) && ok(p.v, elem_rkv) &&
          ok(p.w, 4) && ok(p.u, 4) && ok(p.s0, 4) && ok(p.y, 4) && ok(p.sn, 4);
+}
+
+template <int HD, typename T, Path P>
+void launch(const Params& p, int B, cudaStream_t st) {
+  if (p.S == 1) {
+    const dim3 grid((unsigned)B * (unsigned)p.H * (unsigned)((p.hd + kSlice - 1) / kSlice));
+    wkv6_step_kernel<HD, T, P><<<grid, 32, 0, st>>>(p);
+  } else {
+    wkv6_kernel<HD, T, P><<<(unsigned)B * (unsigned)p.H, HD * kGroups, 0, st>>>(p);
+  }
 }
 
 template <int HD, typename T>
 void launch(const Params& p, int B, cudaStream_t st) {
-  if (p.S == 1) {
-    const dim3 grid((unsigned)B * (unsigned)p.H * (unsigned)((p.hd + kSlice - 1) / kSlice));
-    if (!vec4(p, (int)sizeof(T)))
-      wkv6_step_kernel<HD, T, kElem><<<grid, 32, 0, st>>>(p);
-    else if (p.hd == HD)
-      wkv6_step_kernel<HD, T, kFull><<<grid, 32, 0, st>>>(p);
-    else
-      wkv6_step_kernel<HD, T, kVec><<<grid, 32, 0, st>>>(p);
-  } else {
-    wkv6_kernel<HD, T><<<(unsigned)B * (unsigned)p.H, HD * kGroups, 0, st>>>(p);
-  }
+  if (p.hd == HD && vec4(p, (int)sizeof(T)))
+    launch<HD, T, kFull>(p, B, st);
+  else
+    launch<HD, T, kElem>(p, B, st);
 }
 
 template <typename T>

@@ -26,8 +26,6 @@ merge).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build, ref
@@ -97,13 +95,8 @@ def _launch(q, k_cache, v_cache, valid):
             valid.data_ptr(), out.data_ptr(), B, H, KV, W, hd, nsplit, chunk,
             *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
             *out.stride()[:2])
-    if dev == torch.cuda.current_device():
-        err = lib.decode_attention_launch(
-            *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    else:
-        with torch.cuda.device(dev):
-            err = lib.decode_attention_launch(
-                *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    err = build.on_device(q.device, lambda stream: lib.decode_attention_launch(
+        *args, stream))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     decode_attention.launches += 1

@@ -102,10 +102,8 @@ def _launch(q, k, v, q_offset, causal, window):
     if out.numel() == 0:
         return out
     lib = build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            *_entry_args(q, k, v, out, q_offset, causal, window, stream))
+    err = build.on_device(q.device, lambda stream: lib.flash_attention_launch(
+        *_entry_args(q, k, v, out, q_offset, causal, window, stream)))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1

@@ -34,8 +34,6 @@ A tensor on the CPU goes to the plain version (``ref.rglru_scan_ref``,
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build, ref
@@ -72,12 +70,10 @@ def _launch(a, b, h0):
     if B * D == 0:
         return y, hn
     lib = build.load("rglru_scan")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_scan_launch(
-            a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(), hn.data_ptr(),
-            B, S, D, *a.stride()[:2], *b.stride()[:2], *y.stride()[:2],
-            h0.stride(0), ctypes.c_void_p(stream))
+    err = build.on_device(a.device, lambda stream: lib.rglru_scan_launch(
+        a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(), hn.data_ptr(),
+        B, S, D, *a.stride()[:2], *b.stride()[:2], *y.stride()[:2],
+        h0.stride(0), stream))
     if err != 0:
         raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
     rglru_scan.launches += 1

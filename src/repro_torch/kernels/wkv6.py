@@ -17,7 +17,8 @@ operations alike, about 25 µs. Two kernels behind one entry:
   warp shuffles: no shared memory, no barrier.
 * ``S == 0`` or ``S >= 2``: ``wkv6_kernel`` gives each (batch, head) one
   block that keeps the state in registers for the whole sequence and stages
-  ``r, k, v, w`` in shared memory 16 steps at a time (8 at hd 128); with 32
+  ``r, k, v, w`` in shared memory 16 steps at a time (8 at hd 128), loaded
+  a chunk ahead as 4-element vectors when the views are aligned; with 32
   blocks for 132 SMs and a dependent chain of S steps it sits far above its
   bound at long S (see ``PERF.md``).
 

@@ -8,20 +8,22 @@ weights (``torch.Generator`` seed 0), feeds ``--warmup`` tokens through
 ``decode_step`` from the empty state, as the state-snapshot engine feeds
 every uncached token, then times ``--steps`` more three times by the host
 clock and by the process's CPU time (each run ending in
-``torch.cuda.synchronize()``), then profiles ``--steps`` more behind a ~5 ms
-spin kernel. Prints per model and step: host ms and CPU ms (the three runs;
-on a shared host the CPU time varies less), device kernels and other device
-operations (copies, fills) the profiler records, device busy ms, and the
-kernels with the most device time with their launches per step; a profiler
-window is read only if the recurrence ran exactly one launch per recurrent
-layer and step (five tries). Then the model phase's bf16 ``prefill`` of
+``torch.cuda.synchronize()``), then profiles ``--steps`` more by
+``device_time.device_ms``, the rule ``chip_smoke.py`` reads device time by
+(behind a ~5 ms spin kernel, whole windows only, five tries). Prints per
+model and step: host ms and CPU ms (the three runs; on a shared host the CPU
+time varies less), device kernels and other device operations (copies,
+fills) the profiler records, device busy ms, and the kernels with the most
+device time with their launches per step; the recurrence must have run one
+launch per recurrent layer and step. Then the model phase's bf16 ``prefill`` of
 ``PREFILL`` tokens (as ``chip_smoke.py`` times it): host ms of three runs
 after a warm-up, and the device busy ms of a fourth under the profiler.
 Ends with the card's name and power limit.
 
-It uses only entry points that every slice of the port has had, so two
-trees can be compared on one card by running this file with the other
-tree's ``src`` on ``PYTHONPATH``:
+It uses only entry points that every slice of the port has had, and
+``device_time``, so two trees can be compared on one card by running this
+file with the other tree's ``src`` on ``PYTHONPATH``, once this tree's
+``device_time.py`` is copied into that tree's ``repro_torch/launch/``:
 
     PYTHONPATH=<other tree>/src python3 src/repro_torch/launch/step_kernels.py
 """
@@ -33,9 +35,10 @@ import time
 
 import torch
 
+from repro_torch.launch.device_time import device_ms
+
 ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
 PREFILL = {"rwkv6-1.6b": 2048, "recurrentgemma-2b": 2560}   # chip_smoke.py's lengths
-SPIN_CYCLES = 10_000_000                # torch.cuda._sleep: about 5 ms
 # the recurrence's device kernels, one launch per recurrent layer and step
 RECURRENCE = ("wkv6", "rglru")
 
@@ -55,30 +58,24 @@ def _recurrent_layers(cfg, tt) -> int:
 
 
 def profile_steps(tt, params, cfg, cache, pos: int, n: int, gen):
-    """Device events of ``n`` decode steps, by name: (launches, total us)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device operations of ``n`` decode steps, by name: (launches, ms per
+    step), from a whole profiler window (``device_time.device_ms``); the
+    recurrence must have run one launch per recurrent layer and step."""
+    toks = torch.randint(0, cfg.vocab_size, (6 * n + 1, 1, 1), device="cuda",
+                         generator=gen)       # the warm-up step and five tries
+    state = {"cache": cache, "t": 0}
 
-    want = n * _recurrent_layers(cfg, tt)
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_CYCLES)
-            cache = _steps(tt, params, cfg, cache, pos, n, gen)
-            torch.cuda._sleep(SPIN_CYCLES)
-            torch.cuda.synchronize()
-        pos += n
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
-                c, us = by_name.get(e.name, (0, 0.0))
-                by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
-        rec = sum(c for name, (c, _) in by_name.items()
-                  if any(k in name for k in RECURRENCE))
-        if rec == want:
-            return by_name, pos
-        print(f"  profiler window not whole ({rec} recurrence launches, want {want}); "
-              "not read", flush=True)
-    raise AssertionError("the profiler gave no whole window in five")
+    def step():
+        t = state["t"]
+        _, state["cache"] = tt.decode_step(params, cfg, state["cache"], toks[t], pos + t)
+        state["t"] = t + 1
+
+    _, by_name = device_ms(step, [()], n)
+    rec = sum(c for name, (c, _) in by_name.items() if any(k in name for k in RECURRENCE))
+    if rec != n * _recurrent_layers(cfg, tt):
+        raise AssertionError(f"{rec} recurrence launches in {n} steps, want "
+                             f"{n * _recurrent_layers(cfg, tt)}")
+    return by_name
 
 
 def prefill_ms(tt, params, cfg, n: int, gen):
@@ -128,17 +125,17 @@ def run(arch: str, warmup: int, steps: int, top: int):
             host.append((time.perf_counter() - t0) * 1e3 / steps)
             cpu.append((time.process_time() - c0) * 1e3 / steps)
             pos += steps
-        by_name, pos = profile_steps(tt, params, cfg, cache, pos, steps, gen)
+        by_name = profile_steps(tt, params, cfg, cache, pos, steps, gen)
     copies = {n: v for n, v in by_name.items() if n.startswith(("Memcpy", "Memset"))}
     kernels = {n: v for n, v in by_name.items() if n not in copies}
-    busy = sum(us for _, us in by_name.values()) / steps / 1e3
+    busy = sum(ms for _, ms in by_name.values())
     print(f"{arch}: per decode step, host {', '.join(f'{t:.3f}' for t in host)} ms, CPU "
           f"{', '.join(f'{t:.3f}' for t in cpu)} ms; "
           f"device kernels {sum(c for c, _ in kernels.values()) / steps:.2f}, other "
           f"device operations {sum(c for c, _ in copies.values()) / steps:.2f}; device "
           f"busy {busy:.5f} ms", flush=True)
-    for name, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        print(f"  {us / steps / 1e3:9.5f} ms {c / steps:6.2f} per step  {name[:100]}")
+    for name, (c, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {ms:9.5f} ms {c / steps:6.2f} per step  {name[:100]}")
     del cache
     prefill_ms(tt, params, cfg, PREFILL[arch], gen)
     del params
