@@ -10,7 +10,7 @@ every uncached token, then times ``--steps`` more three times by the host
 clock and by the process's CPU time (each run ending in
 ``torch.cuda.synchronize()``), then profiles ``--steps`` more by
 ``device_time.device_ms``, the rule ``chip_smoke.py`` reads device time by
-(behind a ~5 ms spin kernel, whole windows only, five tries). Prints per
+(behind a ~5 ms spin kernel, whole windows only, ten tries). Prints per
 model and step: host ms and CPU ms (the three runs; on a shared host the CPU
 time varies less), device kernels and other device operations (copies,
 fills) the profiler records, device busy ms, and the kernels with the most
@@ -35,7 +35,7 @@ import time
 
 import torch
 
-from repro_torch.launch.device_time import device_ms
+from repro_torch.launch import device_time
 
 ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
 PREFILL = {"rwkv6-1.6b": 2048, "recurrentgemma-2b": 2560}   # chip_smoke.py's lengths
@@ -61,8 +61,9 @@ def profile_steps(tt, params, cfg, cache, pos: int, n: int, gen):
     """Device operations of ``n`` decode steps, by name: (launches, ms per
     step), from a whole profiler window (``device_time.device_ms``); the
     recurrence must have run one launch per recurrent layer and step."""
-    toks = torch.randint(0, cfg.vocab_size, (6 * n + 1, 1, 1), device="cuda",
-                         generator=gen)       # the warm-up step and five tries
+    tries = device_time.WINDOWS + device_time.SESSIONS
+    toks = torch.randint(0, cfg.vocab_size, (tries * n + 1, 1, 1), device="cuda",
+                         generator=gen)       # the warm-up step and every try
     state = {"cache": cache, "t": 0}
 
     def step():
@@ -70,7 +71,7 @@ def profile_steps(tt, params, cfg, cache, pos: int, n: int, gen):
         _, state["cache"] = tt.decode_step(params, cfg, state["cache"], toks[t], pos + t)
         state["t"] = t + 1
 
-    _, by_name = device_ms(step, [()], n)
+    _, by_name = device_time.device_ms(step, [()], n)
     rec = sum(c for name, (c, _) in by_name.items() if any(k in name for k in RECURRENCE))
     if rec != n * _recurrent_layers(cfg, tt):
         raise AssertionError(f"{rec} recurrence launches in {n} steps, want "

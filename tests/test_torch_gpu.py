@@ -149,6 +149,17 @@ def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
     assert ops.rglru_scan.launches == n
 
 
+@pytest.mark.gpu
+def test_device_ms_reads_a_whole_window(cuda):
+    """The profiler is ready, and the window rule reads one launch per call
+    with a positive device time."""
+    from repro_torch.launch import device_time
+    device_time.profiler_ready()
+    sets = [[torch.zeros(1 << 16, device=cuda)] for _ in range(4)]
+    ms, calls = device_time.device_ms(lambda x: x.add_(1), sets, 20)
+    assert ms > 0 and [c for c, _ in calls.values()] == [20]
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
