@@ -10,12 +10,17 @@
 2. Attention kernels: each against its plain PyTorch version, fp32 and
    bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
    ragged, empty-band and tile-edge shapes of
-   ``repro_torch/kernels/cases.py`` and at every shape the yi-6b path gives
-   it, with the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute
+   ``repro_torch/kernels/cases.py``, at every shape the yi-6b path gives
+   it and at the turn-2 and long-context shapes of the dense archs served
+   in steps 10-11 and of llama3-70b's heads (``cases.FLASH_DENSE``,
+   ``DECODE_DENSE``, computed again here from the configs and the turns),
+   with the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute
    term scaled to the output). Then, at full width, the last 512 rows of a
    cold bf16 flash call at yi-6b's (1,32,4,2560,2560,128) and at Griffin's
    (1,10,1,2560,2560,256, window 2048) must equal a hit's call from
-   ``q_offset`` 2048 bit for bit (``cases.FLASH_IDENTITY``). For each
+   ``q_offset`` 2048 bit for bit, and the last 1,024 of llama3-8b's
+   long-context prefill (1,32,8,10240,10240,128, window 8192) a hit's from
+   9,216 (``cases.FLASH_IDENTITY``). For each
    timed shape: kernel time, plain time,
    ``library_ms`` (``F.scaled_dot_product_attention`` on the same masked GQA
    problem, a yardstick only: the port never calls it) and the least time
@@ -33,9 +38,9 @@
    256) or ``decode_partial_kernel``. The floor row
    (``cases.DECODE_FLOOR``: one kv head, W = 64, one valid slot) gives the
    fixed cost of a call that does almost no work. Then, at the two
-   main-path decode shapes, the bf16 kernel's device time per call under
-   each plan a cluster allows (16, 8, 4, 1 chunks), each plan's result held
-   against the plain version.
+   main-path decode shapes and the dense archs', the bf16 kernel's device
+   time per call under each plan a cluster allows (16, 8, 4, 1 chunks),
+   each plan's result held against the plain version.
 3. yi-6b engine: full width in bf16 on random weights (``torch.Generator``
    seed 0), ``max_len`` 4096: a 2,048-token context, then the same context
    plus the 8 generated and 504 new tokens, which must reuse 2,048 tokens
@@ -108,7 +113,27 @@
    ``decode_mma_kernel`` and none of ``decode_partial_kernel<bf16>``, 72 ×
    18 = 1,296 of ``rglru_step_kernel`` and none of ``rglru_kernel``, and
    logs device kernels per fed or decoded token.
-10. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
+10. Dense engines, after the recurrent ones, as step 3, each freed before
+   the next, with its peak memory: llama3-8b (rope theta 500,000; 32/8
+   heads) and h2o-danube-1.8b (32/8 heads of 80, window 4096; 3,584 context
+   tokens, then those + 8 + 1,016, ``max_len`` 8192: the ring holds 4,096
+   slots, turn 2 reuses 3,584, and its 4,608-token prompt passes the
+   window, so the window masks keys in the suffix prefill and the decode
+   reads a wrapped ring) with the profiled replay; minitron-8b and
+   nemotron-4-15b (squared-ReLU MLPs, not gated; 48/8 heads) without it.
+   llama3-70b does not fit the card and runs only as kernel rows.
+11. llama3-8b long-context model phase, full width in bf16, then on the
+   same weights in fp32: ``prefill(..., long_context=True)`` of 10,240 tokens with
+   ``max_len`` 12,288 into a ring of 8,192 slots, one ``decode_step(...,
+   long_context=True)`` on the wrapped ring, held against ``forward(...,
+   long_context=True)`` on the 10,241 tokens, last-position logits within
+   2e-2 x max |logit| in bf16 (step 3's limit) and 5e-4 in fp32 (steps 5
+   and 8's); exactly 32 flash launches per prefill and forward and 32
+   decode launches per step. In bf16 both sides round every GEMM and
+   attention output to bf16 in other orders (M = 1 against 10,241), which
+   moves the logits by about that limit on its own (logged: each bf16 side
+   against the fp32 forward); the fp32 run is the sharper check.
+12. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
    ``library_device_ms`` and ``library_premasked_device_ms``; decode's,
    wkv6's and the rglru kernels' with ``device_ms``; the fused step's with
    ``plain_device_ms``), the card line, and last
@@ -162,6 +187,17 @@ RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
 GRIFFIN = "recurrentgemma-2b"
 GRIFFIN_PREFILL = 2560                    # past the 2,048 window: the ring wraps
+# the dense archs served after the recurrent ones: the first two with a
+# profiled replay of turn 2, the other two without
+DENSE_PROFILED = ("llama3-8b", "h2o-danube-1.8b")
+DENSE_SHORT = ("minitron-8b", "nemotron-4-15b")
+# archs whose weights do not fit the card: their heads run as kernel rows
+# at the conversation of the arch named
+HEADS_ONLY = {"llama3-70b": "llama3-8b"}
+LONG = "llama3-8b"                        # the long-context model phase
+LONG_PREFILL = 10240                      # past the long-context window of 8,192
+LONG_MAX_LEN = 12288
+LONG_ROWS = 1024                          # the hit's rows of the long-context flash row
 
 
 def log(*a):
@@ -247,6 +283,12 @@ def per_token(cfg):
             "rglru_step": 2 * units + tail, "wkv6": 0}
 
 
+def tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 def tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(tree_bytes(t) for t in tree.values())
@@ -328,13 +370,14 @@ def decode_row(ops, ref, cases, case, dtype):
 
 def plan_sweep(cases, dmod):
     """Device ms per call of the bf16 kernel at each main-path decode shape
-    under every plan a cluster allows (16, 8, 4 and 1 chunks), beside the
-    plan ``split_plan`` picks; each plan's result held against the plain
-    version. The plan is forced by standing in for ``split_plan``."""
+    (the dense archs' too) under every plan a cluster allows (16, 8, 4 and
+    1 chunks), beside the plan ``split_plan`` picks; each plan's result
+    held against the plain version. The plan is forced by standing in for
+    ``split_plan``."""
     pick = dmod.split_plan
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     try:
-        for case in cases.DECODE_MAIN:
+        for case in cases.DECODE_MAIN + cases.DECODE_DENSE:
             B, H, KV, W = case[:4]
             q, k, v, valid = cases.decode_inputs(case, torch.bfloat16, "cuda", seed=5)
             want = dmod.ref.decode_attention_ref(q, k, v, valid)
@@ -353,28 +396,79 @@ def plan_sweep(cases, dmod):
         dmod.split_plan = pick
 
 
-def main_path_shapes(cfg, serve):
-    """Every shape the two-turn conversation (and the cold engine) gives
-    each kernel. Flash: turn 1's cold prefill, turn 2's suffix prefill, the
+def ring_case(cfg, tt, cases, W: int, pos: int, window):
+    """The decode kernel's case at the step that writes position ``pos``
+    into a ring of ``W`` slots: the slots ``decode_attend`` leaves valid,
+    counted from the slot of the oldest position they hold."""
+    kpos = tt.ring_kpos(W, pos)
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window is not None:
+        valid &= kpos > pos - window
+    nvalid, start = int(valid.sum()), int(kpos[valid].min()) % W
+    if not (cases.decode_valid(W, nvalid, start) == valid.int().numpy()).all():
+        raise AssertionError(f"{cfg.name}: the valid slots at {pos} are not one run")
+    return (1, cfg.num_heads, cfg.num_kv_heads, W, cfg.head_dim, nvalid, start)
+
+
+def main_path_shapes(cfg, serve, tt, cases, conversation=None):
+    """Every shape a dense arch's two-turn conversation (and the cold
+    engine) gives each kernel, at the turns of ``conversation`` (default:
+    its own). Flash: turn 1's cold prefill, turn 2's suffix prefill, the
     cold engine's prefill of the turn-2 prompt. Decode: the last step of
-    turn 2, over the whole ring."""
-    ctx, new, num_new, max_len = serve.FULL_TURNS["yi-6b"]
+    turn 2, over the ring."""
+    ctx, new, num_new, max_len = serve.FULL_TURNS[conversation or cfg.name]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    win = tt.attn_window(cfg)
     n2 = ctx + num_new + new
-    flash = {"turn 1": (1, H, KV, ctx, ctx, hd, 0, None, True),
-             "turn 2": (1, H, KV, n2 - ctx, n2, hd, ctx, None, True),
-             "cold": (1, H, KV, n2, n2, hd, 0, None, True)}
-    decode = {"turn 2": (1, H, KV, max_len, hd, n2 + num_new, 0)}
+    flash = {"turn 1": (1, H, KV, ctx, ctx, hd, 0, win, True),
+             "turn 2": (1, H, KV, n2 - ctx, n2, hd, ctx, win, True),
+             "cold": (1, H, KV, n2, n2, hd, 0, win, True)}
+    decode = {"turn 2": ring_case(cfg, tt, cases, tt.cache_width(cfg, max_len),
+                                  n2 + num_new - 1, win)}
     return flash, decode
 
 
-def griffin_decode_shape(cfg, serve):
+def griffin_decode_shape(cfg, serve, tt, cases):
     """The decode kernel's shape at the last step of recurrentgemma-2b's
     turn 2: the local-attention ring of min(max_len, window) slots."""
     ctx, new, num_new, max_len = serve.FULL_TURNS[cfg.name]
-    n2 = ctx + num_new + new
-    return (1, cfg.num_heads, cfg.num_kv_heads, min(max_len, cfg.local_window),
-            cfg.head_dim, n2 + num_new, 0)
+    return ring_case(cfg, tt, cases, min(max_len, cfg.local_window),
+                     ctx + 2 * num_new + new - 1, cfg.local_window)
+
+
+def long_context_shapes(cfg, tt, cases):
+    """The long-context model phase's calls: flash on the prefill's last
+    ``LONG_ROWS`` rows (a hit's call on the same keys), decode at the step
+    after the prefill, over the wrapped ring."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    win = tt.attn_window(cfg, long_context=True)
+    W = tt.cache_width(cfg, LONG_MAX_LEN, long_context=True)
+    flash = (1, H, KV, LONG_ROWS, LONG_PREFILL, hd, LONG_PREFILL - LONG_ROWS, win, True)
+    cold = ((1, H, KV, LONG_PREFILL, LONG_PREFILL, hd, 0, win, True),
+            LONG_PREFILL - LONG_ROWS)
+    if cold not in cases.FLASH_IDENTITY:
+        raise AssertionError(f"{cold} is not in cases.FLASH_IDENTITY")
+    return flash, ring_case(cfg, tt, cases, W, LONG_PREFILL, win)
+
+
+def dense_shapes(get_config, serve, tt, cases):
+    """The turn-2 calls of every dense arch after yi-6b (llama3-70b's heads
+    at llama3-8b's turns) and the long-context calls, each shape once with
+    the paths that give it; they must be ``cases.FLASH_DENSE`` and
+    ``cases.DECODE_DENSE``, in order."""
+    flash, decode = {}, {}
+    for arch in DENSE_PROFILED + DENSE_SHORT + tuple(HEADS_ONLY):
+        f, d = main_path_shapes(get_config(arch), serve, tt, cases, HEADS_ONLY.get(arch))
+        flash.setdefault(f["turn 2"], []).append(arch)
+        decode.setdefault(d["turn 2"], []).append(arch)
+    f, d = long_context_shapes(get_config(LONG), tt, cases)
+    flash.setdefault(f, []).append(f"{LONG} long context")
+    decode.setdefault(d, []).append(f"{LONG} long context")
+    if list(flash) != cases.FLASH_DENSE or list(decode) != cases.DECODE_DENSE:
+        raise AssertionError(f"dense shapes {list(flash)}, {list(decode)} are not "
+                             "cases.FLASH_DENSE and cases.DECODE_DENSE")
+    return ({", ".join(v): k for k, v in flash.items()},
+            {", ".join(v): k for k, v in decode.items()})
 
 
 def kernels_phase(ops, ref, cases, flash_main, decode_main):
@@ -428,22 +522,29 @@ def identity_phase(cases):
 # engine
 # --------------------------------------------------------------------------- #
 
-def engine_phase(serve, ops, cases):
+def engine_phase(serve, ops, cases, arch="yi-6b", profile=True):
+    """A dense arch's two-turn conversation through the KV-prefix route at
+    full width: reuse and launch counts, a cold engine against the hit, and
+    with ``profile`` a profiled replay of turn 2."""
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, eng = serve.build_engine("yi-6b", device="cuda")
+    cfg, eng = serve.build_engine(arch, device="cuda")
     torch.cuda.synchronize()
-    log(f"yi-6b full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}; {str(eng.dtype)[6:]} weights drawn in "
+    log(f"{arch} full width: {describe(cfg)}; {str(eng.dtype)[6:]} weights drawn in "
         f"{time.perf_counter() - t0:.3f} s")
 
     zero_counts(ops)
     ctx2, r1, r2 = serve.two_turns(cfg, eng, False)
     launches = read_counts(ops)
 
-    ctx_len, new_len, num_new, _ = serve.FULL_TURNS["yi-6b"]
+    ctx_len, new_len, num_new, _ = serve.FULL_TURNS[arch]
     L = cfg.num_layers
+    if cfg.window_size:
+        log(f"{arch} turn-2 prompt: {len(ctx2)} tokens, window {cfg.window_size}, "
+            f"ring {eng.width} slots")
+        if len(ctx2) <= cfg.window_size:
+            raise AssertionError(f"{arch}: turn 2's prompt does not pass the window")
     if r1.reused_tokens != 0 or r2.reused_tokens != ctx_len \
             or r2.prefill_tokens_computed != num_new + new_len:
         raise AssertionError(f"reuse: turn 1 {r1.reused_tokens}, turn 2 "
@@ -456,14 +557,14 @@ def engine_phase(serve, ops, cases):
         if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
                 or not bool(torch.isfinite(r.last_logits).all()):
             raise AssertionError(f"turn {i}: bad output")
-        log(f"turn {i}: prefill {r.prefill_tokens_computed} tokens "
+        log(f"{arch} turn {i}: prefill {r.prefill_tokens_computed} tokens "
             f"(reused {r.reused_tokens}) in {r.prefill_time_s * 1e3:.3f} ms; "
             f"decode {num_new} tokens in {r.decode_time_s * 1e3:.3f} ms "
             f"({r.decode_time_s / num_new * 1e3:.3f} ms/token) -> {r.tokens}")
-    log(f"launches on the main path: {launches}")
-    log(f"peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"{arch} launches on the main path: {launches}")
+    log(f"{arch} peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
-    _, cold = serve.build_engine("yi-6b", device="cuda", params=eng.params)
+    _, cold = serve.build_engine(arch, device="cuda", params=eng.params)
     rc = cold.generate("cold", ctx2, num_new=num_new)
     if rc.reused_tokens != 0:
         raise AssertionError("cold engine hit its empty store")
@@ -474,38 +575,118 @@ def engine_phase(serve, ops, cases):
     scale = float(rc.last_logits.abs().max())
     tol = cases.TOL[torch.bfloat16] * scale
     err = float((rc.last_logits - r2.last_logits).abs().max())
-    log(f"hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} = "
-        f"2e-2 x max |logit| {scale:.4f}); cold prefill {rc.prefill_time_s * 1e3:.3f} ms "
+    log(f"{arch} hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} "
+        f"= 2e-2 x max |logit| {scale:.4f}); cold prefill {rc.prefill_time_s * 1e3:.3f} ms "
         f"for {rc.prefill_tokens_computed} tokens; tokens {rc.tokens}")
     if rc.tokens != r2.tokens or not err <= tol:
-        raise AssertionError("hit path and cold path disagree")
-    profile_turn2(serve, eng.params, ctx2)
+        raise AssertionError(f"{arch}: hit path and cold path disagree")
+    del cold, rc
+    if profile:
+        profile_turn2(serve, arch, eng.params, ctx2)
     return launches
 
 
-def profile_turn2(serve, params, ctx2):
+def profile_turn2(serve, arch, params, ctx2):
     """A replay of turn 2 (turn 1 served unprofiled first, so turn 2
     hits), unprofiled and then profiled."""
-    cfg, eng = serve.build_engine("yi-6b", device="cuda", params=params)
-    ctx_len, _, num_new, _ = serve.FULL_TURNS["yi-6b"]
+    cfg, eng = serve.build_engine(arch, device="cuda", params=params)
+    ctx_len, _, num_new, _ = serve.FULL_TURNS[arch]
     eng.generate("replay", ctx2[:ctx_len], num_new=num_new)
     t0 = time.perf_counter()
     r = eng.generate("replay", ctx2, num_new=num_new)
-    log(f"unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
+    log(f"{arch} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(prefill {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
     eng.generate("prof", ctx2[:ctx_len], num_new=num_new)
-    r, calls = profiled("turn 2", lambda: eng.generate("prof", ctx2, num_new=num_new))
+    r, calls = profiled(f"{arch} turn 2",
+                        lambda: eng.generate("prof", ctx2, num_new=num_new))
     if r.reused_tokens != ctx_len:
-        raise AssertionError("profiled replay of turn 2 missed the cache")
+        raise AssertionError(f"{arch}: profiled replay of turn 2 missed the cache")
     # the suffix prefill: one tensor-core flash launch per layer, no CUDA-core one
     mma = sum(c for n, c in calls.items() if "flash_mma_kernel" in n)
     cuda_core = sum(c for n, c in calls.items() if "flash_kernel<" in n)
-    log(f"profiled replay: {mma} flash_mma_kernel launches, {cuda_core} flash_kernel")
+    log(f"{arch} profiled replay: {mma} flash_mma_kernel launches, {cuda_core} flash_kernel")
     if mma != cfg.num_layers or cuda_core:
-        raise AssertionError(f"profiled replay: {mma} flash_mma_kernel and {cuda_core} "
-                             f"flash_kernel launches, want {cfg.num_layers} and 0")
+        raise AssertionError(f"{arch} profiled replay: {mma} flash_mma_kernel and "
+                             f"{cuda_core} flash_kernel launches, want {cfg.num_layers} "
+                             "and 0")
     # the decode: one tensor-core decode launch per layer and token
-    check_decode_calls("yi-6b", calls, num_new * cfg.num_layers)
+    check_decode_calls(arch, calls, num_new * cfg.num_layers)
+
+
+def long_context_phase(ops, tt, cases, cfg):
+    """Full width, ``long_context=True``, in bf16 and then on the same
+    weights in fp32: a prefill of ``LONG_PREFILL`` tokens into a ring of
+    8,192 slots and one ``decode_step`` on the wrapped ring, against
+    ``forward`` of the ``LONG_PREFILL + 1`` tokens; exact launch counts per
+    call. Returns the launches made."""
+    S, L = LONG_PREFILL, cfg.num_layers
+    seq = {n: 0 for n in SOURCES}
+    want = {"prefill": dict(seq, flash_attention=L), "step": dict(seq, decode_attention=L),
+            "forward": dict(seq, flash_attention=L)}
+    t0 = time.perf_counter()
+    params = tt.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                            torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    log(f"{cfg.name} long context: {describe(cfg)}; bfloat16 weights drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    total = dict(seq)
+
+    def run(params, dtype):
+        """(last-position logits of the step, of forward) in fp32."""
+        got, ms = {}, {}
+
+        def timed(call, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, got[call] = launched(ops, fn)
+            torch.cuda.synchronize()
+            ms[call] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        with torch.inference_mode():
+            _, cache = timed("prefill", lambda: tt.prefill(
+                params, cfg, {"tokens": toks[:, :S]}, LONG_MAX_LEN, long_context=True))
+            step = timed("step", lambda: tt.decode_step(
+                params, cfg, cache, toks[:, S:], S, long_context=True))[0][0, 0].float()
+            full = timed("forward", lambda: tt.forward(
+                params, cfg, {"tokens": toks}, long_context=True))[0, -1].float()
+        ring, window = cache["k"].shape[2], tt.attn_window(cfg, long_context=True)
+        # bf16: the two sides round every GEMM and attention output to bf16 at
+        # other shapes (M = 1 against 10,241; decode against flash), so the
+        # hit-vs-cold limit, the bf16 kernel tolerance scaled to the logits;
+        # fp32: the model phases' limit
+        scale = float(full.abs().max())
+        tol = cases.TOL[dtype] * scale if dtype == torch.bfloat16 else 5e-4
+        err = float((step - full).abs().max())
+        log(f"{cfg.name} long-context {str(dtype)[6:]} prefill of {S} (max_len "
+            f"{LONG_MAX_LEN}, ring {ring} slots, window {window}) in {ms['prefill']:.3f} ms, "
+            f"decode_step at {S} in {ms['step']:.3f} ms, forward of {S + 1} in "
+            f"{ms['forward']:.3f} ms; step vs forward, last-position logits: max |err| "
+            f"{err:.6f} (limit {tol:.6f}; max |logit| {scale:.4f}); greedy "
+            f"{int(step.argmax())} / {int(full.argmax())}; launches {got}")
+        if ring != min(LONG_MAX_LEN, window) or S <= ring:
+            raise AssertionError(f"{cfg.name}: ring of {ring} slots, want a wrapped ring "
+                                 f"of {min(LONG_MAX_LEN, window)}")
+        if not err <= tol or not math.isfinite(scale):
+            raise AssertionError(f"{cfg.name}: long-context decode_step disagrees with "
+                                 "forward")
+        if got != want:
+            raise AssertionError(f"{cfg.name}: launch counts {got}, want {want}")
+        for g in got.values():
+            for n, c in g.items():
+                total[n] += c
+        return step, full
+
+    zero_counts(ops)
+    step16, full16 = run(params, torch.bfloat16)
+    params = tree_map(params, lambda t: t.float())        # the same values in fp32
+    _, full32 = run(params, torch.float32)
+    log(f"{cfg.name} long context, each bf16 side against fp32 forward on the same "
+        f"weights: step max |err| {float((step16 - full32).abs().max()):.6f}, forward "
+        f"{float((full16 - full32).abs().max()):.6f}")
+    return total
 
 
 def check_decode_calls(label, calls, want):
@@ -779,6 +960,11 @@ def griffin_model_phase(ops, tt, cfg):
 def describe(cfg) -> str:
     if cfg.family == "ssm":
         mixer = f"{cfg.num_rwkv_heads} wkv heads of {cfg.rwkv_head_dim}"
+    elif cfg.family == "dense":
+        mlp = "gated" if cfg.gated_mlp else "plain"
+        mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, window "
+                 f"{cfg.window_size}, rope theta {cfg.rope_theta:g}, {cfg.activation} "
+                 f"{mlp} MLP")
     else:
         mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, rnn "
                  f"{cfg.rnn_width}, conv {cfg.conv_width}, window {cfg.local_window}")
@@ -909,11 +1095,15 @@ def main():
     if any(a != "0" or b != "0" for a, b in spills):
         raise AssertionError(f"flash_attention spills: {spills}")
 
-    flash_main, decode_main = main_path_shapes(get_config("yi-6b"), serve)
-    decode_main["griffin turn 2"] = griffin_decode_shape(get_config(GRIFFIN), serve)
+    flash_main, decode_main = main_path_shapes(get_config("yi-6b"), serve, tt, cases)
+    decode_main["griffin turn 2"] = griffin_decode_shape(get_config(GRIFFIN), serve, tt,
+                                                         cases)
     if list(decode_main.values()) != cases.DECODE_MAIN:
         raise AssertionError(f"main-path decode shapes {decode_main} are not "
                              f"cases.DECODE_MAIN {cases.DECODE_MAIN}")
+    dense_flash, dense_decode = dense_shapes(get_config, serve, tt, cases)
+    flash_main.update({f"dense: {k}": v for k, v in dense_flash.items()})
+    decode_main.update({f"dense: {k}": v for k, v in dense_decode.items()})
     t0 = time.perf_counter()
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
     plan_sweep(cases, dmod)
@@ -945,6 +1135,20 @@ def main():
     t0 = time.perf_counter()
     by_path[GRIFFIN] = snapshot_engine_phase(serve, ops, cases, GRIFFIN)
     log(f"{GRIFFIN} engine phase: {time.perf_counter() - t0:.3f} s")
+
+    for arch in DENSE_PROFILED + DENSE_SHORT:
+        t0 = time.perf_counter()
+        by_path[arch] = engine_phase(serve, ops, cases, arch,
+                                     profile=arch in DENSE_PROFILED)
+        log(f"{arch} engine phase: {time.perf_counter() - t0:.3f} s, peak memory "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    by_path[f"{LONG} long-context model phase"] = long_context_phase(
+        ops, tt, cases, get_config(LONG))
+    log(f"{LONG} long-context model phase: {time.perf_counter() - t0:.3f} s, peak "
+        f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"launches by path: {by_path}")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
 

@@ -1,8 +1,9 @@
-"""Architecture registry of the port: ``get_config("yi-6b")``,
-``get_config("rwkv6-1.6b")``, ``get_config("recurrentgemma-2b")``.
+"""Architecture registry of the port: ``get_config("yi-6b")`` etc.
 
-Only the architectures the port serves are registered; the rest of the
-reference's registry arrives with the slices that port their families.
+The dense family (yi-6b, llama3-8b, llama3-70b, h2o-danube-1.8b,
+minitron-8b, nemotron-4-15b), rwkv6-1.6b (``ssm``) and recurrentgemma-2b
+(``hybrid``). The rest of the reference's registry (the moe, vlm and encdec
+archs) arrives with the slices that port their families.
 """
 from __future__ import annotations
 
@@ -11,10 +12,17 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
-    "yi-6b": "yi_6b",
-    "rwkv6-1.6b": "rwkv6_1_6b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "minitron-8b": "minitron_8b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "yi-6b": "yi_6b",
+    # the paper's own evaluation models
+    "llama3-70b": "llama3_70b",
+    "llama3-8b": "llama3_8b",
 }
+ALL_ARCHS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -24,4 +32,4 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ModelConfig", "get_config"]
+__all__ = ["ModelConfig", "get_config", "ALL_ARCHS"]

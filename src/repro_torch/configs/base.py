@@ -1,10 +1,9 @@
 """Model architecture config (copy of ``repro.configs.base.ModelConfig``).
 
-Only the fields the dense, RWKV6 and Griffin serving paths read are kept
-(the MoE, enc-dec and VLM fields arrive with their families, the
-long-context window with the long-context mode); ``reduced()`` produces the same
-smoke-test variant as the reference so that tests can build matching
-configs on both sides.
+Only the fields the dense, RWKV6 and Griffin serving paths and the
+long-context mode read are kept (the MoE, enc-dec and VLM fields arrive
+with their families); ``reduced()`` produces the same smoke-test variant as
+the reference so that tests can build matching configs on both sides.
 """
 from __future__ import annotations
 
@@ -39,6 +38,7 @@ class ModelConfig:
     # attention
     rope_theta: float = 10_000.0
     window_size: Optional[int] = None       # sliding window (SWA archs)
+    long_context_window: int = 8192         # window used in long_500k mode
 
     # hybrid (Griffin / RecurrentGemma)
     griffin: bool = False
@@ -87,6 +87,7 @@ class ModelConfig:
             d_ff=d_model * 2,
             vocab_size=512,
             window_size=64 if self.window_size else None,
+            long_context_window=128,
             local_window=32,
             rnn_width=d_model if self.griffin else 0,
             rwkv_head_dim=32,

@@ -1,0 +1,17 @@
+"""minitron-8b — pruned Nemotron-4 dense GQA model. [arXiv:2407.14679]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=256000,
+    activation="relu2",         # nemotron family: squared-ReLU, non-gated
+    gated_mlp=False,
+    source="arXiv:2407.14679",
+)

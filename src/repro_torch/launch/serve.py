@@ -1,10 +1,10 @@
 """Real-execution serving demo of the port: a two-turn conversation with
 prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
 
-    # full width in bf16 on the card (random weights from seed 0)
+    # full width in bf16 on the card (random weights from seed 0); --arch
+    # also takes llama3-8b, h2o-danube-1.8b, minitron-8b, nemotron-4-15b,
+    # rwkv6-1.6b and recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b
-    PYTHONPATH=src python -m repro_torch.launch.serve --real --arch rwkv6-1.6b
-    PYTHONPATH=src python -m repro_torch.launch.serve --real --arch recurrentgemma-2b
 
     # the reference's reduced demo (2 layers, d_model 128, fp32) on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b \
@@ -12,11 +12,12 @@ prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
 
 Turn 1 serves a context and decodes; turn 2 sends the same context plus
 the generated tokens plus new ones, and must reuse the stored prefix: its
-K/V for yi-6b, its recurrent state for rwkv6-1.6b and recurrentgemma-2b
-(whose uncached tokens are fed one at a time, as the reference does). The
-reduced demo keeps the reference's 2 layers for every arch, which for
-recurrentgemma-2b is 0 units and 2 tail recurrent layers. The simulation modes of
-``repro.launch.serve`` are not ported.
+K/V for the dense archs, its recurrent state for rwkv6-1.6b and
+recurrentgemma-2b (whose uncached tokens are fed one at a time, as the
+reference does). The reduced demo keeps the reference's 2 layers for every
+arch, which for recurrentgemma-2b is 0 units and 2 tail recurrent layers.
+llama3-70b runs only reduced: its bf16 weights do not fit one 80 GB card.
+The simulation modes of ``repro.launch.serve`` are not ported.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.policies import POLICIES
 from repro_torch.models.transformer import init_params
@@ -36,14 +37,39 @@ SEED = 0        # weights (torch.Generator) and prompts (numpy)
 # at full width by arch. rwkv6-1.6b and recurrentgemma-2b feed every
 # uncached token through a decode step, so their conversations are shorter;
 # recurrentgemma-2b's local-attention ring is min(max_len, 2048) slots.
+# h2o-danube-1.8b's ring is min(8192, window 4096) slots: turn 2 reuses the
+# 3,584 context tokens, which fit it, and its prompt of 4,608 is longer than
+# the window, so the window masks keys in the suffix prefill and the decode
+# runs over a wrapped ring.
 FULL_TURNS = {"yi-6b": (2048, 504, 8, 4096),
+              "llama3-8b": (2048, 504, 8, 4096),
+              "minitron-8b": (2048, 504, 8, 4096),
+              "nemotron-4-15b": (2048, 504, 8, 4096),
+              "h2o-danube-1.8b": (3584, 1016, 8, 8192),
               "rwkv6-1.6b": (512, 56, 8, 4096),
               "recurrentgemma-2b": (512, 56, 8, 1024)}
 REDUCED_TURNS = (24, 8, 4, 128)
+CARD_BYTES = 80e9               # one H100's device memory
+
+
+def weight_bytes(cfg, dtype=torch.bfloat16) -> int:
+    """Bytes of a dense config's weights as ``init_params`` lays them out."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = d * (cfg.num_heads + cfg.num_kv_heads) * hd * 2
+    mlp = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    n = 2 * cfg.padded_vocab * d + d + cfg.num_layers * (attn + mlp + 2 * d)
+    return n * torch.finfo(dtype).bits // 8
 
 
 def turns(arch: str, reduced: bool):
-    return REDUCED_TURNS if reduced else FULL_TURNS[arch]
+    if reduced:
+        return REDUCED_TURNS
+    if arch not in FULL_TURNS:
+        cfg = get_config(arch)
+        raise ValueError(f"{arch} at full width holds {weight_bytes(cfg) / 1e9:.1f} GB "
+                         f"of bf16 weights, more than one card's {CARD_BYTES / 1e9:.0f} "
+                         "GB; serve it with --reduced")
+    return FULL_TURNS[arch]
 
 
 def build_engine(arch: str, *, device=None, reduced: bool = False,
@@ -101,7 +127,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--real", action="store_true",
                     help="real execution (the only mode of the port)")
-    ap.add_argument("--arch", default="yi-6b", choices=sorted(FULL_TURNS))
+    ap.add_argument("--arch", default="yi-6b", choices=sorted(ALL_ARCHS))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true",
                     help="2 layers, d_model 128, fp32 (the reference's demo)")

@@ -3,10 +3,10 @@ branches of ``repro/models/transformer.py``.
 
 Public API (plain functions over a dict of parameters):
     init_params(generator, cfg, dtype)                      -> params
-    forward(params, cfg, batch)                             -> logits
-    init_cache(cfg, batch, max_len, dtype, device)          -> cache
+    forward(params, cfg, batch, long_context)               -> logits
+    init_cache(cfg, batch, max_len, dtype, device, long_context) -> cache
     prefill(params, cfg, batch, max_len, ...)               -> (logits, cache)
-    decode_step(params, cfg, cache, tokens, pos)            -> (logits, cache)
+    decode_step(params, cfg, cache, tokens, pos, ...)       -> (logits, cache)
 
 Parameters keep the reference's pytree layout: per-layer weights stacked on
 a leading ``L`` axis, projections applied as ``x @ w``, so weights converted
@@ -35,8 +35,15 @@ way: ``units`` holds each unit's two recurrent states (``rec1_h``,
 and ``conv``. The local attention's window is ``cfg.local_window``, not
 ``cfg.window_size``. Like RWKV6, its ``prefill`` takes no stored prefix.
 
-Not ported yet: the long-context window mode (the reference's
-``long_context`` flag) and the moe, vlm and encdec families, which raise
+The long-context mode (``long_context=True``, the reference's ``long_500k``
+input shape) gives dense self-attention the window ``attn_window`` names:
+``cfg.long_context_window``, or the smaller of that and ``cfg.window_size``
+where the config has a window; the dense cache is then a ring of that many
+slots. The Griffin branches keep ``cfg.local_window`` and the RWKV6 branches
+ignore the flag, as in the reference. The serving engine takes no such
+option, since the reference's takes none.
+
+Not ported yet: the moe, vlm and encdec families, which raise
 ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
@@ -67,13 +74,18 @@ def _require_ported(cfg: ModelConfig):
 # helpers
 # --------------------------------------------------------------------------- #
 
-def attn_window(cfg: ModelConfig) -> Optional[int]:
+def attn_window(cfg: ModelConfig, long_context: bool = False) -> Optional[int]:
     """Effective sliding window for dense self-attention."""
+    if long_context:
+        w = cfg.long_context_window
+        if cfg.window_size:
+            w = min(w, cfg.window_size)
+        return w
     return cfg.window_size
 
 
-def cache_width(cfg: ModelConfig, max_len: int) -> int:
-    w = attn_window(cfg)
+def cache_width(cfg: ModelConfig, max_len: int, long_context: bool = False) -> int:
+    w = attn_window(cfg, long_context)
     return min(max_len, w) if w else max_len
 
 
@@ -319,7 +331,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 # full-sequence forward
 # --------------------------------------------------------------------------- #
 
-def forward(params: Params, cfg: ModelConfig, batch):
+def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False):
     """Full-sequence logits (B, S, padded_vocab)."""
     _require_ported(cfg)
     x = params["embed"][batch["tokens"]]
@@ -338,7 +350,7 @@ def forward(params: Params, cfg: ModelConfig, batch):
         for i in range(tail):
             x, _ = _rec_layer_fwd(layer_params(params["tail"], i), cfg, x, rst)
     else:
-        window = attn_window(cfg)
+        window = attn_window(cfg, long_context)
         for i in range(cfg.num_layers):
             x = _attn_layer_fwd(layer_params(params["layers"], i), cfg, x,
                                 window=window)
@@ -351,7 +363,7 @@ def forward(params: Params, cfg: ModelConfig, batch):
 # --------------------------------------------------------------------------- #
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", long_context=False):
     _require_ported(cfg)
     if cfg.family == "hybrid":
         U, tail = griffin_layout(cfg)
@@ -378,7 +390,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                                    device=device),
                 "x_tm": torch.zeros((L, B, d), dtype=dtype, device=device),
                 "x_cm": torch.zeros((L, B, d), dtype=dtype, device=device)}
-    W = cache_width(cfg, max_len)
+    W = cache_width(cfg, max_len, long_context)
     shape = (cfg.num_layers, batch_size, W, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -399,7 +411,7 @@ def _place_kv_in_ring(k_full, W: int):
 
 
 def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
-            prefix_cache=None, prefix_len: int = 0):
+            long_context=False, prefix_cache=None, prefix_len: int = 0):
     """Process a prompt, returning (logits, cache) ready for decode.
 
     prefix_cache/prefix_len: reuse a stored KV prefix (the paper's cache-hit
@@ -424,9 +436,9 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
             _write_state(cache, i, st)
         x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
         return x @ params["unembed"], cache
-    window = attn_window(cfg)
-    W = cache_width(cfg, max_len)
-    cache = init_cache(cfg, B, max_len, x.dtype, device=x.device)
+    window = attn_window(cfg, long_context)
+    W = cache_width(cfg, max_len, long_context)
+    cache = init_cache(cfg, B, max_len, x.dtype, x.device, long_context)
     for i in range(cfg.num_layers):
         prefix_kv = None
         if prefix_cache is not None:
@@ -481,7 +493,8 @@ def _griffin_decode(params: Params, cfg: ModelConfig, cache, x, pos: int):
     return x
 
 
-def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int):
+def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int, *,
+                long_context=False):
     """One autoregressive step. tokens: (B,1) int64; pos: the absolute
     position being written. Returns (logits (B,1,V), cache); the cache's
     tensors are updated in place."""
@@ -500,7 +513,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int):
             _write_state(cache, i, st)
         x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
         return x @ params["unembed"], cache
-    window = attn_window(cfg)
+    window = attn_window(cfg, long_context)
     for i in range(cfg.num_layers):
         x = _attn_layer_decode(layer_params(params["layers"], i), cfg, x,
                                cache["k"][i], cache["v"][i], pos, window=window)

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-and the reduced engines (yi-6b, rwkv6-1.6b, recurrentgemma-2b) on the card
-against the same engines on the CPU.
+and the reduced engines (yi-6b, h2o-danube-1.8b, rwkv6-1.6b,
+recurrentgemma-2b) on the card against the same engines on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, inside the ``cuda``
 fixture, when there is no card. The file imports no jax, so it runs on a
@@ -21,9 +21,9 @@ from repro_torch.models.transformer import griffin_layout, init_params
 from repro_torch.serving.realexec import RealExecutionEngine
 
 FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
-               + cases.FLASH_GRIFFIN + cases.FLASH_TILES)
+               + cases.FLASH_GRIFFIN + cases.FLASH_TILES + cases.FLASH_DENSE)
 DECODE_CASES = (cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
-                + cases.DECODE_MAIN + cases.DECODE_FLOOR)
+                + cases.DECODE_MAIN + cases.DECODE_FLOOR + cases.DECODE_DENSE)
 WKV6_CASES = (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
               + cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16)
 RGLRU_CASES = (cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
@@ -177,6 +177,40 @@ def test_reduced_engine_on_card_matches_cpu(cuda):
     num_new = serve.REDUCED_TURNS[2]
     assert ops.flash_attention.launches - f0 == 2 * cfg.num_layers
     assert ops.decode_attention.launches - d0 == 2 * num_new * cfg.num_layers
+    for c, g in ((c1, g1), (c2, g2)):
+        assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
+        np.testing.assert_allclose(g.last_logits.cpu().numpy(),
+                                   c.last_logits.numpy(), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.gpu
+def test_reduced_danube_engine_on_card_matches_cpu(cuda):
+    """h2o-danube-1.8b reduced (window and ring 64): turn 2's prompt of 72
+    passes the window, so the card's flash masks keys in the suffix
+    prefill and its decode reads a wrapped ring, as on the CPU."""
+    cfg = get_config("h2o-danube-1.8b").reduced(num_layers=2, d_model=128)
+    params = init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+
+    def engine(device, p):
+        store = KVStore(64e9, POLICIES["lcs"], cfg.kv_bytes_per_token)
+        return RealExecutionEngine(cfg, p, store, max_len=128, dtype=torch.float32,
+                                   device=device)
+
+    rng = np.random.default_rng(1)
+    ctx = [int(t) for t in rng.integers(0, cfg.vocab_size, 48)]
+    extra = [int(t) for t in rng.integers(0, cfg.vocab_size, 20)]
+    results = {}
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = engine(device, p)
+        f0, d0 = ops.flash_attention.launches, ops.decode_attention.launches
+        r1 = eng.generate("c", ctx, num_new=4)
+        r2 = eng.generate("c", ctx + r1.tokens + extra, num_new=4)
+        results[str(device)] = (r1, r2, ops.flash_attention.launches - f0,
+                                ops.decode_attention.launches - d0)
+    (c1, c2, *_), (g1, g2, flash, decode) = results["cpu"], results[str(cuda)]
+    assert len(ctx) + 4 + len(extra) > cfg.window_size == eng.width
+    assert (flash, decode) == (2 * cfg.num_layers, 2 * 4 * cfg.num_layers)
+    assert (g2.reused_tokens, g2.prefill_tokens_computed) == (48, 24)
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),

@@ -151,6 +151,32 @@ def test_prefill_and_decode_match(window):
     _close(jcache_d["k"], tcache_d["k"])
 
 
+def test_long_context_prefix_prefill_and_decode_match():
+    """The long-context window (reduced: 128) on the cache-hit route: a
+    100-token prefix, a 60-token suffix prefilled at ``q_offset`` 100 past
+    the window into a ring of 128, then decode steps over the wrapped ring;
+    the port against the JAX package at the reference's 5e-4."""
+    jcfg, jp, tcfg, tp = _models()
+    toks = _tokens(jcfg, 163, seed=5)
+    tt_toks = T(toks).long()
+    kw = dict(max_len=256, long_context=True)
+    _, jpre = jt.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :100])}, **kw)
+    _, tpre = tt.prefill(tp, tcfg, {"tokens": tt_toks[:, :100]}, **kw)
+    assert tpre["k"].shape[2] == tcfg.long_context_window == 128
+    jl, jc = jt.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, 100:160])},
+                        prefix_cache=jpre, prefix_len=100, **kw)
+    tl, tc = tt.prefill(tp, tcfg, {"tokens": tt_toks[:, 100:160]},
+                        prefix_cache=tpre, prefix_len=100, **kw)
+    _close(jl, tl, 5e-4)
+    _close(jc["k"], tc["k"], 5e-4)
+    for pos in range(160, 163):
+        jl, jc = jt.decode_step(jp, jcfg, jc, jnp.asarray(toks[:, pos:pos + 1]),
+                                jnp.asarray(pos), long_context=True)
+        tl, tc = tt.decode_step(tp, tcfg, tc, tt_toks[:, pos:pos + 1], pos,
+                                long_context=True)
+        _close(jl, tl, 5e-4)
+
+
 def test_forward_matches_prefill_logits():
     jcfg, jp, tcfg, tp = _models()
     toks = _tokens(jcfg, 12, seed=3)
