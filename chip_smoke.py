@@ -11,16 +11,19 @@
    bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
    ragged, empty-band and tile-edge shapes of
    ``repro_torch/kernels/cases.py``, at every shape the yi-6b path gives
-   it and at the turn-2 and long-context shapes of the dense archs served
-   in steps 10-11 and of llama3-70b's heads (``cases.FLASH_DENSE``,
-   ``DECODE_DENSE``, computed again here from the configs and the turns),
-   with the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute
-   term scaled to the output). Then, at full width, the last 512 rows of a
-   cold bf16 flash call at yi-6b's (1,32,4,2560,2560,128) and at Griffin's
-   (1,10,1,2560,2560,256, window 2048) must equal a hit's call from
-   ``q_offset`` 2048 bit for bit, and the last 1,024 of llama3-8b's
-   long-context prefill (1,32,8,10240,10240,128, window 8192) a hit's from
-   9,216 (``cases.FLASH_IDENTITY``). For each
+   it and at every call of the dense archs served in steps 10-11 and of
+   llama3-70b's heads: turn 1, turn 2's suffix, the cold engine's prefill
+   and the last decode step of each, the long-context prefill, forward and
+   step, and the prefill's last 1,024 rows as a hit's call
+   (``repro_torch.launch.shapes``, from the configs and the turns), with
+   the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute term
+   scaled to the output). Then, at full width, the last rows of a cold bf16
+   flash call must equal a hit's call from the first of them bit for bit:
+   yi-6b's (1,32,4,2560,2560,128) and Griffin's (1,10,1,2560,2560,256,
+   window 2048) from 2,048 (``cases.FLASH_IDENTITY``), and each dense
+   arch's cold prefill from its turn-2 hit (danube's 4,608 rows under the
+   window from 3,584) and the long-context prefill (1,32,8,10240,10240,128,
+   window 8192) from 9,216. For each
    timed shape: kernel time, plain time,
    ``library_ms`` (``F.scaled_dot_product_attention`` on the same masked GQA
    problem, a yardstick only: the port never calls it) and the least time
@@ -39,8 +42,11 @@
    (``cases.DECODE_FLOOR``: one kv head, W = 64, one valid slot) gives the
    fixed cost of a call that does almost no work. Then, at the two
    main-path decode shapes and the dense archs', the bf16 kernel's device
-   time per call under each plan a cluster allows (16, 8, 4, 1 chunks),
-   each plan's result held against the plain version.
+   time per call under 16, 8, 4 and 1 chunks and under the most chunks
+   whose clusters the card holds at once (the kernel's occupancy query),
+   beside the plan ``split_plan`` picks, each with its clusters and how
+   many the card holds at once, each plan's result held against the plain
+   version.
 3. yi-6b engine: full width in bf16 on random weights (``torch.Generator``
    seed 0), ``max_len`` 4096: a 2,048-token context, then the same context
    plus the 8 generated and 504 new tokens, which must reuse 2,048 tokens
@@ -187,17 +193,9 @@ RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
 GRIFFIN = "recurrentgemma-2b"
 GRIFFIN_PREFILL = 2560                    # past the 2,048 window: the ring wraps
-# the dense archs served after the recurrent ones: the first two with a
-# profiled replay of turn 2, the other two without
+# the dense archs (``shapes.DENSE``) whose engine phase profiles a replay of
+# turn 2; the others run without it
 DENSE_PROFILED = ("llama3-8b", "h2o-danube-1.8b")
-DENSE_SHORT = ("minitron-8b", "nemotron-4-15b")
-# archs whose weights do not fit the card: their heads run as kernel rows
-# at the conversation of the arch named
-HEADS_ONLY = {"llama3-70b": "llama3-8b"}
-LONG = "llama3-8b"                        # the long-context model phase
-LONG_PREFILL = 10240                      # past the long-context window of 8,192
-LONG_MAX_LEN = 12288
-LONG_ROWS = 1024                          # the hit's rows of the long-context flash row
 
 
 def log(*a):
@@ -368,107 +366,43 @@ def decode_row(ops, ref, cases, case, dtype):
                 **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
 
 
-def plan_sweep(cases, dmod):
+def plan_sweep(cases, dmod, shapes):
     """Device ms per call of the bf16 kernel at each main-path decode shape
-    (the dense archs' too) under every plan a cluster allows (16, 8, 4 and
-    1 chunks), beside the plan ``split_plan`` picks; each plan's result
-    held against the plain version. The plan is forced by standing in for
-    ``split_plan``."""
+    (``shapes``: the dense archs' too) under every plan a cluster allows
+    with 16, 8, 4 and 1 chunks and the most chunks whose clusters the card
+    holds at once (``dmod.occupancy``), beside the plan ``split_plan``
+    picks, each with the call's clusters and how many the card holds at
+    once; each plan's result held against the plain version. The plan is
+    forced by standing in for ``split_plan``."""
     pick = dmod.split_plan
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     try:
-        for case in cases.DECODE_MAIN + cases.DECODE_DENSE:
+        for case in shapes:
             B, H, KV, W = case[:4]
             q, k, v, valid = cases.decode_inputs(case, torch.bfloat16, "cuda", seed=5)
             want = dmod.ref.decode_attention_ref(q, k, v, valid)
             sets = copies([q, k, v, valid])
             tiles = -(-W // dmod.TILE)
-            plans = {(-(-tiles // -(-tiles // n)), -(-tiles // n) * dmod.TILE)
-                     for n in (16, 8, 4, 1)}
-            for nsplit, chunk in sorted(plans, reverse=True):
+            plans = {n: (-(-tiles // -(-tiles // n)), -(-tiles // n) * dmod.TILE)
+                     for n in range(16, 0, -1)}
+
+            def fits(plan):
+                clusters, at_once = dmod.occupancy(q, k, *plan)
+                return clusters <= at_once
+
+            widest = next(p for p in plans.values() if p[0] == 1 or fits(p))
+            picked = pick(B, KV, W, sms)
+            for nsplit, chunk in sorted({plans[n] for n in (16, 8, 4, 1)} | {widest},
+                                        reverse=True):
                 dmod.split_plan = lambda *_: (nsplit, chunk)
                 cases.held("decode plan", case, dmod.decode_attention(q, k, v, valid), want)
                 dev, _ = device_ms(dmod.decode_attention, sets, 50)
-                picked = " (split_plan's)" if pick(B, KV, W, sms) == (nsplit, chunk) else ""
-                log(f"decode bfloat16 {case} plan {nsplit} x {chunk} slots{picked}: "
-                    f"device per call {dev:.5f} ms")
+                clusters, at_once = dmod.occupancy(q, k, nsplit, chunk)
+                mark = " (split_plan's)" if picked == (nsplit, chunk) else ""
+                log(f"decode bfloat16 {case} plan {nsplit} x {chunk} slots{mark}: "
+                    f"{clusters} clusters, {at_once} at once; device per call {dev:.5f} ms")
     finally:
         dmod.split_plan = pick
-
-
-def ring_case(cfg, tt, cases, W: int, pos: int, window):
-    """The decode kernel's case at the step that writes position ``pos``
-    into a ring of ``W`` slots: the slots ``decode_attend`` leaves valid,
-    counted from the slot of the oldest position they hold."""
-    kpos = tt.ring_kpos(W, pos)
-    valid = (kpos >= 0) & (kpos <= pos)
-    if window is not None:
-        valid &= kpos > pos - window
-    nvalid, start = int(valid.sum()), int(kpos[valid].min()) % W
-    if not (cases.decode_valid(W, nvalid, start) == valid.int().numpy()).all():
-        raise AssertionError(f"{cfg.name}: the valid slots at {pos} are not one run")
-    return (1, cfg.num_heads, cfg.num_kv_heads, W, cfg.head_dim, nvalid, start)
-
-
-def main_path_shapes(cfg, serve, tt, cases, conversation=None):
-    """Every shape a dense arch's two-turn conversation (and the cold
-    engine) gives each kernel, at the turns of ``conversation`` (default:
-    its own). Flash: turn 1's cold prefill, turn 2's suffix prefill, the
-    cold engine's prefill of the turn-2 prompt. Decode: the last step of
-    turn 2, over the ring."""
-    ctx, new, num_new, max_len = serve.FULL_TURNS[conversation or cfg.name]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    win = tt.attn_window(cfg)
-    n2 = ctx + num_new + new
-    flash = {"turn 1": (1, H, KV, ctx, ctx, hd, 0, win, True),
-             "turn 2": (1, H, KV, n2 - ctx, n2, hd, ctx, win, True),
-             "cold": (1, H, KV, n2, n2, hd, 0, win, True)}
-    decode = {"turn 2": ring_case(cfg, tt, cases, tt.cache_width(cfg, max_len),
-                                  n2 + num_new - 1, win)}
-    return flash, decode
-
-
-def griffin_decode_shape(cfg, serve, tt, cases):
-    """The decode kernel's shape at the last step of recurrentgemma-2b's
-    turn 2: the local-attention ring of min(max_len, window) slots."""
-    ctx, new, num_new, max_len = serve.FULL_TURNS[cfg.name]
-    return ring_case(cfg, tt, cases, min(max_len, cfg.local_window),
-                     ctx + 2 * num_new + new - 1, cfg.local_window)
-
-
-def long_context_shapes(cfg, tt, cases):
-    """The long-context model phase's calls: flash on the prefill's last
-    ``LONG_ROWS`` rows (a hit's call on the same keys), decode at the step
-    after the prefill, over the wrapped ring."""
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    win = tt.attn_window(cfg, long_context=True)
-    W = tt.cache_width(cfg, LONG_MAX_LEN, long_context=True)
-    flash = (1, H, KV, LONG_ROWS, LONG_PREFILL, hd, LONG_PREFILL - LONG_ROWS, win, True)
-    cold = ((1, H, KV, LONG_PREFILL, LONG_PREFILL, hd, 0, win, True),
-            LONG_PREFILL - LONG_ROWS)
-    if cold not in cases.FLASH_IDENTITY:
-        raise AssertionError(f"{cold} is not in cases.FLASH_IDENTITY")
-    return flash, ring_case(cfg, tt, cases, W, LONG_PREFILL, win)
-
-
-def dense_shapes(get_config, serve, tt, cases):
-    """The turn-2 calls of every dense arch after yi-6b (llama3-70b's heads
-    at llama3-8b's turns) and the long-context calls, each shape once with
-    the paths that give it; they must be ``cases.FLASH_DENSE`` and
-    ``cases.DECODE_DENSE``, in order."""
-    flash, decode = {}, {}
-    for arch in DENSE_PROFILED + DENSE_SHORT + tuple(HEADS_ONLY):
-        f, d = main_path_shapes(get_config(arch), serve, tt, cases, HEADS_ONLY.get(arch))
-        flash.setdefault(f["turn 2"], []).append(arch)
-        decode.setdefault(d["turn 2"], []).append(arch)
-    f, d = long_context_shapes(get_config(LONG), tt, cases)
-    flash.setdefault(f, []).append(f"{LONG} long context")
-    decode.setdefault(d, []).append(f"{LONG} long context")
-    if list(flash) != cases.FLASH_DENSE or list(decode) != cases.DECODE_DENSE:
-        raise AssertionError(f"dense shapes {list(flash)}, {list(decode)} are not "
-                             "cases.FLASH_DENSE and cases.DECODE_DENSE")
-    return ({", ".join(v): k for k, v in flash.items()},
-            {", ".join(v): k for k, v in decode.items()})
 
 
 def kernels_phase(ops, ref, cases, flash_main, decode_main):
@@ -510,9 +444,9 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
     return rows
 
 
-def identity_phase(cases):
+def identity_phase(cases, pairs):
     """Cold rows against a cache hit's, bit for bit, at full width."""
-    for case, first in cases.FLASH_IDENTITY:
+    for case, first in pairs:
         cases.check_flash_hit_rows(case, first, torch.bfloat16, "cuda", seed=3)
         log(f"flash bfloat16 {case}: rows {first}-{case[3] - 1} of the cold call equal "
             f"the hit's from q_offset {first} bit for bit")
@@ -613,13 +547,13 @@ def profile_turn2(serve, arch, params, ctx2):
     check_decode_calls(arch, calls, num_new * cfg.num_layers)
 
 
-def long_context_phase(ops, tt, cases, cfg):
+def long_context_phase(ops, tt, cases, shapes, cfg):
     """Full width, ``long_context=True``, in bf16 and then on the same
-    weights in fp32: a prefill of ``LONG_PREFILL`` tokens into a ring of
-    8,192 slots and one ``decode_step`` on the wrapped ring, against
-    ``forward`` of the ``LONG_PREFILL + 1`` tokens; exact launch counts per
-    call. Returns the launches made."""
-    S, L = LONG_PREFILL, cfg.num_layers
+    weights in fp32: a prefill of ``shapes.LONG_PREFILL`` tokens into a
+    ring of 8,192 slots and one ``decode_step`` on the wrapped ring, against
+    ``forward`` of one token more; exact launch counts per call. Returns the
+    launches made."""
+    S, L, max_len = shapes.LONG_PREFILL, cfg.num_layers, shapes.LONG_MAX_LEN
     seq = {n: 0 for n in SOURCES}
     want = {"prefill": dict(seq, flash_attention=L), "step": dict(seq, decode_attention=L),
             "forward": dict(seq, flash_attention=L)}
@@ -647,7 +581,7 @@ def long_context_phase(ops, tt, cases, cfg):
 
         with torch.inference_mode():
             _, cache = timed("prefill", lambda: tt.prefill(
-                params, cfg, {"tokens": toks[:, :S]}, LONG_MAX_LEN, long_context=True))
+                params, cfg, {"tokens": toks[:, :S]}, max_len, long_context=True))
             step = timed("step", lambda: tt.decode_step(
                 params, cfg, cache, toks[:, S:], S, long_context=True))[0][0, 0].float()
             full = timed("forward", lambda: tt.forward(
@@ -661,14 +595,14 @@ def long_context_phase(ops, tt, cases, cfg):
         tol = cases.TOL[dtype] * scale if dtype == torch.bfloat16 else 5e-4
         err = float((step - full).abs().max())
         log(f"{cfg.name} long-context {str(dtype)[6:]} prefill of {S} (max_len "
-            f"{LONG_MAX_LEN}, ring {ring} slots, window {window}) in {ms['prefill']:.3f} ms, "
+            f"{max_len}, ring {ring} slots, window {window}) in {ms['prefill']:.3f} ms, "
             f"decode_step at {S} in {ms['step']:.3f} ms, forward of {S + 1} in "
             f"{ms['forward']:.3f} ms; step vs forward, last-position logits: max |err| "
             f"{err:.6f} (limit {tol:.6f}; max |logit| {scale:.4f}); greedy "
             f"{int(step.argmax())} / {int(full.argmax())}; launches {got}")
-        if ring != min(LONG_MAX_LEN, window) or S <= ring:
+        if ring != min(max_len, window) or S <= ring:
             raise AssertionError(f"{cfg.name}: ring of {ring} slots, want a wrapped ring "
-                                 f"of {min(LONG_MAX_LEN, window)}")
+                                 f"of {min(max_len, window)}")
         if not err <= tol or not math.isfinite(scale):
             raise AssertionError(f"{cfg.name}: long-context decode_step disagrees with "
                                  "forward")
@@ -1070,7 +1004,7 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, cases, ops, ref
     from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, shapes
     from repro_torch.models import transformer as tt
 
     t_start = time.perf_counter()
@@ -1095,19 +1029,18 @@ def main():
     if any(a != "0" or b != "0" for a, b in spills):
         raise AssertionError(f"flash_attention spills: {spills}")
 
-    flash_main, decode_main = main_path_shapes(get_config("yi-6b"), serve, tt, cases)
-    decode_main["griffin turn 2"] = griffin_decode_shape(get_config(GRIFFIN), serve, tt,
-                                                         cases)
+    flash_main, decode_main = shapes.main_path_shapes(get_config("yi-6b"))
+    decode_main["griffin turn 2"] = shapes.griffin_decode_shape(get_config(GRIFFIN))
     if list(decode_main.values()) != cases.DECODE_MAIN:
         raise AssertionError(f"main-path decode shapes {decode_main} are not "
                              f"cases.DECODE_MAIN {cases.DECODE_MAIN}")
-    dense_flash, dense_decode = dense_shapes(get_config, serve, tt, cases)
+    dense_flash, dense_decode, dense_identity = shapes.dense_shapes()
     flash_main.update({f"dense: {k}": v for k, v in dense_flash.items()})
     decode_main.update({f"dense: {k}": v for k, v in dense_decode.items()})
     t0 = time.perf_counter()
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
-    plan_sweep(cases, dmod)
-    identity_phase(cases)
+    plan_sweep(cases, dmod, cases.DECODE_MAIN + list(dense_decode.values()))
+    identity_phase(cases, cases.FLASH_IDENTITY + dense_identity)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
     # the recurrent kernels' rows before any profile with host activity: after
     # the yi-6b replay's, every profiler window of the wkv6 rows lost a launch
@@ -1136,7 +1069,7 @@ def main():
     by_path[GRIFFIN] = snapshot_engine_phase(serve, ops, cases, GRIFFIN)
     log(f"{GRIFFIN} engine phase: {time.perf_counter() - t0:.3f} s")
 
-    for arch in DENSE_PROFILED + DENSE_SHORT:
+    for arch in shapes.DENSE:
         t0 = time.perf_counter()
         by_path[arch] = engine_phase(serve, ops, cases, arch,
                                      profile=arch in DENSE_PROFILED)
@@ -1145,9 +1078,9 @@ def main():
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    by_path[f"{LONG} long-context model phase"] = long_context_phase(
-        ops, tt, cases, get_config(LONG))
-    log(f"{LONG} long-context model phase: {time.perf_counter() - t0:.3f} s, peak "
+    by_path[f"{shapes.LONG} long-context model phase"] = long_context_phase(
+        ops, tt, cases, shapes, get_config(shapes.LONG))
+    log(f"{shapes.LONG} long-context model phase: {time.perf_counter() - t0:.3f} s, peak "
         f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"launches by path: {by_path}")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": (
             _I, [_I] + [_P] * 5 + [_I] * 7 + [_L] * 10 + [_P]),
+        "decode_attention_occupancy": (_I, [_I] * 8 + [_P]),
     },
     "rglru_scan": {
         "rglru_scan_launch": (_I, [_P] * 5 + [_I] * 3 + [_L] * 7 + [_P]),

@@ -32,11 +32,9 @@ a relative 2**-9 per weight that averages out over the keys: well inside
 ``FLASH_TILES`` puts lengths, offsets and windows on either side of the
 bf16 kernel's tile edges (64 keys, 128 packed query rows);
 ``FLASH_IDENTITY`` pairs a cold call with the cache hit on its last rows,
-which ``check_flash_hit_rows`` holds equal bit for bit. ``FLASH_DENSE`` and
-``DECODE_DENSE`` are the calls the dense archs' two-turn conversations
-(``repro_torch.launch.serve.FULL_TURNS``) and the llama3-8b long-context
-model phase of ``chip_smoke.py`` give the kernels; that script computes
-them again from the configs and the turns and fails if they differ.
+which ``check_flash_hit_rows`` holds equal bit for bit. The calls of the
+dense archs after yi-6b and of the long-context phase are not listed here:
+``repro_torch.launch.shapes`` computes them from the configs and the turns.
 
 WKV6 cases are ``(B, H, S, hd, decay, s0_scale, layout[, rkv])``:
 ``decay`` None draws ``w`` uniform in [0.8, 0.999) as
@@ -129,24 +127,11 @@ FLASH_IDENTITY = [
     ((1, 32, 4, 2560, 2560, 128, 0, None, True), 2048),   # yi-6b, turn 2
     ((1, 10, 1, 2560, 2560, 256, 0, 2048, True), 2048),   # recurrentgemma-2b
     ((1, 10, 1, 700, 700, 256, 0, 300, True), 333),       # a hit row off the blocks' edges
-    ((1, 32, 8, 10240, 10240, 128, 0, 8192, True), 9216),  # llama3-8b, long context
 ]
 # recurrentgemma-2b's local attention: 10 query heads on one kv head of 256,
 # window 2048; the model phase's prefill of 2,560 tokens, where the window
 # masks keys
 FLASH_GRIFFIN = [(1, 10, 1, 2560, 2560, 256, 0, 2048, True)]
-# the dense archs' turn-2 suffix prefills: 32/8 heads of 128 (G = 4), 48/8
-# (G = 6: 126 of a block's 128 packed rows), danube's 32/8 of 80 (padded to
-# 128) with its window of 4,096, which its 4,608-token prompt passes, and
-# llama3-70b's 64/8 at the same 512-token suffix; then the long-context
-# prefill's last 1,024 rows: 10,240 keys under a window of 8,192
-FLASH_DENSE = [
-    (1, 32, 8, 512, 2560, 128, 2048, None, True),       # llama3-8b, minitron-8b
-    (1, 32, 8, 1024, 4608, 80, 3584, 4096, True),       # h2o-danube-1.8b
-    (1, 48, 8, 512, 2560, 128, 2048, None, True),       # nemotron-4-15b
-    (1, 64, 8, 512, 2560, 128, 2048, None, True),       # llama3-70b's heads
-    (1, 32, 8, 1024, 10240, 128, 9216, 8192, True),     # llama3-8b, long context
-]
 DECODE_SWEEP = [                          # the sweep of tests/test_kernels.py:42-46
     (1, 4, 4, 64, 32, 64, 0),
     (2, 8, 2, 256, 64, 100, 0),
@@ -174,17 +159,6 @@ DECODE_MAIN = [
 # the fixed cost of a call that does almost no work: one kv head, W = 64,
 # one valid slot
 DECODE_FLOOR = [(1, 8, 1, 64, 128, 1, 0)]
-# the dense archs' step at the end of turn 2 (danube's ring of 4,096 full
-# and wrapped: its oldest position, 520, in slot 520), llama3-70b's heads,
-# and the long-context step at position 10,240: 8,192 slots, all valid,
-# wrapped
-DECODE_DENSE = [
-    (1, 32, 8, 4096, 128, 2568, 0),       # llama3-8b, minitron-8b
-    (1, 32, 8, 4096, 80, 4096, 520),      # h2o-danube-1.8b
-    (1, 48, 8, 4096, 128, 2568, 0),       # nemotron-4-15b
-    (1, 64, 8, 4096, 128, 2568, 0),       # llama3-70b's heads
-    (1, 32, 8, 8192, 128, 8192, 2049),    # llama3-8b, long context
-]
 DECODE_GRIFFIN = [                        # recurrentgemma-2b's heads, a ring of 2,048
     (1, 10, 1, 2048, 256, 2048, 1500),    # full, wrapped: the window at pos > 2048
     (1, 10, 1, 2048, 256, 700, 1800),     # fewer valid slots, across the wrap

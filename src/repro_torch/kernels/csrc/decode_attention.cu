@@ -20,7 +20,10 @@
 // its unnormalised acc to the block that merges that element; after one
 // cluster barrier each block writes its share of the outputs,
 //   M = max m_c,  out = sum_c acc_c e^(m_c - M) / sum_c l_c e^(m_c - M).
-// There is no scratch in device memory and no second launch.
+// There is no scratch in device memory and no second launch. A cluster lies
+// in one GPC, so the card holds fewer clusters of 16 blocks than its SMs
+// suggest; decode_attention_occupancy tells the host how many clusters of a
+// plan it runs at once, launching nothing.
 //
 // Semantics, the reference's on every input:
 //  * masked slots score -1e30; a 16-slot tile with no valid slot is skipped
@@ -865,10 +868,12 @@ __global__ void __launch_bounds__(kWarps * 32) decode_mma_kernel(const Params p)
 
 long long lmax(long long a, long long b) { return a > b ? a : b; }
 
-// Launches `kernel` with the grid's x (the chunks) as one cluster.
+// Launches `kernel` with the grid's x (the chunks) as one cluster; with
+// `occ`, launches nothing and sets occ[0] to the grid's clusters and occ[1]
+// to how many of them the device holds at once.
 template <typename Kernel>
 cudaError_t launch_cluster(Kernel kernel, const Params& p, dim3 grid, int threads,
-                           long long smem, int* allowed, cudaStream_t stream) {
+                           long long smem, int* allowed, cudaStream_t stream, int* occ) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, (int)smem, allowed);
   if (err != cudaSuccess) return err;
@@ -884,20 +889,24 @@ cudaError_t launch_cluster(Kernel kernel, const Params& p, dim3 grid, int thread
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (occ) {
+    occ[0] = (int)(grid.y * grid.z);
+    return cudaOccupancyMaxActiveClusters(&occ[1], (const void*)kernel, &cfg);
+  }
   err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_simt(const Params& p, int B, cudaStream_t stream) {
+cudaError_t launch_simt(const Params& p, int B, cudaStream_t stream, int* occ) {
   static int allowed[kMaxDevices];
   return launch_cluster(decode_partial_kernel<T>, p, dim3(p.nsplit, p.KV, B), kSimtThreads,
-                        simt_smem_bytes(p.G, p.hd, p.nsplit), allowed, stream);
+                        simt_smem_bytes(p.G, p.hd, p.nsplit), allowed, stream, occ);
 }
 
 template <int HDP>
-cudaError_t launch_mma(Params& p, int B, cudaStream_t stream) {
+cudaError_t launch_mma(Params& p, int B, cudaStream_t stream, int* occ) {
   static int allowed[kMaxDevices];
   const int tiles = p.chunk / kBK;
   p.nwarps = tiles < kWarps ? tiles : kWarps;
@@ -913,31 +922,25 @@ cudaError_t launch_mma(Params& p, int B, cudaStream_t stream) {
   while (p.nstages > 1 && head + p.nwarps * p.nstages * stage > kMaxSmem) --p.nstages;
   const long long smem = head + lmax(p.nwarps * p.nstages * stage, tail);
   return launch_cluster(decode_mma_kernel<HDP>, p, dim3(p.nsplit, p.KV * p.ngroups, B),
-                        p.nwarps * 32, smem, allowed, stream);
+                        p.nwarps * 32, smem, allowed, stream, occ);
 }
 
 // A stride allows 16-byte copies if it is a positive multiple of 8 elements
 // or its dimension has one entry (then it is never applied).
 bool aligned8(long long stride, int n) { return n == 1 || (stride > 0 && stride % 8 == 0); }
 
-}  // namespace
-
-extern "C" {
-
 // dtype: 0 fp32, 1 bf16. W in nsplit chunks of chunk slots (a multiple of
 // kBK; chunk * nsplit >= W), one cluster of nsplit <= kMaxCluster blocks.
-// Returns a cudaError_t (0 = launched; cudaErrorInvalidValue also when a
-// block would need more shared memory than it has).
-int decode_attention_launch(int dtype, const void* q, const void* k, const void* v,
-                            const int* valid, void* o, int B, int H, int KV, int W, int hd,
-                            int nsplit, int chunk, long long q_sb, long long q_sh,
-                            long long k_sb, long long k_sh, long long k_sw,
-                            long long v_sb, long long v_sh, long long v_sw,
-                            long long o_sb, long long o_sh, void* stream) {
+// With `occ`, launches nothing and gives the plan's occupancy (launch_cluster).
+cudaError_t run(int dtype, const void* q, const void* k, const void* v, const int* valid,
+                void* o, int B, int H, int KV, int W, int hd, int nsplit, int chunk,
+                long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+                long long k_sw, long long v_sb, long long v_sh, long long v_sw,
+                long long o_sb, long long o_sh, cudaStream_t st, int* occ) {
   if (B <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || W <= 0 || nsplit <= 0 ||
       nsplit > kMaxCluster || chunk <= 0 || chunk % kBK != 0 ||
       (long long)chunk * nsplit < W)
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.valid = valid; p.o = o;
   p.KV = KV; p.G = H / KV; p.W = W; p.hd = hd; p.nsplit = nsplit; p.chunk = chunk;
@@ -947,18 +950,45 @@ int decode_attention_launch(int dtype, const void* q, const void* k, const void*
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sw = v_sw;
   p.o_sb = o_sb; p.o_sh = o_sh;
   p.scale = (float)(1.0 / sqrt((double)hd));   // hd ** -0.5, as the reference
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_simt<float>(p, B, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (hd > 256) return (int)launch_simt<__nv_bfloat16>(p, B, st);
+  if (dtype == 0) return launch_simt<float>(p, B, st, occ);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (hd > 256) return launch_simt<__nv_bfloat16>(p, B, st, occ);
   p.vec_q = hd % 8 == 0 && (uintptr_t)q % 16 == 0 && aligned8(q_sb, B) && aligned8(q_sh, H);
   p.vec_kv = hd % 8 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0 &&
              aligned8(k_sb, B) && aligned8(k_sh, KV) && aligned8(k_sw, W) &&
              aligned8(v_sb, B) && aligned8(v_sh, KV) && aligned8(v_sw, W);
   p.vec_valid = (uintptr_t)valid % 16 == 0;
-  if (hd <= 64) return (int)launch_mma<64>(p, B, st);
-  if (hd <= 128) return (int)launch_mma<128>(p, B, st);
-  return (int)launch_mma<256>(p, B, st);
+  if (hd <= 64) return launch_mma<64>(p, B, st, occ);
+  if (hd <= 128) return launch_mma<128>(p, B, st, occ);
+  return launch_mma<256>(p, B, st, occ);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the call (see run). Returns a cudaError_t (0 = launched;
+// cudaErrorInvalidValue also when a block would need more shared memory
+// than it has).
+int decode_attention_launch(int dtype, const void* q, const void* k, const void* v,
+                            const int* valid, void* o, int B, int H, int KV, int W, int hd,
+                            int nsplit, int chunk, long long q_sb, long long q_sh,
+                            long long k_sb, long long k_sh, long long k_sw,
+                            long long v_sb, long long v_sh, long long v_sw,
+                            long long o_sb, long long o_sh, void* stream) {
+  return (int)run(dtype, q, k, v, valid, o, B, H, KV, W, hd, nsplit, chunk, q_sb, q_sh,
+                  k_sb, k_sh, k_sw, v_sb, v_sh, v_sw, o_sb, o_sh,
+                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The occupancy of a plan on the current device, launching nothing:
+// occ[0] the clusters of the call's grid, occ[1] how many clusters of its
+// kernel, block and shared memory size the device holds at once (a cluster
+// lies in one GPC). Returns a cudaError_t.
+int decode_attention_occupancy(int dtype, int B, int H, int KV, int W, int hd, int nsplit,
+                               int chunk, int* occ) {
+  return (int)run(dtype, nullptr, nullptr, nullptr, nullptr, nullptr, B, H, KV, W, hd,
+                  nsplit, chunk, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, nullptr, occ);
 }
 
 }  // extern "C"

@@ -14,8 +14,13 @@ at batch 1, so ``W`` is split into chunks (flash-decoding), one block each;
 the blocks of a ``(batch, kv_head)`` form one thread-block cluster, keep
 their chunk's ``(m, l, acc)`` in shared memory and merge through each
 other's shared memory in the same launch, so the call needs no scratch.
-``split_plan`` picks the chunks. bf16 runs both products on the tensor
-cores (``decode_mma_kernel``); fp32 runs on the CUDA cores. With no valid
+``split_plan`` picks the chunks. A cluster lies in one GPC, so the card
+holds fewer clusters of 16 blocks than its SMs suggest; ``occupancy`` asks
+the kernel's library how many clusters of a plan run at once (launching
+nothing), and ``chip_smoke.py``'s plan sweep logs it beside each plan's
+time. ``split_plan`` does not consult it yet (ROADMAP Queue 2 item d).
+bf16 runs both products on the tensor cores (``decode_mma_kernel``); fp32
+runs on the CUDA cores. With no valid
 slot at all the result is the mean of V over all ``W`` slots, as the
 reference gives.
 
@@ -25,6 +30,8 @@ counts kernel launches (one per call, which runs both the chunks and the
 merge).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -48,6 +55,21 @@ def split_plan(B: int, KV: int, W: int, num_sms: int):
     want = -(-BLOCKS_PER_SM * num_sms // (B * KV))
     per_split = -(-tiles // max(1, min(MAX_SPLITS, tiles // MIN_TILES, want)))
     return -(-tiles // per_split), per_split * TILE
+
+
+def occupancy(q, k_cache, nsplit: int, chunk: int):
+    """(clusters of the call's grid, clusters the card holds at once) for
+    the plan ``nsplit`` x ``chunk`` of the call on ``q`` (B,H,hd) and
+    ``k_cache`` (B,KV,W,hd), on their card; launches nothing."""
+    B, H, hd = q.shape
+    KV, W = k_cache.shape[1], k_cache.shape[2]
+    occ = (ctypes.c_int * 2)()
+    err = build.on_device(q.device, lambda _: build.load("decode_attention")
+                          .decode_attention_occupancy(DTYPES[q.dtype], B, H, KV, W, hd,
+                                                      nsplit, chunk, occ))
+    if err != 0:
+        raise RuntimeError(f"decode_attention occupancy query failed: CUDA error {err}")
+    return occ[0], occ[1]
 
 
 def _check(q, k_cache, v_cache, valid):

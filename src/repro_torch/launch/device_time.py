@@ -16,6 +16,15 @@ session records every kernel it launched (``profiler_ready``), and a
 window in which the profiler recorded nothing, not even the spin kernels,
 is a session that failed, not a window: it is logged and tried again after
 a pause, ten times at most, without counting as one of the ten.
+
+A session can also miss its start: on an H100 the windows of a row lost,
+window after window until the row failed, every device operation up to and
+including the first kernel of the first call (the SDPA windows lost the
+first kernel of their first call, not their last). A short spin, a
+synchronize and a pause ahead of the session's first call did not help:
+the pause's spin was lost too. So each session opens with ``LEAD_CALLS``
+calls that are not counted (on the warm-up's inputs), and the window is
+what ran between the session's last two spin kernels.
 """
 from __future__ import annotations
 
@@ -27,22 +36,25 @@ SPIN_CYCLES = 10_000_000                # torch.cuda._sleep: about 5 ms
 WINDOWS = 10                            # windows that are not whole, then fail
 SESSIONS = 10                           # sessions that record nothing, then fail
 PAUSE_S = 0.5
+LEAD_CALLS = 3                          # calls ahead of the window, not counted
 _ready = False
 
 
 def _device_events(prof):
-    """(spin kernels, {name: [us, ...]} of every other device operation)."""
+    """(spin kernels, {name: [us, ...]} of every other device operation
+    that ran between the last two spin kernels; of all of them if fewer
+    than two spins were recorded)."""
     from torch.autograd import DeviceType
 
-    spins, us = 0, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if "spin_kernel" in e.name:
-            spins += 1
-        else:
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spins = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if "spin_kernel" in e.name)
+    lo, hi = (spins[-2][1], spins[-1][0]) if len(spins) >= 2 else (-1, float("inf"))
+    us = {}
+    for e in events:
+        if "spin_kernel" not in e.name and lo <= e.time_range.start < hi:
             us.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    return spins, us
+    return len(spins), us
 
 
 def profiler_ready(log=print):
@@ -79,8 +91,9 @@ def device_ms(fn, sets, iters: int, log=print):
     device operation in a window of ``iters`` calls on the rotated input
     sets, summed and divided by ``iters``; and by name, (launches in the
     window, ms per call). Each try starts where the last one stopped in the
-    rotation, and the warm-up takes the last three sets, so a try on fewer
-    calls than there are sets finds its inputs as cold as the first."""
+    rotation, and the warm-up and each session's ``LEAD_CALLS`` take the
+    last three sets, so a try on fewer calls than there are sets finds its
+    inputs as cold as the first."""
     from torch.profiler import ProfilerActivity, profile
 
     profiler_ready(log)
@@ -90,6 +103,8 @@ def device_ms(fn, sets, iters: int, log=print):
     windows = sessions = attempt = 0
     while True:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(LEAD_CALLS):
+                fn(*sets[-3:][i % len(sets[-3:])])
             torch.cuda._sleep(SPIN_CYCLES)
             for i in range(iters):
                 fn(*sets[(attempt * iters + i) % len(sets)])

@@ -62,7 +62,8 @@ def profile_steps(tt, params, cfg, cache, pos: int, n: int, gen):
     step), from a whole profiler window (``device_time.device_ms``); the
     recurrence must have run one launch per recurrent layer and step."""
     tries = device_time.WINDOWS + device_time.SESSIONS
-    toks = torch.randint(0, cfg.vocab_size, (tries * n + 1, 1, 1), device="cuda",
+    per_try = n + device_time.LEAD_CALLS
+    toks = torch.randint(0, cfg.vocab_size, (tries * per_try + 1, 1, 1), device="cuda",
                          generator=gen)       # the warm-up step and every try
     state = {"cache": cache, "t": 0}
 

@@ -12,8 +12,6 @@ port against the JAX package). Engines: h2o-danube-1.8b reduced, whose
 turn-2 prompt passes the window of 64, against the JAX engine.
 """
 import dataclasses
-import importlib.util
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,11 +29,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.policies import POLICIES
 from repro_torch.kernels import cases
-from repro_torch.launch import serve
+from repro_torch.launch import serve, shapes
 from repro_torch.models import transformer as tt
 from repro_torch.serving.realexec import RealExecutionEngine
 
-ROOT = Path(__file__).resolve().parents[1]
 NEW_DENSE = ("llama3-8b", "h2o-danube-1.8b", "minitron-8b", "nemotron-4-15b", "llama3-70b")
 TOL = 3e-4
 B, S = 2, 16                        # tests/test_models_smoke.py
@@ -301,28 +298,42 @@ def test_weight_bytes_counts_init_params():
 
 
 # --------------------------------------------------------------------------- #
-# the card's rows: chip_smoke.py computes them from the configs and turns
+# the card's rows: repro_torch.launch.shapes computes them from the configs
+# and turns
 # --------------------------------------------------------------------------- #
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_dense_kernel_rows_follow_the_configs_and_turns():
-    cs = _chip_smoke()
-    flash, decode = cs.dense_shapes(get_config, serve, tt, cases)
-    assert list(flash.values()) == cases.FLASH_DENSE
-    assert list(decode.values()) == cases.DECODE_DENSE
-    assert list(flash) == ["llama3-8b, minitron-8b", "h2o-danube-1.8b", "nemotron-4-15b",
-                           "llama3-70b", "llama3-8b long context"]
-    _, yi = cs.main_path_shapes(get_config("yi-6b"), serve, tt, cases)
-    assert [yi["turn 2"], cs.griffin_decode_shape(get_config("recurrentgemma-2b"), serve,
-                                                  tt, cases)] == cases.DECODE_MAIN
-    # danube's turn 2 passes its window; the long-context step reads a full,
-    # wrapped ring
-    danube = flash["h2o-danube-1.8b"]
-    assert danube[4] > danube[7] == 4096
-    assert decode["llama3-8b long context"][3:6] == (8192, 128, 8192)
+    flash, decode, identity = shapes.dense_shapes()
+    # every call of each conversation, each shape once (llama3-8b's and
+    # minitron-8b's are one), then the long-context phase's
+    calls = ("turn 1", "turn 2", "cold")
+    assert list(flash) == (
+        [f"llama3-8b {c}, minitron-8b {c}" for c in calls]
+        + [f"{arch} {c}" for arch in ("h2o-danube-1.8b", "nemotron-4-15b", "llama3-70b")
+           for c in calls]
+        + [f"llama3-8b long context {c}" for c in ("prefill", "forward", "rows 9216-")])
+    assert list(decode) == ["llama3-8b turn 2, minitron-8b turn 2", "h2o-danube-1.8b turn 2",
+                            "nemotron-4-15b turn 2", "llama3-70b turn 2",
+                            "llama3-8b long context step"]
+    # danube: turn 1 inside the window, the cold prefill past it, its ring
+    # of 4,096 full and wrapped at the last step; G = 6 for nemotron-4-15b
+    assert flash["h2o-danube-1.8b turn 1"] == (1, 32, 8, 3584, 3584, 80, 0, 4096, True)
+    assert flash["h2o-danube-1.8b cold"] == (1, 32, 8, 4608, 4608, 80, 0, 4096, True)
+    assert decode["h2o-danube-1.8b turn 2"] == (1, 32, 8, 4096, 80, 4096, 520)
+    assert flash["nemotron-4-15b turn 2"] == (1, 48, 8, 512, 2560, 128, 2048, None, True)
+    # the long-context step reads a full, wrapped ring of 8,192
+    assert flash["llama3-8b long context prefill"] == (1, 32, 8, 10240, 10240, 128, 0,
+                                                       8192, True)
+    assert decode["llama3-8b long context step"] == (1, 32, 8, 8192, 128, 8192, 2049)
+    # each identity pair: a cold prefill and the hit call on its last rows,
+    # which is itself a row
+    assert len(identity) == 5
+    for cold, first in identity:
+        assert cold[3] == cold[4] > first and cold[6] == 0
+        hit = cold[:3] + (cold[3] - first, cold[4], cold[5], first) + cold[7:]
+        assert cold in flash.values() and hit in flash.values()
+    assert (flash["h2o-danube-1.8b cold"], 3584) in identity
+    # yi-6b's and recurrentgemma-2b's decode shapes are cases.DECODE_MAIN
+    _, yi = shapes.main_path_shapes(get_config("yi-6b"))
+    assert [yi["turn 2"], shapes.griffin_decode_shape(
+        get_config("recurrentgemma-2b"))] == cases.DECODE_MAIN

@@ -16,14 +16,15 @@ from repro_torch.configs import get_config
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.policies import POLICIES
 from repro_torch.kernels import cases, ops
-from repro_torch.launch import serve
+from repro_torch.launch import serve, shapes
 from repro_torch.models.transformer import griffin_layout, init_params
 from repro_torch.serving.realexec import RealExecutionEngine
 
+DENSE_FLASH, DENSE_DECODE, DENSE_IDENTITY = shapes.dense_shapes()
 FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
-               + cases.FLASH_GRIFFIN + cases.FLASH_TILES + cases.FLASH_DENSE)
+               + cases.FLASH_GRIFFIN + cases.FLASH_TILES + list(DENSE_FLASH.values()))
 DECODE_CASES = (cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
-                + cases.DECODE_MAIN + cases.DECODE_FLOOR + cases.DECODE_DENSE)
+                + cases.DECODE_MAIN + cases.DECODE_FLOOR + list(DENSE_DECODE.values()))
 WKV6_CASES = (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
               + cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16)
 RGLRU_CASES = (cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
@@ -52,7 +53,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case,first", cases.FLASH_IDENTITY)
+@pytest.mark.parametrize("case,first", cases.FLASH_IDENTITY + DENSE_IDENTITY)
 def test_flash_hit_rows_equal_cold_rows(cuda, case, first):
     """A cache hit's suffix rows equal the cold prefill's bit for bit in
     bf16: a row's arithmetic does not depend on its block."""
@@ -69,6 +70,25 @@ def test_decode_kernel_matches_plain_on_strided_cache(cuda, dtype, case):
     cases.check_decode(case, dtype, cuda)
     torch.cuda.synchronize()
     assert ops.decode_attention.launches == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", cases.DECODE_MAIN + list(DENSE_DECODE.values()))
+def test_decode_occupancy_counts_the_plans_clusters(cuda, case):
+    """The kernel's occupancy query at the main paths' plans: the grid's
+    clusters (one per kv head and batch row at G <= 16), and at least one
+    cluster of every plan on the card at once; it launches nothing."""
+    from repro_torch.kernels import decode_attention as dmod
+    q, k, _, _ = cases.decode_inputs(case, torch.bfloat16, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = ops.decode_attention.launches
+    for nsplit in (16, 8, 4, 1):
+        chunk = -(-case[3] // (nsplit * dmod.TILE)) * dmod.TILE
+        clusters, at_once = dmod.occupancy(q, k, nsplit, chunk)
+        assert clusters == case[0] * case[2] and at_once >= 1
+    assert dmod.occupancy(q, k, *dmod.split_plan(case[0], case[2], case[3], sms))[0] == \
+        case[0] * case[2]
+    assert ops.decode_attention.launches == n
 
 
 @pytest.mark.gpu
