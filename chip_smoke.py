@@ -11,7 +11,8 @@
    bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
    ragged, empty-band and tile-edge shapes of
    ``repro_torch/kernels/cases.py``, at every shape the yi-6b path gives
-   it and at every call of the dense archs served in steps 10-11 and of
+   it and at every call of the dense and MoE archs served in steps 10-12
+   (the MoE archs' calls are nemotron-4-15b's, held once) and of
    llama3-70b's heads: turn 1, turn 2's suffix, the cold engine's prefill
    and the last decode step of each, the long-context prefill, forward and
    step, and the prefill's last 1,024 rows as a hit's call
@@ -128,7 +129,23 @@
    reads a wrapped ring) with the profiled replay; minitron-8b and
    nemotron-4-15b (squared-ReLU MLPs, not gated; 48/8 heads) without it.
    llama3-70b does not fit the card and runs only as kernel rows.
-11. llama3-8b long-context model phase, full width in bf16, then on the
+11. MoE phases, dbrx-132b (16 experts top-4, d_ff 10,752) then
+   grok-1-314b (8 top-2, d_ff 32,768, tanh gelu), each at every published
+   width with its depth cut to ``serve.FULL_DEPTH`` (8 of 40 and 5 of 64
+   layers: 54.6 and 52.4 GB of bf16 weights), seed 0, TF32 off for the
+   fp32 router product, no profiled replay. (a) One layer's ``moe_ffn`` on
+   a seeded (1,512,6144) bf16 input at capacity factor E/K, where nothing
+   drops (|dropped_frac| <= 1e-6), against ``moe_ffn_ref`` within 2e-2 x
+   max |y_ref|; its drops and times at the published 1.25 and for one
+   token. (b) nemotron-4-15b's conversation at the published capacity:
+   reuse 2,048 / 512, exactly 2·L flash and 2·8·L decode launches, finite
+   logits; each prefill's drops (mean and max over layers), peak memory
+   and times; a cold engine on the same weights, logged and not held to
+   the hit (a hit's suffix prefill drops other assignments than the cold
+   prefill, in the reference too). (c) The same weights at capacity factor
+   E/K: nothing drops, and hit and cold must give the same tokens and
+   last-position logits within step 3's limit.
+12. llama3-8b long-context model phase, full width in bf16, then on the
    same weights in fp32: ``prefill(..., long_context=True)`` of 10,240 tokens with
    ``max_len`` 12,288 into a ring of 8,192 slots, one ``decode_step(...,
    long_context=True)`` on the wrapped ring, held against ``forward(...,
@@ -139,7 +156,7 @@
    attention output to bf16 in other orders (M = 1 against 10,241), which
    moves the logits by about that limit on its own (logged: each bf16 side
    against the fp32 forward); the fp32 run is the sharper check.
-12. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
+13. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
    ``library_device_ms`` and ``library_premasked_device_ms``; decode's,
    wkv6's and the rglru kernels' with ``device_ms``; the fused step's with
    ``plain_device_ms``), the card line, and last
@@ -157,6 +174,7 @@ of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -196,6 +214,7 @@ GRIFFIN_PREFILL = 2560                    # past the 2,048 window: the ring wrap
 # the dense archs (``shapes.DENSE``) whose engine phase profiles a replay of
 # turn 2; the others run without it
 DENSE_PROFILED = ("llama3-8b", "h2o-danube-1.8b")
+MOE_TOKENS = 512                          # tokens of the MoE module check
 
 
 def log(*a):
@@ -471,7 +490,21 @@ def engine_phase(serve, ops, cases, arch="yi-6b", profile=True):
     zero_counts(ops)
     ctx2, r1, r2 = serve.two_turns(cfg, eng, False)
     launches = read_counts(ops)
+    check_two_turns(serve, arch, cfg, eng, ctx2, r1, r2, launches)
+    log(f"{arch} peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
+    _, cold = serve.build_engine(arch, device="cuda", params=eng.params)
+    rc = cold.generate("cold", ctx2, num_new=serve.FULL_TURNS[arch][2])
+    hit_vs_cold(cases, arch, r2, rc)
+    del cold, rc
+    if profile:
+        profile_turn2(serve, arch, eng.params, ctx2)
+    return launches
+
+
+def check_two_turns(serve, arch, cfg, eng, ctx2, r1, r2, launches):
+    """The KV-prefix route's conversation: exact reuse and launch counts,
+    finite logits and ``num_new`` tokens per turn; logs each turn."""
     ctx_len, new_len, num_new, _ = serve.FULL_TURNS[arch]
     L = cfg.num_layers
     if cfg.window_size:
@@ -496,10 +529,12 @@ def engine_phase(serve, ops, cases, arch="yi-6b", profile=True):
             f"decode {num_new} tokens in {r.decode_time_s * 1e3:.3f} ms "
             f"({r.decode_time_s / num_new * 1e3:.3f} ms/token) -> {r.tokens}")
     log(f"{arch} launches on the main path: {launches}")
-    log(f"{arch} peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
-    _, cold = serve.build_engine(arch, device="cuda", params=eng.params)
-    rc = cold.generate("cold", ctx2, num_new=num_new)
+
+def hit_vs_cold(cases, label, r2, rc):
+    """A cold engine's run of the turn-2 prompt against the hit's: the same
+    greedy tokens, last-position logits within the bf16 kernel tolerance
+    scaled to the logits."""
     if rc.reused_tokens != 0:
         raise AssertionError("cold engine hit its empty store")
     # Hit and cold compute the same function on the same weights; they differ
@@ -509,14 +544,125 @@ def engine_phase(serve, ops, cases, arch="yi-6b", profile=True):
     scale = float(rc.last_logits.abs().max())
     tol = cases.TOL[torch.bfloat16] * scale
     err = float((rc.last_logits - r2.last_logits).abs().max())
-    log(f"{arch} hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} "
+    log(f"{label} hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} "
         f"= 2e-2 x max |logit| {scale:.4f}); cold prefill {rc.prefill_time_s * 1e3:.3f} ms "
         f"for {rc.prefill_tokens_computed} tokens; tokens {rc.tokens}")
     if rc.tokens != r2.tokens or not err <= tol:
-        raise AssertionError(f"{arch}: hit path and cold path disagree")
+        raise AssertionError(f"{label}: hit path and cold path disagree")
+
+
+# --------------------------------------------------------------------------- #
+# the MoE archs: the module at full width, the engines at the published and
+# at a no-drop capacity
+# --------------------------------------------------------------------------- #
+
+def recorded_drops(moe, fn):
+    """(fn(), the ``dropped_frac`` of every ``moe_ffn`` call of more than
+    one token that fn made, in order: one per layer and prefill). Stands in
+    for ``moe.moe_ffn`` while fn runs and reads the values after it."""
+    real, drops = moe.moe_ffn, []
+
+    def recording(params, x, cfg):
+        y, aux = real(params, x, cfg)
+        if x.shape[0] * x.shape[1] > 1:
+            drops.append(aux["dropped_frac"])
+        return y, aux
+
+    moe.moe_ffn = recording
+    try:
+        out = fn()
+    finally:
+        moe.moe_ffn = real
+    return out, [float(t) for t in drops]
+
+
+def drop_line(drops) -> str:
+    return f"dropped {sum(drops) / len(drops):.6f} mean, {max(drops):.6f} max over layers"
+
+
+def moe_module_check(moe, tt, cases, cfg, params, nodrop: float):
+    """One layer's ``moe_ffn`` at full width on a seeded (1, MOE_TOKENS, d)
+    bf16 input: at capacity factor ``nodrop`` nothing drops and it must
+    agree with ``moe_ffn_ref`` within 2e-2 x max |y_ref|; then the drops
+    and the times at the published capacity, and of one token."""
+    p = tt.layer_params(params["layers"], 0)["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    at = dataclasses.replace(cfg, moe_capacity_factor=nodrop)
+    with torch.inference_mode():
+        y, aux = moe.moe_ffn(p, x, at)
+        want = moe.moe_ffn_ref(p, x, at)
+        _, pub = moe.moe_ffn(p, x, cfg)
+        ms = rotated_ms(lambda t: moe.moe_ffn(p, t, cfg), [[x]], 5)
+        ms1 = rotated_ms(lambda t: moe.moe_ffn(p, t, cfg), [[x[:, :1]]], 20)
+    dropped = float(aux["dropped_frac"])
+    scale = float(want.float().abs().max())
+    err = float((y.float() - want.float()).abs().max())
+    tol = cases.TOL[torch.bfloat16] * scale
+    log(f"{cfg.name} moe_ffn (1,{MOE_TOKENS},{cfg.d_model}) bf16 at capacity factor "
+        f"{nodrop:g} (C {moe.moe_capacity(at, MOE_TOKENS)}): dropped {dropped:.3e}; vs "
+        f"moe_ffn_ref max |err| {err:.6f} (limit {tol:.6f} = 2e-2 x max |y_ref| "
+        f"{scale:.4f}); at the published {cfg.moe_capacity_factor:g} (C "
+        f"{moe.moe_capacity(cfg, MOE_TOKENS)}): dropped {float(pub['dropped_frac']):.6f}, "
+        f"{ms:.3f} ms per call, one token {ms1:.3f} ms")
+    if not abs(dropped) <= 1e-6 or not err <= tol or not math.isfinite(scale):
+        raise AssertionError(f"{cfg.name}: moe_ffn disagrees with moe_ffn_ref")
+
+
+def moe_phase(serve, ops, cases, tt, moe, arch):
+    """A MoE arch at every published width with its depth cut to
+    ``serve.FULL_DEPTH``, bf16, seed-0 weights: the module check; the
+    two-turn conversation at the published capacity (exact reuse and launch
+    counts, each prefill's drops logged) and a cold engine, logged and not
+    gated (a hit's suffix prefill drops other assignments than a cold
+    prefill, in the reference too); then hit against cold at a capacity
+    where nothing drops, held to the dense archs' rule. Returns the
+    launches of the published-capacity conversation."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the router product must run in fp32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, eng = serve.build_engine(arch, device="cuda")
+    torch.cuda.synchronize()
+    log(f"{arch}: {describe(cfg)}; bfloat16 weights drawn in "
+        f"{time.perf_counter() - t0:.3f} s, peak memory allocated at init "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    L, num_new = cfg.num_layers, serve.FULL_TURNS[arch][2]
+    nodrop = cfg.num_experts / cfg.experts_per_token      # C >= T: nothing drops
+    moe_module_check(moe, tt, cases, cfg, eng.params, nodrop)
+
+    zero_counts(ops)
+    (ctx2, r1, r2), drops = recorded_drops(moe, lambda: serve.two_turns(cfg, eng, False))
+    launches = read_counts(ops)
+    check_two_turns(serve, arch, cfg, eng, ctx2, r1, r2, launches)
+    for i in (1, 2):
+        log(f"{arch} turn {i} prefill at capacity factor {cfg.moe_capacity_factor:g}: "
+            f"{drop_line(drops[(i - 1) * L:i * L])}")
+    log(f"{arch} peak memory allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _, cold = serve.build_engine(arch, device="cuda", params=eng.params)
+    rc, cold_drops = recorded_drops(moe, lambda: cold.generate("cold", ctx2, num_new=num_new))
+    err = float((rc.last_logits - r2.last_logits).abs().max())
+    log(f"{arch} cold engine at capacity factor {cfg.moe_capacity_factor:g} (not held to "
+        f"the hit): prefill {rc.prefill_tokens_computed} tokens in "
+        f"{rc.prefill_time_s * 1e3:.3f} ms, {drop_line(cold_drops)}; tokens {rc.tokens} "
+        f"against the hit's {r2.tokens}; last-position logits max |hit - cold| {err:.6f}")
     del cold, rc
-    if profile:
-        profile_turn2(serve, arch, eng.params, ctx2)
+
+    _, hit = serve.build_engine(arch, device="cuda", params=eng.params,
+                                moe_capacity_factor=nodrop)
+    (ctx2, _, n2), hit_drops = recorded_drops(
+        moe, lambda: serve.two_turns(hit.cfg, hit, False))
+    _, cold = serve.build_engine(arch, device="cuda", params=eng.params,
+                                 moe_capacity_factor=nodrop)
+    nc, cold_drops = recorded_drops(moe, lambda: cold.generate("cold", ctx2, num_new=num_new))
+    log(f"{arch} at capacity factor E/K = {nodrop:g}: hit prefills "
+        f"{drop_line(hit_drops)}, cold {drop_line(cold_drops)}; turn 2 prefill "
+        f"{n2.prefill_time_s * 1e3:.3f} ms, decode {n2.decode_time_s / num_new * 1e3:.3f} "
+        f"ms/token")
+    if max(abs(d) for d in hit_drops + cold_drops) > 1e-6:
+        raise AssertionError(f"{arch}: assignments dropped at capacity factor {nodrop:g}")
+    hit_vs_cold(cases, f"{arch} at capacity factor E/K = {nodrop:g}", n2, nc)
     return launches
 
 
@@ -894,11 +1040,16 @@ def griffin_model_phase(ops, tt, cfg):
 def describe(cfg) -> str:
     if cfg.family == "ssm":
         mixer = f"{cfg.num_rwkv_heads} wkv heads of {cfg.rwkv_head_dim}"
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "moe"):
         mlp = "gated" if cfg.gated_mlp else "plain"
+        if cfg.family == "moe":
+            mlp += (f" experts, {cfg.num_experts} top-{cfg.experts_per_token}, capacity "
+                    f"factor {cfg.moe_capacity_factor:g}")
+        else:
+            mlp += " MLP"
         mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, window "
                  f"{cfg.window_size}, rope theta {cfg.rope_theta:g}, {cfg.activation} "
-                 f"{mlp} MLP")
+                 f"{mlp}")
     else:
         mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, rnn "
                  f"{cfg.rnn_width}, conv {cfg.conv_width}, window {cfg.local_window}")
@@ -1005,6 +1156,7 @@ def main():
     from repro_torch.kernels import build, cases, ops, ref
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.launch import serve, shapes
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tt
 
     t_start = time.perf_counter()
@@ -1074,6 +1226,11 @@ def main():
         by_path[arch] = engine_phase(serve, ops, cases, arch,
                                      profile=arch in DENSE_PROFILED)
         log(f"{arch} engine phase: {time.perf_counter() - t0:.3f} s, peak memory "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for arch in shapes.MOE:
+        t0 = time.perf_counter()
+        by_path[arch] = moe_phase(serve, ops, cases, tt, moe, arch)
+        log(f"{arch} MoE phase: {time.perf_counter() - t0:.3f} s, peak memory "
             f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()

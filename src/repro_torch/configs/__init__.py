@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config("yi-6b")`` etc.
 
 The dense family (yi-6b, llama3-8b, llama3-70b, h2o-danube-1.8b,
-minitron-8b, nemotron-4-15b), rwkv6-1.6b (``ssm``) and recurrentgemma-2b
-(``hybrid``). The rest of the reference's registry (the moe, vlm and encdec
-archs) arrives with the slices that port their families.
+minitron-8b, nemotron-4-15b), the moe family (dbrx-132b, grok-1-314b),
+rwkv6-1.6b (``ssm``) and recurrentgemma-2b (``hybrid``). The rest of the
+reference's registry (the vlm and encdec archs) arrives with the slices
+that port their families.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ _ARCH_MODULES = {
     "minitron-8b": "minitron_8b",
     "nemotron-4-15b": "nemotron_4_15b",
     "yi-6b": "yi_6b",
+    "dbrx-132b": "dbrx_132b",
+    "grok-1-314b": "grok_1_314b",
     # the paper's own evaluation models
     "llama3-70b": "llama3_70b",
     "llama3-8b": "llama3_8b",

@@ -1,9 +1,10 @@
 """Model architecture config (copy of ``repro.configs.base.ModelConfig``).
 
-Only the fields the dense, RWKV6 and Griffin serving paths and the
-long-context mode read are kept (the MoE, enc-dec and VLM fields arrive
-with their families); ``reduced()`` produces the same smoke-test variant as
-the reference so that tests can build matching configs on both sides.
+Only the fields the dense, MoE, RWKV6 and Griffin serving paths and the
+long-context mode read are kept (the enc-dec and VLM fields arrive with
+their families; ``tie_embeddings`` is read by no model code of the
+reference); ``reduced()`` produces the same smoke-test variant as the
+reference so that tests can build matching configs on both sides.
 """
 from __future__ import annotations
 
@@ -40,6 +41,11 @@ class ModelConfig:
     window_size: Optional[int] = None       # sliding window (SWA archs)
     long_context_window: int = 8192         # window used in long_500k mode
 
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+
     # hybrid (Griffin / RecurrentGemma)
     griffin: bool = False
     rnn_width: int = 0
@@ -73,7 +79,8 @@ class ModelConfig:
             return 0
         return self.num_layers * self.num_kv_heads * self.head_dim * 2 * 2
 
-    def reduced(self, num_layers: int = 2, d_model: int = 256) -> "ModelConfig":
+    def reduced(self, num_layers: int = 2, d_model: int = 256,
+                max_experts: int = 4) -> "ModelConfig":
         """Smoke-test variant: same family/feature-set, tiny dims."""
         heads = 0 if self.attn_free else max(2, min(4, self.num_heads))
         head_dim = d_model // max(heads, 4)
@@ -91,5 +98,8 @@ class ModelConfig:
             local_window=32,
             rnn_width=d_model if self.griffin else 0,
             rwkv_head_dim=32,
+            num_experts=min(self.num_experts, max_experts) if self.num_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2)
+            if self.experts_per_token else 0,
         )
         return dataclasses.replace(self, **changes)

@@ -1,0 +1,19 @@
+"""dbrx-132b — fine-grained MoE, 16 experts top-4. [hf:databricks/dbrx-base]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b",
+    family="moe",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=10752,
+    vocab_size=100352,
+    activation="silu",
+    gated_mlp=True,
+    num_experts=16,
+    experts_per_token=4,
+    source="hf:databricks/dbrx-base",
+)

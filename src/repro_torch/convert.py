@@ -8,10 +8,15 @@ stacked leading-``L`` layout and the ``x @ w`` orientation are kept, so both
 packages compute the same function on the same weights.
 
 Leaves go to ``dtype``, except RWKV6's ``FP32_LEAVES`` (``mu``,
-``decay_base``, ``u``, ``mu_k``, ``mu_r``) and Griffin's (``ba``, ``bx``,
-``lam``), which the reference keeps in fp32 whatever the model's dtype:
-rounding ``decay_base`` (about -4.5) to bf16 would move it by up to 0.016
-and every decay ``exp(-exp(.))`` with it.
+``decay_base``, ``u``, ``mu_k``, ``mu_r``), Griffin's (``ba``, ``bx``,
+``lam``) and the MoE ``router``, which the reference keeps in fp32 whatever
+the model's dtype: rounding ``decay_base`` (about -4.5) to bf16 would move
+it by up to 0.016 and every decay ``exp(-exp(.))`` with it, and a bf16
+router would change which experts a token goes to.
+
+A MoE (``moe``) pytree is a dense one whose layers hold ``moe``
+(``router``, ``w_up``, ``w_gate``, ``w_down``, the experts on a leading
+``E`` axis) in place of ``mlp``.
 
 A Griffin (``hybrid``) pytree holds ``units`` and, when ``num_layers`` is
 not a multiple of 3, ``tail`` instead of ``layers``. Its ``units`` stack may
@@ -23,10 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import griffin, rwkv6
+from repro_torch.models import griffin, moe, rwkv6
 from repro_torch.models.transformer import PORTED_FAMILIES, griffin_layout
 
-FP32_LEAVES = rwkv6.FP32_LEAVES + griffin.FP32_LEAVES
+FP32_LEAVES = rwkv6.FP32_LEAVES + griffin.FP32_LEAVES + moe.FP32_LEAVES
 
 
 def _to_torch(tree, device, dtype):
@@ -50,8 +55,8 @@ def _stack_len(tree) -> int:
 
 def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
                     dtype=torch.float32):
-    """Convert a dense-, ssm- or hybrid-family parameter pytree (numpy
-    leaves)."""
+    """Convert a dense-, moe-, ssm- or hybrid-family parameter pytree
+    (numpy leaves)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.family!r} parameters are not ported yet")
     expected = {"embed", "final_ln", "unembed"}

@@ -3,7 +3,7 @@ prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
 
     # full width in bf16 on the card (random weights from seed 0); --arch
     # also takes llama3-8b, h2o-danube-1.8b, minitron-8b, nemotron-4-15b,
-    # rwkv6-1.6b and recurrentgemma-2b
+    # dbrx-132b, grok-1-314b, rwkv6-1.6b and recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b
 
     # the reference's reduced demo (2 layers, d_model 128, fp32) on the CPU
@@ -17,11 +17,17 @@ recurrentgemma-2b (whose uncached tokens are fed one at a time, as the
 reference does). The reduced demo keeps the reference's 2 layers for every
 arch, which for recurrentgemma-2b is 0 units and 2 tail recurrent layers.
 llama3-70b runs only reduced: its bf16 weights do not fit one 80 GB card.
-The simulation modes of ``repro.launch.serve`` are not ported.
+The two MoE archs do not fit it at their published depth either (dbrx-132b
+263.2 GB of bf16 weights at 40 layers, grok-1-314b 633.0 GB at 64): at full
+width they are served at every published width with the depth cut to
+``FULL_DEPTH`` layers (8 and 5: 54.6 and 52.4 GB), which ``build_engine``
+logs; ``--reduced`` keeps the reference's 2 layers. The simulation modes of
+``repro.launch.serve`` are not ported.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,25 +46,37 @@ SEED = 0        # weights (torch.Generator) and prompts (numpy)
 # h2o-danube-1.8b's ring is min(8192, window 4096) slots: turn 2 reuses the
 # 3,584 context tokens, which fit it, and its prompt of 4,608 is longer than
 # the window, so the window masks keys in the suffix prefill and the decode
-# runs over a wrapped ring.
+# runs over a wrapped ring. The MoE archs have nemotron-4-15b's attention
+# (48/8 heads of 128, d_model 6144) and take its conversation.
 FULL_TURNS = {"yi-6b": (2048, 504, 8, 4096),
               "llama3-8b": (2048, 504, 8, 4096),
               "minitron-8b": (2048, 504, 8, 4096),
               "nemotron-4-15b": (2048, 504, 8, 4096),
+              "dbrx-132b": (2048, 504, 8, 4096),
+              "grok-1-314b": (2048, 504, 8, 4096),
               "h2o-danube-1.8b": (3584, 1016, 8, 8192),
               "rwkv6-1.6b": (512, 56, 8, 4096),
               "recurrentgemma-2b": (512, 56, 8, 1024)}
 REDUCED_TURNS = (24, 8, 4, 128)
 CARD_BYTES = 80e9               # one H100's device memory
+# layers served at full width where the published depth does not fit the
+# card: the weights, plus at init the layer being drawn and one fp32 draw
+# of an expert tensor, stay under CARD_BYTES
+FULL_DEPTH = {"dbrx-132b": 8, "grok-1-314b": 5}
 
 
 def weight_bytes(cfg, dtype=torch.bfloat16) -> int:
-    """Bytes of a dense config's weights as ``init_params`` lays them out."""
+    """Bytes of a dense or MoE config's weights as ``init_params`` lays
+    them out (a MoE layer's ``E`` experts, and its router in fp32)."""
     d, hd = cfg.d_model, cfg.head_dim
     attn = d * (cfg.num_heads + cfg.num_kv_heads) * hd * 2
     mlp = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    router = 0
+    if cfg.family == "moe":
+        mlp *= cfg.num_experts
+        router = cfg.num_layers * d * cfg.num_experts * 4
     n = 2 * cfg.padded_vocab * d + d + cfg.num_layers * (attn + mlp + 2 * d)
-    return n * torch.finfo(dtype).bits // 8
+    return n * torch.finfo(dtype).bits // 8 + router
 
 
 def turns(arch: str, reduced: bool):
@@ -73,17 +91,28 @@ def turns(arch: str, reduced: bool):
 
 
 def build_engine(arch: str, *, device=None, reduced: bool = False,
-                 params=None):
-    """(cfg, engine) for ``arch``: full width in bf16 or the reduced demo
-    config in fp32, weights drawn from ``torch.Generator`` seed ``SEED``
-    unless ``params`` are given (an engine over the same weights)."""
+                 params=None, moe_capacity_factor=None):
+    """(cfg, engine) for ``arch``: full width in bf16, the depth cut to
+    ``FULL_DEPTH`` where it has an entry (logged when the weights are
+    drawn), or the reduced demo config in fp32; weights drawn from
+    ``torch.Generator`` seed ``SEED`` unless ``params`` are given (an engine
+    over the same weights). ``moe_capacity_factor`` replaces the config's."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = full = get_config(arch)
     if reduced:
         cfg = cfg.reduced(num_layers=2, d_model=128)
+    elif arch in FULL_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=FULL_DEPTH[arch])
+    if moe_capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=moe_capacity_factor)
     dtype = torch.float32 if reduced else torch.bfloat16
     max_len = turns(arch, reduced)[3]
     if params is None:
+        if cfg.num_layers != full.num_layers and not reduced:
+            print(f"{arch}: published depth {full.num_layers} layers "
+                  f"({weight_bytes(full) / 1e9:.1f} GB of bf16 weights) does not fit one "
+                  f"{CARD_BYTES / 1e9:.0f} GB card; serving {cfg.num_layers} layers "
+                  f"({weight_bytes(cfg) / 1e9:.1f} GB) at every published width")
         gen = torch.Generator(device=dev).manual_seed(SEED)
         params = init_params(gen, cfg, dtype)
     store = KVStore(64e9, POLICIES["lcs"], max(cfg.kv_bytes_per_token, 1))

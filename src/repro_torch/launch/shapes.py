@@ -16,6 +16,9 @@ from repro_torch.models import transformer as tt
 
 # the dense archs served at full width after yi-6b and the recurrent ones
 DENSE = ("llama3-8b", "h2o-danube-1.8b", "minitron-8b", "nemotron-4-15b")
+# the MoE archs, served at full width with the depth cut: their attention is
+# nemotron-4-15b's and so are their calls
+MOE = ("dbrx-132b", "grok-1-314b")
 # archs whose weights do not fit the card: their heads run as kernel rows
 # at the conversation of the arch named
 HEADS_ONLY = {"llama3-70b": "llama3-8b"}
@@ -81,14 +84,15 @@ def long_context_shapes(cfg):
 
 
 def dense_shapes():
-    """The calls of every dense arch after yi-6b (llama3-70b's heads at
-    llama3-8b's turns) and of the long-context phase: ``(flash, decode,
+    """The calls of every dense and MoE arch after yi-6b (llama3-70b's heads
+    at llama3-8b's turns) and of the long-context phase: ``(flash, decode,
     identity)``, flash and decode ``{label: case}`` with each shape once and
-    its label naming every call that gives it, identity the pairs of each
-    arch's cold prefill with its turn-2 hit and of the long-context prefill
-    with its last ``LONG_ROWS`` rows."""
+    its label naming every call that gives it (the MoE archs' are
+    nemotron-4-15b's), identity the pairs of each arch's cold prefill with
+    its turn-2 hit and of the long-context prefill with its last
+    ``LONG_ROWS`` rows."""
     flash, decode, identity = {}, {}, []
-    for arch in DENSE + tuple(HEADS_ONLY):
+    for arch in DENSE + MOE + tuple(HEADS_ONLY):
         conversation = HEADS_ONLY.get(arch)
         f, d = main_path_shapes(get_config(arch), conversation)
         for label, case in f.items():

@@ -45,7 +45,7 @@ def normal_init(generator, shape, scale: float, dtype):
     """Normal draw in fp32 on ``generator.device``, times ``scale``."""
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)        # in place: one fp32 draw at a time
 
 
 def uniform_init(generator, shape):

@@ -1,9 +1,9 @@
-"""Dense, RWKV6 (``ssm``) and Griffin (``hybrid``) families: port of those
-branches of ``repro/models/transformer.py``.
+"""Dense, MoE, RWKV6 (``ssm``) and Griffin (``hybrid``) families: port of
+those branches of ``repro/models/transformer.py``.
 
 Public API (plain functions over a dict of parameters):
     init_params(generator, cfg, dtype)                      -> params
-    forward(params, cfg, batch, long_context)               -> logits
+    forward(params, cfg, batch, long_context, with_aux)     -> logits[, aux]
     init_cache(cfg, batch, max_len, dtype, device, long_context) -> cache
     prefill(params, cfg, batch, max_len, ...)               -> (logits, cache)
     decode_step(params, cfg, cache, tokens, pos, ...)       -> (logits, cache)
@@ -35,6 +35,12 @@ way: ``units`` holds each unit's two recurrent states (``rec1_h``,
 and ``conv``. The local attention's window is ``cfg.local_window``, not
 ``cfg.window_size``. Like RWKV6, its ``prefill`` takes no stored prefix.
 
+A MoE layer holds ``moe`` (``repro_torch.models.moe``) where a dense one
+holds ``mlp``; everything else of the family is the dense code: the same
+caches, prefill (with a stored KV prefix) and decode. ``forward(...,
+with_aux=True)`` also returns the mean over layers of each MoE aux value,
+as the reference's does (an empty dict for the other families).
+
 The long-context mode (``long_context=True``, the reference's ``long_500k``
 input shape) gives dense self-attention the window ``attn_window`` names:
 ``cfg.long_context_window``, or the smaller of that and ``cfg.window_size``
@@ -43,7 +49,7 @@ slots. The Griffin branches keep ``cfg.local_window`` and the RWKV6 branches
 ignore the flag, as in the reference. The serving engine takes no such
 option, since the reference's takes none.
 
-Not ported yet: the moe, vlm and encdec families, which raise
+Not ported yet: the vlm and encdec families, which raise
 ``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
@@ -54,13 +60,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin as gr
+from repro_torch.models import moe
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (apply_rope, attention, decode_attend,
                                        dense_init, init_rmsnorm, mlp,
                                        normal_init, rmsnorm)
 
 Params = Dict[str, Any]
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig):
@@ -110,7 +117,7 @@ def layer_params(stacked, i: int):
 def _stacked_init(L: int, init_layer):
     """``L`` draws of ``init_layer()`` stacked on a leading axis, copied in
     one layer at a time so that init never holds more than the stack and
-    one layer."""
+    the layer being drawn."""
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
@@ -127,6 +134,7 @@ def _stacked_init(L: int, init_layer):
     out = alloc(layer)
     for i in range(L):
         put(out, layer if i == 0 else init_layer(), i)
+        layer = None                # layer 0 is in the stack: let it go
     return out
 
 
@@ -148,9 +156,17 @@ def _rope_qk(cfg: ModelConfig, q, k, positions):
             apply_rope(k, positions, cfg.rope_theta))
 
 
+def _ffn(p, cfg: ModelConfig, h):
+    """The layer's FFN on its normed input: (y, aux), aux empty for an MLP."""
+    if "moe" in p:
+        return moe.moe_ffn(p["moe"], h, cfg)
+    return mlp(p["mlp"], h, cfg), {}
+
+
 def _attn_layer_fwd(p, cfg: ModelConfig, x, *, window, q_offset=0,
-                    prefix_kv=None, return_kv=False):
-    """Residual attention sub-block + FFN sub-block (full sequence)."""
+                    prefix_kv=None, return_kv=False, auxs=None):
+    """Residual attention sub-block + FFN sub-block (full sequence). A MoE
+    layer's aux dict is appended to ``auxs`` where one is given."""
     B, S, _ = x.shape
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(p["attn"], cfg, h)
@@ -161,7 +177,10 @@ def _attn_layer_fwd(p, cfg: ModelConfig, x, *, window, q_offset=0,
         v = torch.cat([prefix_kv[1], v], dim=1)
     o = attention(q, k, v, q_offset=q_offset, window=window)
     x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
-    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    y, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    x = x + y
+    if auxs is not None:
+        auxs.append(aux)
     if return_kv:
         return x, (k, v)
     return x
@@ -182,7 +201,7 @@ def _attn_layer_decode(p, cfg: ModelConfig, x_t, k_cache, v_cache, pos: int, *,
     kpos = ring_kpos(W, pos, x_t.device)
     o = decode_attend(q, k_cache, v_cache, kpos, pos, window=window)
     x_t = x_t + o.reshape(B, 1, -1) @ p["attn"]["wo"]
-    return x_t + mlp(p["mlp"], rmsnorm(p["ln2"], x_t, cfg.norm_eps), cfg)
+    return x_t + _ffn(p, cfg, rmsnorm(p["ln2"], x_t, cfg.norm_eps))[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -273,9 +292,10 @@ def _init_mlp(generator, cfg: ModelConfig, dtype):
 
 
 def _init_attn_layer(generator, cfg: ModelConfig, dtype):
+    """A dense or MoE layer (a Griffin unit's attention layer is dense)."""
     d = cfg.d_model
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    p = {
         "ln1": init_rmsnorm(d, dtype, generator.device),
         "attn": {
             "wq": dense_init(generator, d, H * hd, dtype),
@@ -284,8 +304,12 @@ def _init_attn_layer(generator, cfg: ModelConfig, dtype):
             "wo": dense_init(generator, H * hd, d, dtype),
         },
         "ln2": init_rmsnorm(d, dtype, generator.device),
-        "mlp": _init_mlp(generator, cfg, dtype),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe.init_moe(generator, cfg, dtype)
+    else:
+        p["mlp"] = _init_mlp(generator, cfg, dtype)
+    return p
 
 
 def _init_rec_layer(generator, cfg: ModelConfig, dtype):
@@ -307,8 +331,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     ``generator`` on ``generator.device``. The draws differ from
     ``jax.random``; to compare with the JAX package, convert its weights
     with ``repro_torch.convert.params_from_jax`` instead. RWKV6's
-    ``rw.FP32_LEAVES`` and Griffin's ``gr.FP32_LEAVES`` are fp32 whatever
-    ``dtype`` is, as in the reference."""
+    ``rw.FP32_LEAVES``, Griffin's ``gr.FP32_LEAVES`` and the MoE router are
+    fp32 whatever ``dtype`` is, as in the reference."""
     _require_ported(cfg)
     V, d = cfg.padded_vocab, cfg.d_model
     p = {
@@ -331,10 +355,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 # full-sequence forward
 # --------------------------------------------------------------------------- #
 
-def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False):
-    """Full-sequence logits (B, S, padded_vocab)."""
+def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False,
+            with_aux=False):
+    """Full-sequence logits (B, S, padded_vocab); with ``with_aux``, also
+    the mean over layers of each MoE aux value (empty for other families)."""
     _require_ported(cfg)
     x = params["embed"][batch["tokens"]]
+    auxs = []
     if cfg.family == "ssm":
         st = _rwkv_empty_state(cfg, x.shape[0], x.dtype, x.device)
         for i in range(cfg.num_layers):
@@ -353,9 +380,13 @@ def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False):
         window = attn_window(cfg, long_context)
         for i in range(cfg.num_layers):
             x = _attn_layer_fwd(layer_params(params["layers"], i), cfg, x,
-                                window=window)
+                                window=window, auxs=auxs)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
-    return x @ params["unembed"]
+    logits = x @ params["unembed"]
+    if not with_aux:
+        return logits
+    return logits, {k: torch.stack([a[k] for a in auxs]).mean()
+                    for k in (auxs[0] if auxs else {})}
 
 
 # --------------------------------------------------------------------------- #
@@ -417,8 +448,9 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     prefix_cache/prefix_len: reuse a stored KV prefix (the paper's cache-hit
     path) — new tokens attend to prefix keys with q_offset = prefix_len.
     ``prefix_cache`` needs ``[:, :, :prefix_len]`` to hold positions
-    ``0..prefix_len-1`` in order (a ring that has not wrapped). Dense family
-    only; an ssm or hybrid prefill starts from the empty state.
+    ``0..prefix_len-1`` in order (a ring that has not wrapped). Dense and
+    moe families only; an ssm or hybrid prefill starts from the empty
+    state.
     """
     _require_ported(cfg)
     x = params["embed"][batch["tokens"]]

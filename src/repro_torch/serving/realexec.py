@@ -1,8 +1,9 @@
 """Real-execution serving: a PyTorch model behind the GreenCache store.
 
-Port of ``repro/serving/realexec.py`` for the dense, RWKV6 (``ssm``) and
-Griffin (``hybrid``) families. The paper's mechanism for a transformer, run for real on the
-card:
+Port of ``repro/serving/realexec.py`` for the dense, MoE, RWKV6 (``ssm``)
+and Griffin (``hybrid``) families. The paper's mechanism for a transformer
+(dense or MoE, as the reference routes only ``ssm`` and ``hybrid`` to the
+state snapshot), run for real on the card:
 
 1. look the context up in the KV store;
 2. restore the stored prefix K/V;

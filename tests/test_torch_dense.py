@@ -82,7 +82,7 @@ def test_config_copy_matches_reference(arch, reduce):
 def test_registry_serves_the_dense_family():
     assert set(ALL_ARCHS) == {"yi-6b", "rwkv6-1.6b", "recurrentgemma-2b", "llama3-8b",
                               "h2o-danube-1.8b", "minitron-8b", "nemotron-4-15b",
-                              "llama3-70b"}
+                              "llama3-70b", "dbrx-132b", "grok-1-314b"}
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("qwen2-vl-2b")
 
@@ -305,22 +305,25 @@ def test_weight_bytes_counts_init_params():
 def test_dense_kernel_rows_follow_the_configs_and_turns():
     flash, decode, identity = shapes.dense_shapes()
     # every call of each conversation, each shape once (llama3-8b's and
-    # minitron-8b's are one), then the long-context phase's
+    # minitron-8b's are one, and so are nemotron-4-15b's and the MoE archs'),
+    # then the long-context phase's
     calls = ("turn 1", "turn 2", "cold")
     assert list(flash) == (
         [f"llama3-8b {c}, minitron-8b {c}" for c in calls]
-        + [f"{arch} {c}" for arch in ("h2o-danube-1.8b", "nemotron-4-15b", "llama3-70b")
-           for c in calls]
+        + [f"h2o-danube-1.8b {c}" for c in calls]
+        + [f"nemotron-4-15b {c}, dbrx-132b {c}, grok-1-314b {c}" for c in calls]
+        + [f"llama3-70b {c}" for c in calls]
         + [f"llama3-8b long context {c}" for c in ("prefill", "forward", "rows 9216-")])
     assert list(decode) == ["llama3-8b turn 2, minitron-8b turn 2", "h2o-danube-1.8b turn 2",
-                            "nemotron-4-15b turn 2", "llama3-70b turn 2",
-                            "llama3-8b long context step"]
+                            "nemotron-4-15b turn 2, dbrx-132b turn 2, grok-1-314b turn 2",
+                            "llama3-70b turn 2", "llama3-8b long context step"]
     # danube: turn 1 inside the window, the cold prefill past it, its ring
     # of 4,096 full and wrapped at the last step; G = 6 for nemotron-4-15b
     assert flash["h2o-danube-1.8b turn 1"] == (1, 32, 8, 3584, 3584, 80, 0, 4096, True)
     assert flash["h2o-danube-1.8b cold"] == (1, 32, 8, 4608, 4608, 80, 0, 4096, True)
     assert decode["h2o-danube-1.8b turn 2"] == (1, 32, 8, 4096, 80, 4096, 520)
-    assert flash["nemotron-4-15b turn 2"] == (1, 48, 8, 512, 2560, 128, 2048, None, True)
+    assert flash["nemotron-4-15b turn 2, dbrx-132b turn 2, grok-1-314b turn 2"] == \
+        (1, 48, 8, 512, 2560, 128, 2048, None, True)
     # the long-context step reads a full, wrapped ring of 8,192
     assert flash["llama3-8b long context prefill"] == (1, 32, 8, 10240, 10240, 128, 0,
                                                        8192, True)

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-and the reduced engines (yi-6b, h2o-danube-1.8b, rwkv6-1.6b,
-recurrentgemma-2b) on the card against the same engines on the CPU.
+the MoE FFN against its dense oracle, and the reduced engines (yi-6b,
+h2o-danube-1.8b, dbrx-132b, grok-1-314b, rwkv6-1.6b, recurrentgemma-2b) on
+the card against the same engines on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, inside the ``cuda``
 fixture, when there is no card. The file imports no jax, so it runs on a
@@ -8,6 +9,8 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ from repro_torch.core.kvstore import KVStore
 from repro_torch.core.policies import POLICIES
 from repro_torch.kernels import cases, ops
 from repro_torch.launch import serve, shapes
+from repro_torch.models import moe
 from repro_torch.models.transformer import griffin_layout, init_params
 from repro_torch.serving.realexec import RealExecutionEngine
 
@@ -231,6 +235,57 @@ def test_reduced_danube_engine_on_card_matches_cpu(cuda):
     assert len(ctx) + 4 + len(extra) > cfg.window_size == eng.width
     assert (flash, decode) == (2 * cfg.num_layers, 2 * 4 * cfg.num_layers)
     assert (g2.reused_tokens, g2.prefill_tokens_computed) == (48, 24)
+    for c, g in ((c1, g1), (c2, g2)):
+        assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
+        np.testing.assert_allclose(g.last_logits.cpu().numpy(),
+                                   c.last_logits.numpy(), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+def test_moe_ffn_on_card_matches_oracle_and_cpu(cuda, arch):
+    """The MoE module at a small size: with nothing dropped (capacity factor
+    E/K) against ``moe_ffn_ref`` at the fp32 kernel tolerance and the bf16
+    one scaled to the output; at capacity factor 0.5, where assignments
+    drop, the card's drop fraction and output equal the CPU's."""
+    cfg = get_config(arch).reduced(d_model=256)
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    nodrop = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    for dtype in (torch.float32, torch.bfloat16):
+        pc = {k: v.to(cuda, torch.float32 if k == "router" else dtype) for k, v in p.items()}
+        xc = x.to(cuda, dtype)
+        y, aux = moe.moe_ffn(pc, xc, nodrop)
+        want = moe.moe_ffn_ref(pc, xc, nodrop)
+        assert abs(float(aux["dropped_frac"])) <= 1e-6
+        scale = float(want.float().abs().max())
+        assert float((y.float() - want.float()).abs().max()) <= cases.TOL[dtype] * scale
+    drops = dataclasses.replace(cfg, moe_capacity_factor=0.5)
+    y, aux = moe.moe_ffn({k: v.to(cuda) for k, v in p.items()}, x.to(cuda), drops)
+    y0, aux0 = moe.moe_ffn(p, x, drops)
+    assert float(aux["dropped_frac"]) == float(aux0["dropped_frac"]) > 0
+    np.testing.assert_allclose(y.cpu().numpy(), y0.numpy(), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+def test_reduced_moe_engine_on_card_matches_cpu(cuda, arch):
+    """The reduced demo (2 layers, d_model 128, 4 experts top-2) at the
+    published capacity: the card's greedy tokens, reuse and logits are the
+    CPU's, with one flash launch per layer and prefill and one decode launch
+    per layer and token."""
+    cfg, on_cpu = serve.build_engine(arch, device="cpu", reduced=True)
+    _, on_card = serve.build_engine(arch, device=cuda, reduced=True,
+                                    params=_to(on_cpu.params, cuda))
+    _, c1, c2 = serve.two_turns(cfg, on_cpu, True)
+    before = {n: getattr(ops, n).launches for n in ops.__all__}
+    _, g1, g2 = serve.two_turns(cfg, on_card, True)
+    launched = {n: getattr(ops, n).launches - before[n] for n in ops.__all__}
+    num_new = serve.REDUCED_TURNS[2]
+    assert launched == {"flash_attention": 2 * cfg.num_layers,
+                        "decode_attention": 2 * num_new * cfg.num_layers,
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),

@@ -198,7 +198,8 @@ def test_torch_init_params_shapes_and_scales():
         assert abs(float(t.float().std()) - float(leaf.std())) <= 0.1 * float(leaf.std()) + 1e-6
 
 
-def test_other_families_name_their_queue():
-    cfg = dataclasses.replace(get_config("yi-6b").reduced(), family="moe")
+@pytest.mark.parametrize("family", ["vlm", "encdec"])
+def test_other_families_name_their_queue(family):
+    cfg = dataclasses.replace(get_config("yi-6b").reduced(), family=family)
     with pytest.raises(NotImplementedError, match="Queue 1"):
         tt.init_cache(cfg, 1, 16, device="cpu")
