@@ -15,16 +15,20 @@
    (the MoE archs' calls are nemotron-4-15b's, held once) and of
    llama3-70b's heads: turn 1, turn 2's suffix, the cold engine's prefill
    and the last decode step of each, the long-context prefill, forward and
-   step, and the prefill's last 1,024 rows as a hit's call
-   (``repro_torch.launch.shapes``, from the configs and the turns), with
+   step, and the prefill's last 1,024 rows as a hit's call, and every call
+   of steps 13-15: qwen2-vl-2b's conversation, its vision phase's prefill,
+   forward and four steps, and the enc-dec phase's encoder, self- and
+   cross-attention calls (not causal, Sq != Sk, G = 1 at hd 64) and its two
+   decode steps (16 kv heads) (``repro_torch.launch.shapes``, from the
+   configs and the turns), with
    the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute term
    scaled to the output). Then, at full width, the last rows of a cold bf16
    flash call must equal a hit's call from the first of them bit for bit:
    yi-6b's (1,32,4,2560,2560,128) and Griffin's (1,10,1,2560,2560,256,
    window 2048) from 2,048 (``cases.FLASH_IDENTITY``), and each dense
-   arch's cold prefill from its turn-2 hit (danube's 4,608 rows under the
-   window from 3,584) and the long-context prefill (1,32,8,10240,10240,128,
-   window 8192) from 9,216. For each
+   arch's and qwen2-vl-2b's cold prefill from its turn-2 hit (danube's
+   4,608 rows under the window from 3,584) and the long-context prefill
+   (1,32,8,10240,10240,128, window 8192) from 9,216. For each
    timed shape: kernel time, plain time,
    ``library_ms`` (``F.scaled_dot_product_attention`` on the same masked GQA
    problem, a yardstick only: the port never calls it) and the least time
@@ -156,7 +160,30 @@
    attention output to bf16 in other orders (M = 1 against 10,241), which
    moves the logits by about that limit on its own (logged: each bf16 side
    against the fp32 forward); the fp32 run is the sharper check.
-13. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
+13. qwen2-vl-2b engine (28 layers, d_model 1536, 12/2 heads of 128), full
+   width in bf16, seed 0, yi-6b's conversation on the token path, as the
+   reference's engine serves it: as step 3, with exactly 56 flash and 448
+   decode launches and no profiled replay; the log says whether the cold
+   engine's logits equal the hit's bit for bit.
+14. qwen2-vl-2b vision model phase, full width in bf16, then on the same
+   weights in fp32: ``patches`` (1, 1024, 1536) at scale 0.02 (numpy, seed
+   1) and 2,048 text tokens, M-RoPE ids in Qwen2-VL's layout for one image
+   of 32 x 32 patches (patch i at (0, i // 32, i % 32), text token j at 32
+   + j in all three; ``shapes.vision_positions``); ``prefill`` (``max_len``
+   4096), then 4 ``decode_step``s with the layout's ids passed explicitly,
+   the last held against ``forward`` on the 3,076-token batch: within 2e-2 x
+   max |logit| in bf16 and 5e-4 in fp32 (step 12's limits), each bf16 side
+   logged against the fp32 forward; exactly 28 flash launches per prefill
+   and forward and 28 decode launches per step.
+15. seamless-m4t-large-v2 model phase (12 encoder and 12 decoder layers,
+   d_model 1024, 16/16 heads of 64), full width in bf16 then fp32:
+   ``frames`` (1, 1024, 1024) at scale 0.02 and 512 target tokens,
+   ``max_len`` 1024; ``prefill``, 8 ``decode_step``s, the last against
+   ``forward`` on the 520 tokens, as step 14; exactly 36 flash launches per
+   prefill and forward (12 encoder, 12 self, 12 cross) and 24 decode
+   launches per step (12 self over the ring, 12 cross over every frame).
+   The engine serves no enc-dec model, as the reference's cannot.
+16. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
    ``library_device_ms`` and ``library_premasked_device_ms``; decode's,
    wkv6's and the rglru kernels' with ``device_ms``; the fused step's with
    ``plain_device_ms``), the card line, and last
@@ -183,6 +210,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -544,9 +572,11 @@ def hit_vs_cold(cases, label, r2, rc):
     scale = float(rc.last_logits.abs().max())
     tol = cases.TOL[torch.bfloat16] * scale
     err = float((rc.last_logits - r2.last_logits).abs().max())
+    same = "equal" if torch.equal(rc.last_logits, r2.last_logits) else "not equal"
     log(f"{label} hit vs cold, last-position logits: max |err| {err:.6f} (limit {tol:.6f} "
-        f"= 2e-2 x max |logit| {scale:.4f}); cold prefill {rc.prefill_time_s * 1e3:.3f} ms "
-        f"for {rc.prefill_tokens_computed} tokens; tokens {rc.tokens}")
+        f"= 2e-2 x max |logit| {scale:.4f}), {same} bit for bit; cold prefill "
+        f"{rc.prefill_time_s * 1e3:.3f} ms for {rc.prefill_tokens_computed} tokens; "
+        f"tokens {rc.tokens}")
     if rc.tokens != r2.tokens or not err <= tol:
         raise AssertionError(f"{label}: hit path and cold path disagree")
 
@@ -694,79 +724,155 @@ def profile_turn2(serve, arch, params, ctx2):
 
 
 def long_context_phase(ops, tt, cases, shapes, cfg):
-    """Full width, ``long_context=True``, in bf16 and then on the same
-    weights in fp32: a prefill of ``shapes.LONG_PREFILL`` tokens into a
-    ring of 8,192 slots and one ``decode_step`` on the wrapped ring, against
-    ``forward`` of one token more; exact launch counts per call. Returns the
-    launches made."""
+    """Full width, ``long_context=True``: a prefill of ``shapes.LONG_PREFILL``
+    tokens into a ring of 8,192 slots and one ``decode_step`` on the wrapped
+    ring, against ``forward`` of one token more (``step_vs_forward_phase``).
+    In bf16 both sides round every GEMM and attention output to bf16 at
+    other shapes (M = 1 against 10,241; decode against flash), which moves
+    the logits by about the bf16 limit on its own; the fp32 run is the
+    sharper check."""
     S, L, max_len = shapes.LONG_PREFILL, cfg.num_layers, shapes.LONG_MAX_LEN
-    seq = {n: 0 for n in SOURCES}
-    want = {"prefill": dict(seq, flash_attention=L), "step": dict(seq, decode_attention=L),
-            "forward": dict(seq, flash_attention=L)}
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    window = tt.attn_window(cfg, long_context=True)
+
+    def wrapped_ring(cache):
+        ring = cache["k"].shape[2]
+        log(f"{cfg.name} long context: prefill of {S} (max_len {max_len}) into a ring of "
+            f"{ring} slots, window {window}")
+        if ring != min(max_len, window) or S <= ring:
+            raise AssertionError(f"{cfg.name}: ring of {ring} slots, want a wrapped ring "
+                                 f"of {min(max_len, window)}")
+
+    return step_vs_forward_phase(
+        ops, tt, cases, cfg, f"{cfg.name} long context", {"tokens": toks[:, :S]}, max_len,
+        [(toks[:, S:], S, {})], {"tokens": toks},
+        {"prefill": seq_counts(flash=L), "step": seq_counts(decode=L),
+         "forward": seq_counts(flash=L)},
+        kw={"long_context": True}, check_cache=wrapped_ring)
+
+
+def step_vs_forward_phase(ops, tt, cases, cfg, label, prefill_batch, max_len, steps,
+                          forward_batch, want, kw=None, check_cache=None):
+    """A model phase on seed-0 weights in bf16, then on the same weights in
+    fp32: ``prefill`` of ``prefill_batch``, a ``decode_step`` for each of
+    ``steps`` ((tokens, pos, keyword arguments)), the last step's logits
+    held against ``forward`` of ``forward_batch``'s last row, with exact
+    launch counts per call (``want``: prefill, step and forward's counts by
+    kernel). ``kw`` goes to all three functions; ``check_cache`` is called
+    on the prefill's cache. The limits: in bf16 the hit-vs-cold limit, the
+    bf16 kernel tolerance scaled to the logits (both sides round every GEMM
+    and attention output to bf16 at other shapes); in fp32 5e-4, the
+    reference's ``test_prefill_decode_consistency``. Logs each bf16 side
+    against the fp32 forward, times and peak memory. Returns the launches
+    made."""
+    kw = kw or {}
     t0 = time.perf_counter()
     params = tt.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                             torch.bfloat16)
-    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), device="cuda",
-                         generator=torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
-    log(f"{cfg.name} long context: {describe(cfg)}; bfloat16 weights drawn in "
+    log(f"{label}: {describe(cfg)}; bfloat16 weights drawn in "
         f"{time.perf_counter() - t0:.3f} s")
-    total = dict(seq)
+    total = {n: 0 for n in SOURCES}
 
     def run(params, dtype):
-        """(last-position logits of the step, of forward) in fp32."""
-        got, ms = {}, {}
+        """(last-position logits of the last step, of forward) in fp32."""
+        ms, bad = {}, []
 
         def timed(call, fn):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out, got[call] = launched(ops, fn)
+            out, got = launched(ops, fn)
             torch.cuda.synchronize()
-            ms[call] = (time.perf_counter() - t0) * 1e3
+            ms[call] = ms.get(call, 0.0) + (time.perf_counter() - t0) * 1e3
+            if got != want[call]:
+                bad.append((call, got))
+            for n, c in got.items():
+                total[n] += c
             return out
 
         with torch.inference_mode():
-            _, cache = timed("prefill", lambda: tt.prefill(
-                params, cfg, {"tokens": toks[:, :S]}, max_len, long_context=True))
-            step = timed("step", lambda: tt.decode_step(
-                params, cfg, cache, toks[:, S:], S, long_context=True))[0][0, 0].float()
-            full = timed("forward", lambda: tt.forward(
-                params, cfg, {"tokens": toks}, long_context=True))[0, -1].float()
-        ring, window = cache["k"].shape[2], tt.attn_window(cfg, long_context=True)
-        # bf16: the two sides round every GEMM and attention output to bf16 at
-        # other shapes (M = 1 against 10,241; decode against flash), so the
-        # hit-vs-cold limit, the bf16 kernel tolerance scaled to the logits;
-        # fp32: the model phases' limit
+            _, cache = timed("prefill", lambda: tt.prefill(params, cfg, prefill_batch,
+                                                           max_len, **kw))
+            if check_cache is not None:
+                check_cache(cache)
+            for tokens, pos, step_kw in steps:
+                step = timed("step", lambda: tt.decode_step(params, cfg, cache, tokens,
+                                                            pos, **kw, **step_kw))
+                step = step[0][0, 0].float()
+            full = timed("forward", lambda: tt.forward(params, cfg, forward_batch, **kw))
+            full = full[0, -1].float()
         scale = float(full.abs().max())
         tol = cases.TOL[dtype] * scale if dtype == torch.bfloat16 else 5e-4
         err = float((step - full).abs().max())
-        log(f"{cfg.name} long-context {str(dtype)[6:]} prefill of {S} (max_len "
-            f"{max_len}, ring {ring} slots, window {window}) in {ms['prefill']:.3f} ms, "
-            f"decode_step at {S} in {ms['step']:.3f} ms, forward of {S + 1} in "
-            f"{ms['forward']:.3f} ms; step vs forward, last-position logits: max |err| "
-            f"{err:.6f} (limit {tol:.6f}; max |logit| {scale:.4f}); greedy "
-            f"{int(step.argmax())} / {int(full.argmax())}; launches {got}")
-        if ring != min(max_len, window) or S <= ring:
-            raise AssertionError(f"{cfg.name}: ring of {ring} slots, want a wrapped ring "
-                                 f"of {min(max_len, window)}")
+        log(f"{label} {str(dtype)[6:]}: prefill in {ms['prefill']:.3f} ms, {len(steps)} "
+            f"decode_steps in {ms['step']:.3f} ms, forward in {ms['forward']:.3f} ms; "
+            f"last step vs forward, last-position logits: max |err| {err:.6f} (limit "
+            f"{tol:.6f}; max |logit| {scale:.4f}); greedy {int(step.argmax())} / "
+            f"{int(full.argmax())}; peak memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if bad:
+            raise AssertionError(f"{label}: launch counts {bad}, want {want}")
         if not err <= tol or not math.isfinite(scale):
-            raise AssertionError(f"{cfg.name}: long-context decode_step disagrees with "
-                                 "forward")
-        if got != want:
-            raise AssertionError(f"{cfg.name}: launch counts {got}, want {want}")
-        for g in got.values():
-            for n, c in g.items():
-                total[n] += c
+            raise AssertionError(f"{label}: decode_step disagrees with forward")
         return step, full
 
+    torch.cuda.reset_peak_memory_stats()
     zero_counts(ops)
     step16, full16 = run(params, torch.bfloat16)
     params = tree_map(params, lambda t: t.float())        # the same values in fp32
     _, full32 = run(params, torch.float32)
-    log(f"{cfg.name} long context, each bf16 side against fp32 forward on the same "
-        f"weights: step max |err| {float((step16 - full32).abs().max()):.6f}, forward "
+    log(f"{label}, each bf16 side against fp32 forward on the same weights: step max "
+        f"|err| {float((step16 - full32).abs().max()):.6f}, forward "
         f"{float((full16 - full32).abs().max()):.6f}")
     return total
+
+
+def seq_counts(flash=0, decode=0):
+    return dict({n: 0 for n in SOURCES}, flash_attention=flash, decode_attention=decode)
+
+
+def vision_phase(ops, tt, cases, shapes, cfg):
+    """qwen2-vl-2b at full width with one image of ``cfg.vision_tokens``
+    patches (a square grid) and ``shapes.VISION_TEXT`` text tokens, in
+    Qwen2-VL's position layout; ``shapes.VISION_STEPS`` decode steps with
+    the layout's ids passed explicitly."""
+    V, text, n, L = cfg.vision_tokens, shapes.VISION_TEXT, shapes.VISION_STEPS, \
+        cfg.num_layers
+    grid = math.isqrt(V)
+    rng = np.random.default_rng(1)
+    patches = torch.from_numpy((rng.standard_normal((1, V, cfg.d_model)) * 0.02)
+                               .astype(np.float32)).cuda()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, text + n))).cuda()
+    ids = shapes.vision_positions(grid, grid, text + n, "cuda")
+    S = V + text
+    return step_vs_forward_phase(
+        ops, tt, cases, cfg, f"{cfg.name} vision model phase",
+        {"tokens": toks[:, :text], "patches": patches, "positions": ids[:, :S]},
+        shapes.VISION_MAX_LEN,
+        [(toks[:, text + i:text + i + 1], S + i,
+          {"mrope_positions": ids[:, S + i:S + i + 1]}) for i in range(n)],
+        {"tokens": toks, "patches": patches, "positions": ids},
+        {"prefill": seq_counts(flash=L), "step": seq_counts(decode=L),
+         "forward": seq_counts(flash=L)})
+
+
+def encdec_phase(ops, tt, cases, shapes, cfg):
+    """seamless-m4t-large-v2 at full width: ``cfg.source_len`` frames,
+    ``shapes.ENCDEC_TARGET`` target tokens and ``shapes.ENCDEC_STEPS``
+    decode steps."""
+    T, n = shapes.ENCDEC_TARGET, shapes.ENCDEC_STEPS
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy((rng.standard_normal((1, cfg.source_len, cfg.d_model))
+                               * 0.02).astype(np.float32)).cuda()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, T + n))).cuda()
+    seq = seq_counts(flash=cfg.encoder_layers + 2 * cfg.num_layers)
+    return step_vs_forward_phase(
+        ops, tt, cases, cfg, f"{cfg.name} model phase",
+        {"tokens": toks[:, :T], "frames": frames}, shapes.ENCDEC_MAX_LEN,
+        [(toks[:, T + i:T + i + 1], T + i, {}) for i in range(n)],
+        {"tokens": toks, "frames": frames},
+        {"prefill": seq, "step": seq_counts(decode=2 * cfg.num_layers), "forward": seq})
 
 
 def check_decode_calls(label, calls, want):
@@ -1040,7 +1146,7 @@ def griffin_model_phase(ops, tt, cfg):
 def describe(cfg) -> str:
     if cfg.family == "ssm":
         mixer = f"{cfg.num_rwkv_heads} wkv heads of {cfg.rwkv_head_dim}"
-    elif cfg.family in ("dense", "moe"):
+    elif cfg.family in ("dense", "moe", "vlm", "encdec"):
         mlp = "gated" if cfg.gated_mlp else "plain"
         if cfg.family == "moe":
             mlp += (f" experts, {cfg.num_experts} top-{cfg.experts_per_token}, capacity "
@@ -1050,6 +1156,11 @@ def describe(cfg) -> str:
         mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, window "
                  f"{cfg.window_size}, rope theta {cfg.rope_theta:g}, {cfg.activation} "
                  f"{mlp}")
+        if cfg.family == "vlm":
+            mixer += f", M-RoPE {cfg.mrope}, {cfg.vision_tokens} vision tokens"
+        elif cfg.family == "encdec":
+            mixer += (f", {cfg.encoder_layers} encoder layers over {cfg.source_len} "
+                      "frames")
     else:
         mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, rnn "
                  f"{cfg.rnn_width}, conv {cfg.conv_width}, window {cfg.local_window}")
@@ -1189,10 +1300,13 @@ def main():
     dense_flash, dense_decode, dense_identity = shapes.dense_shapes()
     flash_main.update({f"dense: {k}": v for k, v in dense_flash.items()})
     decode_main.update({f"dense: {k}": v for k, v in dense_decode.items()})
+    fam_flash, fam_decode, fam_identity = shapes.family_shapes()
+    flash_main.update({f"vlm, encdec: {k}": v for k, v in fam_flash.items()})
+    decode_main.update({f"vlm, encdec: {k}": v for k, v in fam_decode.items()})
     t0 = time.perf_counter()
     rows = kernels_phase(ops, ref, cases, flash_main, decode_main)
     plan_sweep(cases, dmod, cases.DECODE_MAIN + list(dense_decode.values()))
-    identity_phase(cases, cases.FLASH_IDENTITY + dense_identity)
+    identity_phase(cases, cases.FLASH_IDENTITY + dense_identity + fam_identity)
     log(f"kernels phase: {time.perf_counter() - t0:.3f} s")
     # the recurrent kernels' rows before any profile with host activity: after
     # the yi-6b replay's, every profiler window of the wkv6 rows lost a launch
@@ -1239,6 +1353,16 @@ def main():
         ops, tt, cases, shapes, get_config(shapes.LONG))
     log(f"{shapes.LONG} long-context model phase: {time.perf_counter() - t0:.3f} s, peak "
         f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    t0 = time.perf_counter()
+    by_path[shapes.VLM] = engine_phase(serve, ops, cases, shapes.VLM, profile=False)
+    log(f"{shapes.VLM} engine phase: {time.perf_counter() - t0:.3f} s, peak memory "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name, phase, arch in (("vision model phase", vision_phase, shapes.VLM),
+                              ("model phase", encdec_phase, shapes.ENCDEC)):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        by_path[f"{arch} {name}"] = phase(ops, tt, cases, shapes, get_config(arch))
+        log(f"{arch} {name}: {time.perf_counter() - t0:.3f} s")
     log(f"launches by path: {by_path}")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
 

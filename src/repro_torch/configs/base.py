@@ -1,10 +1,9 @@
 """Model architecture config (copy of ``repro.configs.base.ModelConfig``).
 
-Only the fields the dense, MoE, RWKV6 and Griffin serving paths and the
-long-context mode read are kept (the enc-dec and VLM fields arrive with
-their families; ``tie_embeddings`` is read by no model code of the
-reference); ``reduced()`` produces the same smoke-test variant as the
-reference so that tests can build matching configs on both sides.
+Every field the model code of the reference reads is kept
+(``tie_embeddings`` is read by none of it and is left out); ``reduced()``
+produces the same smoke-test variant as the reference so that tests can
+build matching configs on both sides.
 """
 from __future__ import annotations
 
@@ -55,6 +54,14 @@ class ModelConfig:
     # ssm (RWKV6)
     rwkv_head_dim: int = 64
 
+    # enc-dec
+    encoder_layers: int = 0
+    source_len: int = 1024                  # encoder memory length (stub frontend)
+
+    # vlm
+    mrope: bool = False
+    vision_tokens: int = 0                  # prefix patch-embedding tokens (stub)
+
     norm_eps: float = 1e-5
     source: str = ""                        # citation
 
@@ -98,6 +105,9 @@ class ModelConfig:
             local_window=32,
             rnn_width=d_model if self.griffin else 0,
             rwkv_head_dim=32,
+            encoder_layers=1 if self.encoder_layers else 0,
+            source_len=16 if self.encoder_layers else 0,
+            vision_tokens=8 if self.vision_tokens else 0,
             num_experts=min(self.num_experts, max_experts) if self.num_experts else 0,
             experts_per_token=min(self.experts_per_token, 2)
             if self.experts_per_token else 0,

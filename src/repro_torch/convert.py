@@ -21,6 +21,12 @@ A MoE (``moe``) pytree is a dense one whose layers hold ``moe``
 A Griffin (``hybrid``) pytree holds ``units`` and, when ``num_layers`` is
 not a multiple of 3, ``tail`` instead of ``layers``. Its ``units`` stack may
 have length 0: the reference's ``reduced(num_layers=2)`` is two tail layers.
+
+A VLM (``vlm``) pytree is a dense one with ``patch_proj``. An enc-dec
+(``encdec``) pytree holds ``frames_proj``, the ``encoder`` stack of
+``encoder_layers`` layers (a dense layer's leaves), ``enc_ln`` and the
+``decoder`` stack of ``num_layers`` layers (``ln1``, ``self_attn``,
+``ln_x``, ``cross_attn``, ``ln2``, ``mlp``) instead of ``layers``.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin, moe, rwkv6
-from repro_torch.models.transformer import PORTED_FAMILIES, griffin_layout
+from repro_torch.models.transformer import griffin_layout
 
 FP32_LEAVES = rwkv6.FP32_LEAVES + griffin.FP32_LEAVES + moe.FP32_LEAVES
 
@@ -55,16 +61,15 @@ def _stack_len(tree) -> int:
 
 def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
                     dtype=torch.float32):
-    """Convert a dense-, moe-, ssm- or hybrid-family parameter pytree
-    (numpy leaves)."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"{cfg.family!r} parameters are not ported yet")
+    """Convert a parameter pytree (numpy leaves) of any family."""
     expected = {"embed", "final_ln", "unembed"}
     if cfg.family == "hybrid":
         U, tail = griffin_layout(cfg)
         expected |= {"units", "tail"} if tail else {"units"}
+    elif cfg.family == "encdec":
+        expected |= {"frames_proj", "encoder", "enc_ln", "decoder"}
     else:
-        expected |= {"layers"}
+        expected |= {"layers", "patch_proj"} if cfg.family == "vlm" else {"layers"}
     if set(np_params) != expected:
         raise ValueError(f"{cfg.family} params have keys {sorted(expected)}; got "
                          f"{sorted(np_params)}")
@@ -75,6 +80,12 @@ def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
             raise ValueError(f"params stack {got[0]} units and {got[1]} tail layers "
                              f"(3·U + tail = {3 * got[0] + got[1]}); config has "
                              f"{cfg.num_layers} layers, {U} units and {tail} tail")
+    elif cfg.family == "encdec":
+        got = (_stack_len(np_params["encoder"]), _stack_len(np_params["decoder"]))
+        if got != (cfg.encoder_layers, cfg.num_layers):
+            raise ValueError(f"params stack {got[0]} encoder and {got[1]} decoder "
+                             f"layers; config has {cfg.encoder_layers} and "
+                             f"{cfg.num_layers}")
     else:
         L = _stack_len(np_params["layers"])
         if L != cfg.num_layers:

@@ -3,7 +3,7 @@ prefix reuse, the ``--real --arch`` route of ``repro/launch/serve.py``.
 
     # full width in bf16 on the card (random weights from seed 0); --arch
     # also takes llama3-8b, h2o-danube-1.8b, minitron-8b, nemotron-4-15b,
-    # dbrx-132b, grok-1-314b, rwkv6-1.6b and recurrentgemma-2b
+    # dbrx-132b, grok-1-314b, qwen2-vl-2b, rwkv6-1.6b and recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --real --arch yi-6b
 
     # the reference's reduced demo (2 layers, d_model 128, fp32) on the CPU
@@ -21,7 +21,10 @@ The two MoE archs do not fit it at their published depth either (dbrx-132b
 263.2 GB of bf16 weights at 40 layers, grok-1-314b 633.0 GB at 64): at full
 width they are served at every published width with the depth cut to
 ``FULL_DEPTH`` layers (8 and 5: 54.6 and 52.4 GB), which ``build_engine``
-logs; ``--reduced`` keeps the reference's 2 layers. The simulation modes of
+logs; ``--reduced`` keeps the reference's 2 layers. qwen2-vl-2b is served on
+its token path, as the reference's engine serves it; seamless-m4t-large-v2
+(enc-dec) is not served: the reference's engine fails on it, and the port's
+refuses it with a ``ValueError`` that says so. The simulation modes of
 ``repro.launch.serve`` are not ported.
 """
 from __future__ import annotations
@@ -36,7 +39,8 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.policies import POLICIES
 from repro_torch.models.transformer import init_params
-from repro_torch.serving.realexec import RealExecutionEngine, resolve_device
+from repro_torch.serving.realexec import (RealExecutionEngine, check_servable,
+                                          resolve_device)
 
 SEED = 0        # weights (torch.Generator) and prompts (numpy)
 # (context tokens, new tokens in turn 2, decoded tokens per turn, max_len),
@@ -47,13 +51,15 @@ SEED = 0        # weights (torch.Generator) and prompts (numpy)
 # 3,584 context tokens, which fit it, and its prompt of 4,608 is longer than
 # the window, so the window masks keys in the suffix prefill and the decode
 # runs over a wrapped ring. The MoE archs have nemotron-4-15b's attention
-# (48/8 heads of 128, d_model 6144) and take its conversation.
+# (48/8 heads of 128, d_model 6144) and take its conversation; qwen2-vl-2b
+# takes yi-6b's.
 FULL_TURNS = {"yi-6b": (2048, 504, 8, 4096),
               "llama3-8b": (2048, 504, 8, 4096),
               "minitron-8b": (2048, 504, 8, 4096),
               "nemotron-4-15b": (2048, 504, 8, 4096),
               "dbrx-132b": (2048, 504, 8, 4096),
               "grok-1-314b": (2048, 504, 8, 4096),
+              "qwen2-vl-2b": (2048, 504, 8, 4096),
               "h2o-danube-1.8b": (3584, 1016, 8, 8192),
               "rwkv6-1.6b": (512, 56, 8, 4096),
               "recurrentgemma-2b": (512, 56, 8, 1024)}
@@ -66,8 +72,10 @@ FULL_DEPTH = {"dbrx-132b": 8, "grok-1-314b": 5}
 
 
 def weight_bytes(cfg, dtype=torch.bfloat16) -> int:
-    """Bytes of a dense or MoE config's weights as ``init_params`` lays
-    them out (a MoE layer's ``E`` experts, and its router in fp32)."""
+    """Bytes of a dense, MoE, VLM or enc-dec config's weights as
+    ``init_params`` lays them out (a MoE layer's ``E`` experts, and its
+    router in fp32; a VLM's ``patch_proj``; an enc-dec model's
+    ``frames_proj``, encoder and decoder stacks)."""
     d, hd = cfg.d_model, cfg.head_dim
     attn = d * (cfg.num_heads + cfg.num_kv_heads) * hd * 2
     mlp = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
@@ -75,7 +83,14 @@ def weight_bytes(cfg, dtype=torch.bfloat16) -> int:
     if cfg.family == "moe":
         mlp *= cfg.num_experts
         router = cfg.num_layers * d * cfg.num_experts * 4
-    n = 2 * cfg.padded_vocab * d + d + cfg.num_layers * (attn + mlp + 2 * d)
+    n = 2 * cfg.padded_vocab * d + d
+    if cfg.family == "encdec":          # frames_proj, enc_ln; decoder: self + cross
+        n += d * d + d + cfg.encoder_layers * (attn + mlp + 2 * d) \
+            + cfg.num_layers * (2 * attn + mlp + 3 * d)
+    else:
+        n += cfg.num_layers * (attn + mlp + 2 * d)
+    if cfg.family == "vlm":             # patch_proj
+        n += d * d
     return n * torch.finfo(dtype).bits // 8 + router
 
 
@@ -99,6 +114,7 @@ def build_engine(arch: str, *, device=None, reduced: bool = False,
     over the same weights). ``moe_capacity_factor`` replaces the config's."""
     dev = resolve_device(device)
     cfg = full = get_config(arch)
+    check_servable(cfg)                 # before any weight is drawn
     if reduced:
         cfg = cfg.reduced(num_layers=2, d_model=128)
     elif arch in FULL_DEPTH:

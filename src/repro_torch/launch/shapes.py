@@ -1,5 +1,6 @@
 """The calls each served path gives the two attention kernels, computed from
-the configs and the turns of ``serve.FULL_TURNS``.
+the configs, the turns of ``serve.FULL_TURNS`` and the model phases' sizes
+below.
 
 ``chip_smoke.py`` holds the kernels against their plain versions at these
 shapes on the card and ``tests/test_torch_gpu.py`` takes the same rows, so
@@ -8,6 +9,8 @@ shapes its decode cases; an identity pair is ``(cold case, first hit row)``
 as in ``cases.FLASH_IDENTITY``.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import cases
@@ -26,6 +29,14 @@ LONG = "llama3-8b"                        # the long-context model phase
 LONG_PREFILL = 10240                      # past the long-context window of 8,192
 LONG_MAX_LEN = 12288
 LONG_ROWS = 1024                          # the hit's rows of the long-context flash row
+VLM = "qwen2-vl-2b"                       # an engine phase and the vision model phase
+VISION_TEXT = 2048                        # text tokens after the image
+VISION_MAX_LEN = 4096
+VISION_STEPS = 4                          # decode steps after the vision prefill
+ENCDEC = "seamless-m4t-large-v2"          # the enc-dec model phase
+ENCDEC_TARGET = 512                       # target tokens of its prefill
+ENCDEC_MAX_LEN = 1024
+ENCDEC_STEPS = 8
 
 
 def ring_case(cfg, W: int, pos: int, window):
@@ -108,3 +119,67 @@ def dense_shapes():
     identity.append((f["prefill"], LONG_PREFILL - LONG_ROWS))
     return ({", ".join(v): k for k, v in flash.items()},
             {", ".join(v): k for k, v in decode.items()}, identity)
+
+
+def vision_positions(grid_h: int, grid_w: int, text: int, device=None):
+    """M-RoPE ids (1, grid_h·grid_w + text, 3) int64 in Qwen2-VL's layout for
+    one image of ``grid_h`` x ``grid_w`` patches, then ``text`` tokens: patch
+    ``i`` at (0, i // grid_w, i % grid_w), text token ``j`` at
+    max(grid_h, grid_w) + j in all three ids (one past the largest id of
+    the image)."""
+    i = torch.arange(grid_h * grid_w, device=device)
+    vis = torch.stack([torch.zeros_like(i), i // grid_w, i % grid_w], dim=-1)
+    txt = (max(grid_h, grid_w) + torch.arange(text, device=device))[:, None]
+    return torch.cat([vis, txt.expand(text, 3)])[None]
+
+
+def vision_shapes(cfg):
+    """The vision model phase's calls: flash for the prefill of
+    ``cfg.vision_tokens`` patches and ``VISION_TEXT`` tokens and for
+    ``forward`` of ``VISION_STEPS`` tokens more; decode at each step, over
+    a ring of ``VISION_MAX_LEN`` slots."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    win, W = tt.attn_window(cfg), tt.cache_width(cfg, VISION_MAX_LEN)
+    S, n = cfg.vision_tokens + VISION_TEXT, VISION_STEPS
+    flash = {"prefill": (1, H, KV, S, S, hd, 0, win, True),
+             "forward": (1, H, KV, S + n, S + n, hd, 0, win, True)}
+    return flash, {f"step {i + 1}": ring_case(cfg, W, S + i, win) for i in range(n)}
+
+
+def encdec_shapes(cfg):
+    """The enc-dec model phase's calls. Flash: the encoder over the
+    ``source_len`` frames (bidirectional, in the prefill and in
+    ``forward``); the decoder's self-attention and cross-attention over the
+    ``ENCDEC_TARGET`` tokens of the prefill and the ``ENCDEC_STEPS`` more of
+    ``forward``. Decode: the last step's self-attention over its ring of
+    ``ENCDEC_MAX_LEN`` slots and its cross-attention over every frame."""
+    H, KV, hd, src = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.source_len
+    win, W = tt.attn_window(cfg), tt.cache_width(cfg, ENCDEC_MAX_LEN)
+    T, n = ENCDEC_TARGET, ENCDEC_STEPS
+    flash = {"encoder": (1, H, KV, src, src, hd, 0, None, False),
+             "self": (1, H, KV, T, T, hd, 0, win, True),
+             "cross": (1, H, KV, T, src, hd, 0, None, False),
+             "forward self": (1, H, KV, T + n, T + n, hd, 0, win, True),
+             "forward cross": (1, H, KV, T + n, src, hd, 0, None, False)}
+    decode = {"self": ring_case(cfg, W, T + n - 1, win),
+              "cross": (1, H, KV, src, hd, src, 0)}
+    return flash, decode
+
+
+def family_shapes():
+    """The calls of the vlm and encdec paths: qwen2-vl-2b's conversation
+    (turn 1, turn 2, the cold prefill, the last decode step), the vision
+    model phase's and the enc-dec model phase's, as ``(flash, decode,
+    identity)`` in ``dense_shapes``'s form; identity pairs qwen2-vl-2b's
+    cold prefill with its turn-2 hit."""
+    vlm, encdec = get_config(VLM), get_config(ENCDEC)
+    f, d = main_path_shapes(vlm)
+    vf, vd = vision_shapes(vlm)
+    ef, ed = encdec_shapes(encdec)
+    flash = {**{f"{VLM} {k}": v for k, v in f.items()},
+             **{f"{VLM} vision {k}": v for k, v in vf.items()},
+             **{f"{ENCDEC} {k}": v for k, v in ef.items()}}
+    decode = {**{f"{VLM} {k}": v for k, v in d.items()},
+              **{f"{VLM} vision {k}": v for k, v in vd.items()},
+              **{f"{ENCDEC} {k}": v for k, v in ed.items()}}
+    return flash, decode, [(f["cold"], serve.FULL_TURNS[VLM][0])]

@@ -1,10 +1,9 @@
 """Shared model components: init helpers, norms (RMS and per-head group
-norm), rotary embeddings, MLPs, GQA attention (full sequence and
-single-token decode against a ring cache).
+norm), rotary embeddings (Qwen2-VL's M-RoPE too), MLPs, GQA attention
+(full sequence and single-token decode against a ring cache).
 
-Port of the dense- and RWKV6-path functions of ``repro/models/common.py``,
-with the
-same layouts: activations ``(B, S, d)``, heads ``(B, S, H, hd)``, caches
+Port of the functions of ``repro/models/common.py``, with the same
+layouts: activations ``(B, S, d)``, heads ``(B, S, H, hd)``, caches
 ``(B, W, KV, hd)``, weights applied as ``x @ w``. Params are plain dicts of
 tensors, as the reference's pytrees are.
 
@@ -96,12 +95,21 @@ def groupnorm_heads(params, x, eps: float = 64e-5):
 # rotary embeddings
 # --------------------------------------------------------------------------- #
 
+def _rope_freqs(half: int, theta: float, device):
+    """(half,) fp32 rotary frequencies ``theta ** (-j / half)``."""
+    exps = -torch.arange(half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
 def _rope_angles(positions, half: int, theta: float):
     """positions: (...,) -> (..., half) fp32 angles."""
-    exps = -torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
-    return positions.float()[..., None] * freqs
+    return positions.float()[..., None] * _rope_freqs(half, theta, positions.device)
+
+
+def _rotate(x1, x2, ang):
+    """The rotation of pairs ``(x1, x2)`` by ``ang`` (B, S, half), in fp32."""
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
 def apply_rope(x, positions, theta: float = 10_000.0):
@@ -111,12 +119,33 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     ang = _rope_angles(positions, half, theta)               # (S, half) or (B,S,half)
     if ang.dim() == 2:
         ang = ang[None]                                      # (1, S, half)
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:2 * half]
-    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    rot = _rotate(x[..., :half], x[..., half:2 * half], ang)
     if 2 * half < hd:                                        # odd head_dim tail
         rot = torch.cat([rot, x[..., 2 * half:].to(rot.dtype)], dim=-1)
     return rot.to(x.dtype)
+
+
+def mrope_sections(half: int):
+    """Split of rotary pair-dims among (temporal, height, width) sections."""
+    s1 = half // 4
+    s2 = (half - s1) // 2
+    return (s1, s2, half - s1 - s2)
+
+
+def apply_mrope(x, positions, theta: float = 10_000.0):
+    """Qwen2-VL multimodal RoPE. x: (B,S,H,hd); positions: (B,S,3) int.
+
+    Rotary pair ``j`` turns by its frequency times the temporal, height or
+    width id, the pairs split among the three by ``mrope_sections``. The
+    frequencies and the rotation are ``apply_rope``'s, so three equal ids
+    give its bits. The split is the reference's ``x[..., :half]`` /
+    ``x[..., half:]`` (an odd ``hd`` fails, as there)."""
+    half = x.shape[-1] // 2
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=positions.device),
+        torch.tensor(mrope_sections(half), device=positions.device))   # (half,)
+    ang = positions[..., sec_id].float() * _rope_freqs(half, theta, positions.device)
+    return _rotate(x[..., :half], x[..., half:], ang).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,5 +1,6 @@
-"""Dense, MoE, RWKV6 (``ssm``) and Griffin (``hybrid``) families: port of
-those branches of ``repro/models/transformer.py``.
+"""All six families of ``repro/models/transformer.py``: dense, MoE, RWKV6
+(``ssm``), Griffin (``hybrid``), Qwen2-VL (``vlm``) and enc-dec
+(``encdec``).
 
 Public API (plain functions over a dict of parameters):
     init_params(generator, cfg, dtype)                      -> params
@@ -7,6 +8,11 @@ Public API (plain functions over a dict of parameters):
     init_cache(cfg, batch, max_len, dtype, device, long_context) -> cache
     prefill(params, cfg, batch, max_len, ...)               -> (logits, cache)
     decode_step(params, cfg, cache, tokens, pos, ...)       -> (logits, cache)
+
+``batch`` is a dict: ``tokens`` (B,S) int64, plus family extras, as in the
+reference: ``frames`` (B, src, d) for enc-dec (the stubbed audio frontend's
+output); ``patches`` (B, V, d) and ``positions`` (B, S, 3) for the VLM (the
+stubbed vision encoder's output and the M-RoPE position ids).
 
 Parameters keep the reference's pytree layout: per-layer weights stacked on
 a leading ``L`` axis, projections applied as ``x @ w``, so weights converted
@@ -41,6 +47,26 @@ caches, prefill (with a stored KV prefix) and decode. ``forward(...,
 with_aux=True)`` also returns the mean over layers of each MoE aux value,
 as the reference's does (an empty dict for the other families).
 
+A VLM is a dense stack with ``patch_proj``: ``patches @ patch_proj`` go in
+front of the tokens (``_embed_sequence``), and where ``batch`` holds
+``positions`` (and the config ``mrope``) every layer turns q and k by
+``apply_mrope`` instead of ``apply_rope``; without them the function is the
+dense one. ``decode_step(..., mrope_positions=None)`` defaults to ``pos`` in
+all three ids, the reference's default, which is ``forward``'s function only
+where every earlier token's ids were equal too (text only); a caller with
+vision tokens passes the ids. The serving engine passes tokens only, as the
+reference's does.
+
+An enc-dec model encodes ``frames @ frames_proj`` with ``encoder_layers``
+bidirectional layers (``causal=False``, RoPE on q and k) and a final norm
+into the memory; each of its ``num_layers`` decoder layers runs causal
+self-attention (RoPE), cross-attention over the memory (``causal=False``,
+no RoPE) and an MLP. Its cache holds the decoder's self-attention ring
+``self_k``/``self_v`` (L,B,W,KV,hd), which ``decode_step`` writes in place,
+and the memory's keys and values ``cross_k``/``cross_v`` (L,B,src,KV,hd),
+which it only reads: a step's cross-attention sees all ``src`` slots. Its
+``prefill`` takes no stored prefix.
+
 The long-context mode (``long_context=True``, the reference's ``long_500k``
 input shape) gives dense self-attention the window ``attn_window`` names:
 ``cfg.long_context_window``, or the smaller of that and ``cfg.window_size``
@@ -48,9 +74,6 @@ where the config has a window; the dense cache is then a ring of that many
 slots. The Griffin branches keep ``cfg.local_window`` and the RWKV6 branches
 ignore the flag, as in the reference. The serving engine takes no such
 option, since the reference's takes none.
-
-Not ported yet: the vlm and encdec families, which raise
-``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -62,19 +85,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin as gr
 from repro_torch.models import moe
 from repro_torch.models import rwkv6 as rw
-from repro_torch.models.common import (apply_rope, attention, decode_attend,
-                                       dense_init, init_rmsnorm, mlp,
-                                       normal_init, rmsnorm)
+from repro_torch.models.common import (apply_mrope, apply_rope, attention,
+                                       decode_attend, dense_init, init_rmsnorm,
+                                       mlp, normal_init, rmsnorm)
 
 Params = Dict[str, Any]
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")   # all of them
 
 
-def _require_ported(cfg: ModelConfig):
+def _check_family(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP.md Queue 1)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 # --------------------------------------------------------------------------- #
@@ -151,7 +172,10 @@ def _qkv(p, cfg: ModelConfig, x):
     return q, k, v
 
 
-def _rope_qk(cfg: ModelConfig, q, k, positions):
+def _rope_qk(cfg: ModelConfig, q, k, positions, mrope_positions=None):
+    if cfg.mrope and mrope_positions is not None:
+        return (apply_mrope(q, mrope_positions, cfg.rope_theta),
+                apply_mrope(k, mrope_positions, cfg.rope_theta))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -164,14 +188,15 @@ def _ffn(p, cfg: ModelConfig, h):
 
 
 def _attn_layer_fwd(p, cfg: ModelConfig, x, *, window, q_offset=0,
-                    prefix_kv=None, return_kv=False, auxs=None):
+                    mrope_positions=None, prefix_kv=None, return_kv=False,
+                    auxs=None):
     """Residual attention sub-block + FFN sub-block (full sequence). A MoE
     layer's aux dict is appended to ``auxs`` where one is given."""
     B, S, _ = x.shape
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(p["attn"], cfg, h)
     positions = q_offset + torch.arange(S, device=x.device)
-    q, k = _rope_qk(cfg, q, k, positions)
+    q, k = _rope_qk(cfg, q, k, positions, mrope_positions)
     if prefix_kv is not None:                      # cached-context prefill
         k = torch.cat([prefix_kv[0], k], dim=1)
         v = torch.cat([prefix_kv[1], v], dim=1)
@@ -187,14 +212,14 @@ def _attn_layer_fwd(p, cfg: ModelConfig, x, *, window, q_offset=0,
 
 
 def _attn_layer_decode(p, cfg: ModelConfig, x_t, k_cache, v_cache, pos: int, *,
-                       window):
+                       window, mrope_positions=None):
     """x_t: (B,1,d); caches: (B,W,KV,hd), written in place at slot pos % W."""
     B = x_t.shape[0]
     W = k_cache.shape[1]
     h = rmsnorm(p["ln1"], x_t, cfg.norm_eps)
     q, k, v = _qkv(p["attn"], cfg, h)
     pos_arr = torch.full((1,), pos, device=x_t.device)
-    q, k = _rope_qk(cfg, q, k, pos_arr)
+    q, k = _rope_qk(cfg, q, k, pos_arr, mrope_positions)
     slot = pos % W
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
@@ -279,6 +304,76 @@ def _write_rec_state(cache, i: int, st, prefix: str = ""):
 
 
 # --------------------------------------------------------------------------- #
+# enc-dec layers
+# --------------------------------------------------------------------------- #
+
+def _enc_layer_fwd(p, cfg: ModelConfig, x):
+    B, S, _ = x.shape
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = _qkv(p["attn"], cfg, h)
+    q, k = _rope_qk(cfg, q, k, torch.arange(S, device=x.device))
+    o = attention(q, k, v, causal=False)           # bidirectional
+    x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+
+
+def _cross_q(p, cfg: ModelConfig, x):
+    """The cross-attention's queries from the decoder stream (no RoPE)."""
+    B, S, _ = x.shape
+    hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+    return (hx @ p["cross_attn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+
+
+def _dec_layer_fwd(p, cfg: ModelConfig, x, memory, *, window=None, return_kv=False):
+    B, S, _ = x.shape
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = _qkv(p["self_attn"], cfg, h)
+    q, k = _rope_qk(cfg, q, k, torch.arange(S, device=x.device))
+    o = attention(q, k, v, window=window)
+    x = x + o.reshape(B, S, -1) @ p["self_attn"]["wo"]
+
+    qx = _cross_q(p, cfg, x)
+    ck = (memory @ p["cross_attn"]["wk"]).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
+    cv = (memory @ p["cross_attn"]["wv"]).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
+    ox = attention(qx, ck, cv, causal=False)
+    x = x + ox.reshape(B, S, -1) @ p["cross_attn"]["wo"]
+
+    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    if return_kv:
+        return x, (k, v, ck, cv)
+    return x
+
+
+def _dec_layer_decode(p, cfg: ModelConfig, x_t, sk, sv, ck, cv, pos: int, *,
+                      window=None):
+    """x_t: (B,1,d); the self ring sk/sv (B,W,KV,hd), written in place at
+    slot pos % W; the memory's ck/cv (B,src,KV,hd), read only."""
+    B = x_t.shape[0]
+    W = sk.shape[1]
+    h = rmsnorm(p["ln1"], x_t, cfg.norm_eps)
+    q, k, v = _qkv(p["self_attn"], cfg, h)
+    q, k = _rope_qk(cfg, q, k, torch.full((1,), pos, device=x_t.device))
+    slot = pos % W
+    sk[:, slot] = k[:, 0]
+    sv[:, slot] = v[:, 0]
+    o = decode_attend(q, sk, sv, ring_kpos(W, pos, x_t.device), pos, window=window)
+    x_t = x_t + o.reshape(B, 1, -1) @ p["self_attn"]["wo"]
+
+    src = ck.shape[1]
+    ox = decode_attend(_cross_q(p, cfg, x_t), ck, cv,
+                       torch.arange(src, device=x_t.device), src)
+    x_t = x_t + ox.reshape(B, 1, -1) @ p["cross_attn"]["wo"]
+    return x_t + mlp(p["mlp"], rmsnorm(p["ln2"], x_t, cfg.norm_eps), cfg)
+
+
+def _encode(params: Params, cfg: ModelConfig, frames):
+    x = frames @ params["frames_proj"]
+    for i in range(cfg.encoder_layers):
+        x = _enc_layer_fwd(layer_params(params["encoder"], i), cfg, x)
+    return rmsnorm(params["enc_ln"], x, cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
 
@@ -291,18 +386,22 @@ def _init_mlp(generator, cfg: ModelConfig, dtype):
     return p
 
 
-def _init_attn_layer(generator, cfg: ModelConfig, dtype):
-    """A dense or MoE layer (a Griffin unit's attention layer is dense)."""
+def _init_attention(generator, cfg: ModelConfig, dtype):
     d = cfg.d_model
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = {
-        "ln1": init_rmsnorm(d, dtype, generator.device),
-        "attn": {
-            "wq": dense_init(generator, d, H * hd, dtype),
+    return {"wq": dense_init(generator, d, H * hd, dtype),
             "wk": dense_init(generator, d, KV * hd, dtype),
             "wv": dense_init(generator, d, KV * hd, dtype),
-            "wo": dense_init(generator, H * hd, d, dtype),
-        },
+            "wo": dense_init(generator, H * hd, d, dtype)}
+
+
+def _init_attn_layer(generator, cfg: ModelConfig, dtype):
+    """A dense, MoE or VLM layer, or an enc-dec encoder layer (a Griffin
+    unit's attention layer is dense)."""
+    d = cfg.d_model
+    p = {
+        "ln1": init_rmsnorm(d, dtype, generator.device),
+        "attn": _init_attention(generator, cfg, dtype),
         "ln2": init_rmsnorm(d, dtype, generator.device),
     }
     if cfg.family == "moe":
@@ -325,6 +424,16 @@ def _init_griffin_unit(generator, cfg: ModelConfig, dtype):
             "attn": _init_attn_layer(generator, cfg, dtype)}
 
 
+def _init_dec_layer(generator, cfg: ModelConfig, dtype):
+    d, dev = cfg.d_model, generator.device
+    return {"ln1": init_rmsnorm(d, dtype, dev),
+            "self_attn": _init_attention(generator, cfg, dtype),
+            "ln_x": init_rmsnorm(d, dtype, dev),
+            "cross_attn": _init_attention(generator, cfg, dtype),
+            "ln2": init_rmsnorm(d, dtype, dev),
+            "mlp": _init_mlp(generator, cfg, dtype)}
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 dtype=torch.bfloat16) -> Params:
     """Random weights with the reference's shapes and scales, drawn from
@@ -333,7 +442,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     with ``repro_torch.convert.params_from_jax`` instead. RWKV6's
     ``rw.FP32_LEAVES``, Griffin's ``gr.FP32_LEAVES`` and the MoE router are
     fp32 whatever ``dtype`` is, as in the reference."""
-    _require_ported(cfg)
+    _check_family(cfg)
     V, d = cfg.padded_vocab, cfg.d_model
     p = {
         "embed": normal_init(generator, (V, d), 0.02, dtype),
@@ -346,8 +455,18 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         if tail:
             p["tail"] = _stacked_init(tail, lambda: _init_rec_layer(generator, cfg, dtype))
         return p
+    if cfg.family == "encdec":
+        p["frames_proj"] = dense_init(generator, d, d, dtype)
+        p["encoder"] = _stacked_init(cfg.encoder_layers,
+                                     lambda: _init_attn_layer(generator, cfg, dtype))
+        p["enc_ln"] = init_rmsnorm(d, dtype, generator.device)
+        p["decoder"] = _stacked_init(cfg.num_layers,
+                                     lambda: _init_dec_layer(generator, cfg, dtype))
+        return p
     init_layer = _init_rwkv_layer if cfg.family == "ssm" else _init_attn_layer
     p["layers"] = _stacked_init(cfg.num_layers, lambda: init_layer(generator, cfg, dtype))
+    if cfg.family == "vlm":
+        p["patch_proj"] = dense_init(generator, d, d, dtype)
     return p
 
 
@@ -355,12 +474,23 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 # full-sequence forward
 # --------------------------------------------------------------------------- #
 
+def _embed_sequence(params: Params, cfg: ModelConfig, batch):
+    """Token (+ modality-stub) embedding -> (B, S, d): a VLM batch's
+    ``patches @ patch_proj`` go in front of the tokens."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.family == "vlm" and "patches" in batch:
+        vis = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([vis, x], dim=1)
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False,
             with_aux=False):
-    """Full-sequence logits (B, S, padded_vocab); with ``with_aux``, also
-    the mean over layers of each MoE aux value (empty for other families)."""
-    _require_ported(cfg)
-    x = params["embed"][batch["tokens"]]
+    """Full-sequence logits (B, S, padded_vocab), S counting a VLM's vision
+    tokens; with ``with_aux``, also the mean over layers of each MoE aux
+    value (empty for other families)."""
+    _check_family(cfg)
+    x = _embed_sequence(params, cfg, batch)
     auxs = []
     if cfg.family == "ssm":
         st = _rwkv_empty_state(cfg, x.shape[0], x.dtype, x.device)
@@ -376,11 +506,19 @@ def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False,
             x = _attn_layer_fwd(up["attn"], cfg, x, window=cfg.local_window)
         for i in range(tail):
             x, _ = _rec_layer_fwd(layer_params(params["tail"], i), cfg, x, rst)
-    else:
+    elif cfg.family == "encdec":
+        memory = _encode(params, cfg, batch["frames"].to(x.dtype))
         window = attn_window(cfg, long_context)
         for i in range(cfg.num_layers):
+            x = _dec_layer_fwd(layer_params(params["decoder"], i), cfg, x, memory,
+                               window=window)
+    else:
+        window = attn_window(cfg, long_context)
+        mrope_positions = batch.get("positions") if cfg.mrope else None
+        for i in range(cfg.num_layers):
             x = _attn_layer_fwd(layer_params(params["layers"], i), cfg, x,
-                                window=window, auxs=auxs)
+                                window=window, mrope_positions=mrope_positions,
+                                auxs=auxs)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
     logits = x @ params["unembed"]
     if not with_aux:
@@ -395,7 +533,7 @@ def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype=torch.bfloat16, device="cuda", long_context=False):
-    _require_ported(cfg)
+    _check_family(cfg)
     if cfg.family == "hybrid":
         U, tail = griffin_layout(cfg)
         B, dr, cw = batch_size, cfg.rnn_width, cfg.conv_width
@@ -423,6 +561,13 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                 "x_cm": torch.zeros((L, B, d), dtype=dtype, device=device)}
     W = cache_width(cfg, max_len, long_context)
     shape = (cfg.num_layers, batch_size, W, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family == "encdec":
+        cross = (cfg.num_layers, batch_size, cfg.source_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"self_k": torch.zeros(shape, dtype=dtype, device=device),
+                "self_v": torch.zeros(shape, dtype=dtype, device=device),
+                "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+                "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -448,16 +593,21 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     prefix_cache/prefix_len: reuse a stored KV prefix (the paper's cache-hit
     path) — new tokens attend to prefix keys with q_offset = prefix_len.
     ``prefix_cache`` needs ``[:, :, :prefix_len]`` to hold positions
-    ``0..prefix_len-1`` in order (a ring that has not wrapped). Dense and
-    moe families only; an ssm or hybrid prefill starts from the empty
-    state.
+    ``0..prefix_len-1`` in order (a ring that has not wrapped). Dense, moe
+    and vlm families only; an ssm or hybrid prefill starts from the empty
+    state, and an encdec one from the frames.
     """
-    _require_ported(cfg)
-    x = params["embed"][batch["tokens"]]
+    _check_family(cfg)
+    x = _embed_sequence(params, cfg, batch)
     B = x.shape[0]
     if cfg.family in ("ssm", "hybrid") and (prefix_cache is not None or prefix_len):
         raise ValueError(f"{cfg.name}: a recurrent prefill starts from the empty "
                          "state; a stored state is resumed through decode_step")
+    if cfg.family == "encdec":
+        if prefix_cache is not None or prefix_len:
+            raise ValueError(f"{cfg.name}: an enc-dec prefill takes no stored "
+                             "prefix (the reference's has no prefix route)")
+        return _encdec_prefill(params, cfg, batch, x, max_len, long_context)
     if cfg.family == "hybrid":
         return _griffin_prefill(params, cfg, x, max_len)
     if cfg.family == "ssm":
@@ -470,6 +620,7 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
         return x @ params["unembed"], cache
     window = attn_window(cfg, long_context)
     W = cache_width(cfg, max_len, long_context)
+    mrope_positions = batch.get("positions") if cfg.mrope else None
     cache = init_cache(cfg, B, max_len, x.dtype, x.device, long_context)
     for i in range(cfg.num_layers):
         prefix_kv = None
@@ -478,11 +629,30 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
                          prefix_cache["v"][i, :, :prefix_len])
         x, (k, v) = _attn_layer_fwd(
             layer_params(params["layers"], i), cfg, x, window=window,
-            q_offset=prefix_len, prefix_kv=prefix_kv, return_kv=True)
+            q_offset=prefix_len, mrope_positions=mrope_positions,
+            prefix_kv=prefix_kv, return_kv=True)
         cache["k"][i] = _place_kv_in_ring(k, W)
         cache["v"][i] = _place_kv_in_ring(v, W)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
     return x @ params["unembed"], cache
+
+
+def _encdec_prefill(params: Params, cfg: ModelConfig, batch, x, max_len: int,
+                    long_context: bool):
+    """The decoder over the prompt, against the encoded frames: the self
+    ring of each layer and the memory's keys and values as the cache."""
+    memory = _encode(params, cfg, batch["frames"].to(x.dtype))
+    window = attn_window(cfg, long_context)
+    W = cache_width(cfg, max_len, long_context)
+    kv = {"self_k": [], "self_v": [], "cross_k": [], "cross_v": []}
+    for i in range(cfg.num_layers):
+        x, (k, v, ck, cv) = _dec_layer_fwd(layer_params(params["decoder"], i), cfg,
+                                           x, memory, window=window, return_kv=True)
+        for name, t in zip(kv, (_place_kv_in_ring(k, W), _place_kv_in_ring(v, W),
+                                ck, cv)):
+            kv[name].append(t)
+    x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    return x @ params["unembed"], {name: torch.stack(ts) for name, ts in kv.items()}
 
 
 def _griffin_prefill(params: Params, cfg: ModelConfig, x, max_len: int):
@@ -526,11 +696,13 @@ def _griffin_decode(params: Params, cfg: ModelConfig, cache, x, pos: int):
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int, *,
-                long_context=False):
+                long_context=False, mrope_positions=None):
     """One autoregressive step. tokens: (B,1) int64; pos: the absolute
-    position being written. Returns (logits (B,1,V), cache); the cache's
-    tensors are updated in place."""
-    _require_ported(cfg)
+    position being written; mrope_positions (B,1,3), for an ``mrope``
+    config, default to ``pos`` in all three ids, as in the reference.
+    Returns (logits (B,1,V), cache); the cache's tensors are updated in
+    place (an enc-dec cache's self ring only)."""
+    _check_family(cfg)
     pos = int(pos)
     x = params["embed"][tokens]
     if cfg.family == "hybrid":
@@ -546,8 +718,19 @@ def decode_step(params: Params, cfg: ModelConfig, cache, tokens, pos: int, *,
         x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
         return x @ params["unembed"], cache
     window = attn_window(cfg, long_context)
-    for i in range(cfg.num_layers):
-        x = _attn_layer_decode(layer_params(params["layers"], i), cfg, x,
-                               cache["k"][i], cache["v"][i], pos, window=window)
+    if cfg.family == "encdec":
+        for i in range(cfg.num_layers):
+            x = _dec_layer_decode(layer_params(params["decoder"], i), cfg, x,
+                                  cache["self_k"][i], cache["self_v"][i],
+                                  cache["cross_k"][i], cache["cross_v"][i], pos,
+                                  window=window)
+    else:
+        if cfg.mrope and mrope_positions is None:
+            mrope_positions = torch.full((tokens.shape[0], 1, 3), pos,
+                                         device=x.device)
+        for i in range(cfg.num_layers):
+            x = _attn_layer_decode(layer_params(params["layers"], i), cfg, x,
+                                   cache["k"][i], cache["v"][i], pos, window=window,
+                                   mrope_positions=mrope_positions)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
     return x @ params["unembed"], cache

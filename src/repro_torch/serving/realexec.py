@@ -1,9 +1,8 @@
 """Real-execution serving: a PyTorch model behind the GreenCache store.
 
-Port of ``repro/serving/realexec.py`` for the dense, MoE, RWKV6 (``ssm``)
-and Griffin (``hybrid``) families. The paper's mechanism for a transformer
-(dense or MoE, as the reference routes only ``ssm`` and ``hybrid`` to the
-state snapshot), run for real on the card:
+Port of ``repro/serving/realexec.py``. The paper's mechanism for a
+transformer (dense, MoE or Qwen2-VL, as the reference routes only ``ssm``
+and ``hybrid`` to the state snapshot), run for real on the card:
 
 1. look the context up in the KV store;
 2. restore the stored prefix K/V;
@@ -22,6 +21,17 @@ prompt fits the ring. That slice holds the prefix in order only while the
 ring has not wrapped (the reference assumes the same and would read
 scrambled positions), so a hit whose stored prefix is longer than the cache
 width ``W`` raises.
+
+A Qwen2-VL model is served on its token path only, as the reference serves
+it: the engine passes ``{"tokens": ...}`` and nothing else, so there are no
+vision tokens and every layer takes ``apply_rope`` in the prefill, and
+``decode_step``'s default M-RoPE ids (``pos`` in all three), which give the
+same rotation.
+
+An enc-dec model is refused at construction: the reference's engine passes
+no ``frames``, and its ``prefill`` fails on it with ``KeyError: 'frames'``.
+Enc-dec runs through the model functions (``init_cache``, ``prefill``,
+``decode_step``, ``forward``) only.
 
 A recurrent model (RWKV6, Griffin) caches a snapshot of its state
 instead, as the reference does (``realexec.py:87-122``): on a hit the state
@@ -47,8 +57,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvstore import KVStore
-from repro_torch.models.transformer import (PORTED_FAMILIES, cache_width,
-                                            decode_step, init_cache, prefill)
+from repro_torch.models.transformer import (cache_width, decode_step,
+                                            init_cache, prefill)
 
 
 def _clone(tree):
@@ -67,6 +77,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_servable(cfg: ModelConfig):
+    """Raises ``ValueError`` for a family the engine does not serve (enc-dec)."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the engine serves no enc-dec model; the reference's "
+            "fails on one (KeyError: 'frames', as it passes no frames to "
+            "prefill). Run enc-dec through the model functions init_cache, "
+            "prefill, decode_step and forward")
+
+
 @dataclass
 class GenerationResult:
     tokens: List[int]
@@ -80,9 +100,7 @@ class GenerationResult:
 class RealExecutionEngine:
     def __init__(self, cfg: ModelConfig, params, store: KVStore, *,
                  max_len: int = 512, dtype=torch.float32, device=None):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.family!r} serving is not ported yet (ROADMAP.md Queue 1)")
+        check_servable(cfg)
         self.device = resolve_device(device)
         embed = params["embed"]
         if embed.device.type != self.device.type or embed.dtype != dtype:

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALL_ARCHS as JALL_ARCHS
 from repro.configs import get_config as jget_config
 from repro.core.kvstore import KVStore as JKVStore
 from repro.core.policies import POLICIES as JPOLICIES
@@ -80,11 +81,13 @@ def test_config_copy_matches_reference(arch, reduce):
 
 
 def test_registry_serves_the_dense_family():
-    assert set(ALL_ARCHS) == {"yi-6b", "rwkv6-1.6b", "recurrentgemma-2b", "llama3-8b",
-                              "h2o-danube-1.8b", "minitron-8b", "nemotron-4-15b",
-                              "llama3-70b", "dbrx-132b", "grok-1-314b"}
+    """The port's registry is the reference's: all twelve archs."""
+    assert set(ALL_ARCHS) == set(JALL_ARCHS) == {
+        "yi-6b", "rwkv6-1.6b", "recurrentgemma-2b", "llama3-8b", "h2o-danube-1.8b",
+        "minitron-8b", "nemotron-4-15b", "llama3-70b", "dbrx-132b", "grok-1-314b",
+        "qwen2-vl-2b", "seamless-m4t-large-v2"}
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("qwen2-vl-2b")
+        get_config("qwen2-vl-7b")
 
 
 @pytest.mark.parametrize("reduce", [False, True], ids=["full", "reduced"])

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-the MoE FFN against its dense oracle, and the reduced engines (yi-6b,
-h2o-danube-1.8b, dbrx-132b, grok-1-314b, rwkv6-1.6b, recurrentgemma-2b) on
-the card against the same engines on the CPU.
+the MoE FFN against its dense oracle, the reduced engines (yi-6b,
+h2o-danube-1.8b, dbrx-132b, grok-1-314b, rwkv6-1.6b, recurrentgemma-2b,
+qwen2-vl-2b) and the reduced enc-dec model functions on the card against
+the same on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, inside the ``cuda``
 fixture, when there is no card. The file imports no jax, so it runs on a
@@ -21,14 +22,18 @@ from repro_torch.core.policies import POLICIES
 from repro_torch.kernels import cases, ops
 from repro_torch.launch import serve, shapes
 from repro_torch.models import moe
+from repro_torch.models import transformer as tt
 from repro_torch.models.transformer import griffin_layout, init_params
 from repro_torch.serving.realexec import RealExecutionEngine
 
 DENSE_FLASH, DENSE_DECODE, DENSE_IDENTITY = shapes.dense_shapes()
+FAMILY_FLASH, FAMILY_DECODE, FAMILY_IDENTITY = shapes.family_shapes()
 FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
-               + cases.FLASH_GRIFFIN + cases.FLASH_TILES + list(DENSE_FLASH.values()))
+               + cases.FLASH_GRIFFIN + cases.FLASH_TILES + list(DENSE_FLASH.values())
+               + list(FAMILY_FLASH.values()))
 DECODE_CASES = (cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
-                + cases.DECODE_MAIN + cases.DECODE_FLOOR + list(DENSE_DECODE.values()))
+                + cases.DECODE_MAIN + cases.DECODE_FLOOR + list(DENSE_DECODE.values())
+                + list(FAMILY_DECODE.values()))
 WKV6_CASES = (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
               + cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16)
 RGLRU_CASES = (cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
@@ -57,7 +62,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case,first", cases.FLASH_IDENTITY + DENSE_IDENTITY)
+@pytest.mark.parametrize("case,first", cases.FLASH_IDENTITY + DENSE_IDENTITY
+                         + FAMILY_IDENTITY)
 def test_flash_hit_rows_equal_cold_rows(cuda, case, first):
     """A cache hit's suffix rows equal the cold prefill's bit for bit in
     bf16: a row's arithmetic does not depend on its block."""
@@ -340,3 +346,56 @@ def test_reduced_griffin_engine_on_card_matches_cpu(cuda, num_layers):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
                                    c.last_logits.numpy(), atol=5e-4)
+
+
+@pytest.mark.gpu
+def test_reduced_vlm_engine_on_card_matches_cpu(cuda):
+    """qwen2-vl-2b's reduced demo on its token path: the card's greedy
+    tokens, reuse and logits are the CPU's, one flash launch per layer and
+    prefill and one decode launch per layer and token."""
+    cfg, on_cpu = serve.build_engine("qwen2-vl-2b", device="cpu", reduced=True)
+    _, on_card = serve.build_engine("qwen2-vl-2b", device=cuda, reduced=True,
+                                    params=_to(on_cpu.params, cuda))
+    _, c1, c2 = serve.two_turns(cfg, on_cpu, True)
+    before = {n: getattr(ops, n).launches for n in ops.__all__}
+    _, g1, g2 = serve.two_turns(cfg, on_card, True)
+    launched = {n: getattr(ops, n).launches - before[n] for n in ops.__all__}
+    num_new = serve.REDUCED_TURNS[2]
+    assert launched == {"flash_attention": 2 * cfg.num_layers,
+                        "decode_attention": 2 * num_new * cfg.num_layers,
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
+    for c, g in ((c1, g1), (c2, g2)):
+        assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
+        np.testing.assert_allclose(g.last_logits.cpu().numpy(),
+                                   c.last_logits.numpy(), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.gpu
+def test_reduced_encdec_prefill_and_steps_on_card_match_cpu(cuda):
+    """seamless-m4t-large-v2 reduced (2 decoder layers, 1 encoder layer over
+    16 frames): prefill and three decode steps on the card against the CPU,
+    logits and all four cache tensors, with the encoder's, the
+    self-attention's and the cross-attention's launches counted."""
+    cfg = get_config("seamless-m4t-large-v2").reduced(num_layers=2, d_model=128)
+    params = init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 15), generator=gen),
+             "frames": 0.02 * torch.randn((2, cfg.source_len, cfg.d_model),
+                                          generator=gen)}
+    results = {}
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        b = _to(batch, device)
+        before = {n: getattr(ops, n).launches for n in ops.__all__}
+        logits, cache = tt.prefill(p, cfg, dict(b, tokens=b["tokens"][:, :12]), 32)
+        steps = [tt.decode_step(p, cfg, cache, b["tokens"][:, t:t + 1], t)[0]
+                 for t in (12, 13, 14)]
+        launched = {n: getattr(ops, n).launches - before[n] for n in ops.__all__}
+        results[str(device)] = (logits, cache, steps, launched)
+    (c_logits, c_cache, c_steps, _), (g_logits, g_cache, g_steps, launched) = \
+        results["cpu"], results[str(cuda)]
+    assert launched == {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
+                        "decode_attention": 3 * 2 * cfg.num_layers,
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
+    for c, g in [(c_logits, g_logits)] + list(zip(c_steps, g_steps)) + \
+            [(c_cache[k], g_cache[k]) for k in c_cache]:
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), atol=3e-4, rtol=3e-4)

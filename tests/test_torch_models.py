@@ -196,10 +196,3 @@ def test_torch_init_params_shapes_and_scales():
             t = t[key.key]
         assert tuple(t.shape) == leaf.shape, path
         assert abs(float(t.float().std()) - float(leaf.std())) <= 0.1 * float(leaf.std()) + 1e-6
-
-
-@pytest.mark.parametrize("family", ["vlm", "encdec"])
-def test_other_families_name_their_queue(family):
-    cfg = dataclasses.replace(get_config("yi-6b").reduced(), family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tt.init_cache(cfg, 1, 16, device="cpu")
