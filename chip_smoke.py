@@ -183,14 +183,44 @@
    prefill and forward (12 encoder, 12 self, 12 cross) and 24 decode
    launches per step (12 self over the ring, 12 cross over every frame).
    The engine serves no enc-dec model, as the reference's cannot.
-16. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
+16. Flash backward kernel (after step 7, before any engine):
+   ``check_flash_bwd`` at every ``cases.FLASH_BWD`` case (the forward's
+   sweep, ragged, empty-band and tile-edge cases) and at the training
+   shapes ``cases.FLASH_BWD_TRAIN`` (h2o-danube-1.8b (1,32,8,8192,8192,80,
+   window 4096), yi-6b (1,32,4,4096,4096,128), the 100M twin's
+   (4,4,4,256,256,192), an enc-dec cross-attention (1,16,16,512,1024,64, not
+   causal)), fp32 and bf16: dq, dk and dv through autograd of
+   ``ops.flash_attention`` against ``ref.flash_attention_bwd_ref`` within
+   ``cases.TOL``. At the training shapes also the backward entry's time
+   (``ops.flash_attention_bwd`` alone), the plain version's, SDPA's
+   backward (``enable_gqa``, the mask explicit; a yardstick only) and the
+   bound: five products of 2·hd flops per visible pair (and 2·hd·Sk per
+   empty-band row) at the dtype's peak, or q, k, v, out and dout read and
+   dq, dk, dv written once at 3.35 TB/s.
+17. The 100M twin (``repro_torch.launch.train_100m``, after step 15): yi-6b
+   reduced to 12 layers of d_model 768, batch 4 x 256, fp32, 300 steps; the
+   mean of the last 10 losses must be below that of the first 10, with
+   exactly 12 x 2 flash launches (the forward and remat's recompute) and 12
+   backward calls per step.
+18. h2o-danube-1.8b training at every published width and full depth: bf16
+   weights from ``init_train_state`` (seed 0), batch 1 x 8,192 tokens from
+   ``batch_iterator`` (the window binds in the forward and the backward),
+   three steps; finite loss and grad norm, the weights moved, exactly 48
+   flash and 24 backward launches per step, time per step and peak memory.
+19. One h2o-danube-1.8b attention layer at 8,192 tokens in fp32: the
+   gradients of its weights and input through the kernels, then through
+   the plain versions (``ops.flash_attention`` swapped for
+   ``ref.flash_attention_ref`` for that call only: the oracle, not the
+   path), each within ``LAYER_GRAD_TOL`` x its largest entry.
+20. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
    ``library_device_ms`` and ``library_premasked_device_ms``; decode's,
    wkv6's and the rglru kernels' with ``device_ms``; the fused step's with
    ``plain_device_ms``), the card line, and last
    ``{"ok": true, "device": {...}}``. Every kernel must have launched on
    its main path: flash, decode on yi-6b; wkv6 on rwkv6-1.6b's engine; the
    fused rglru step on recurrentgemma-2b's engine; the rglru scan in that
-   model's prefill and forward (the engine feeds every token by steps).
+   model's prefill and forward (the engine feeds every token by steps); the
+   flash backward in h2o-danube-1.8b's training.
 
 Steps 4 and 7 run right after step 2, before any engine: after the yi-6b
 replay's profile (host and device activity), every profiler window of the
@@ -228,12 +258,17 @@ SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
            # the same Pallas kernel at S = 1, with the step's elementwise
            # chain (repro/models/griffin.py::rglru_step) fused in
            "rglru_step": "src/repro/kernels/rglru.py:38",
-           "wkv6": "src/repro/kernels/wkv6.py:55"}
+           "wkv6": "src/repro/kernels/wkv6.py:55",
+           # no Pallas kernel: the reference takes this gradient by autodiff
+           # of its jnp attention (repro/models/common.py, _attend)
+           "flash_attention_bwd": "src/repro/models/common.py:167"}
 CSRC = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_attention.cu",
-        "rglru_scan": "rglru_scan.cu", "rglru_step": "rglru_scan.cu", "wkv6": "wkv6.cu"}
+        "rglru_scan": "rglru_scan.cu", "rglru_step": "rglru_scan.cu", "wkv6": "wkv6.cu",
+        "flash_attention_bwd": "flash_attention_bwd.cu"}
 PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
                 "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
-                "wkv6_kernel", "wkv6_step_kernel")   # device names
+                "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkdv_kernel")   # device names
 DECODE_BF16_OLD = "decode_partial_kernel<__nv_bfloat16"   # bf16 decode must not run it
 RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
@@ -243,6 +278,13 @@ GRIFFIN_PREFILL = 2560                    # past the 2,048 window: the ring wrap
 # turn 2; the others run without it
 DENSE_PROFILED = ("llama3-8b", "h2o-danube-1.8b")
 MOE_TOKENS = 512                          # tokens of the MoE module check
+TRAIN = "h2o-danube-1.8b"                 # trains at full width and depth
+TRAIN_TOKENS = 8192                       # batch 1: past the 4,096 window
+TRAIN_STEPS = 3
+# one layer's gradients through the kernels against the plain versions, each
+# within this times its largest entry: the fp32 model tolerance of the
+# reference's test_prefill_decode_consistency (5e-4), scaled to the gradient
+LAYER_GRAD_TOL = 5e-4
 
 
 def log(*a):
@@ -322,10 +364,10 @@ def per_token(cfg):
     from repro_torch.models.transformer import griffin_layout
     if cfg.family == "ssm":
         return {"flash_attention": 0, "decode_attention": 0, "rglru_scan": 0,
-                "rglru_step": 0, "wkv6": cfg.num_layers}
+                "rglru_step": 0, "wkv6": cfg.num_layers, "flash_attention_bwd": 0}
     units, tail = griffin_layout(cfg)
     return {"flash_attention": 0, "decode_attention": units, "rglru_scan": 0,
-            "rglru_step": 2 * units + tail, "wkv6": 0}
+            "rglru_step": 2 * units + tail, "wkv6": 0, "flash_attention_bwd": 0}
 
 
 def tree_map(tree, fn):
@@ -349,8 +391,8 @@ def bound(ops_n: float, nbytes: float, dtype):
 # kernels
 # --------------------------------------------------------------------------- #
 
-def flash_row(ops, ref, cases, case, dtype):
-    err, (q, k, v) = cases.check_flash(case, dtype, "cuda")
+def flash_mask(case):
+    """The (Sq, Sk) boolean mask of a flash case, for SDPA."""
     B, H, KV, Sq, Sk, hd, off, win, causal = case
     qpos = off + torch.arange(Sq, device="cuda")[:, None]
     kpos = torch.arange(Sk, device="cuda")[None, :]
@@ -359,6 +401,13 @@ def flash_row(ops, ref, cases, case, dtype):
         mask &= kpos <= qpos
     if win is not None:
         mask &= kpos > qpos - win
+    return mask
+
+
+def flash_row(ops, ref, cases, case, dtype):
+    err, (q, k, v) = cases.check_flash(case, dtype, "cuda")
+    B, H, KV, Sq, Sk, hd, off, win, causal = case
+    mask = flash_mask(case)
     kw = dict(q_offset=off, window=win, causal=causal)
     sets = copies([q, k, v])
     ms = rotated_ms(lambda *t: ops.flash_attention(*t, **kw), sets, 20)
@@ -491,6 +540,46 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
     return rows
 
 
+def flash_bwd_row(ops, ref, cases, case, dtype):
+    """The backward at a training shape: held (``check_flash_bwd``), then
+    timed by events on the forward's saved tensors: the backward entry
+    alone, the plain version, SDPA's backward."""
+    err, (q, k, v, out, dout) = cases.check_flash_bwd(case, dtype, "cuda")
+    B, H, KV, Sq, Sk, hd, off, win, causal = case
+    kw = dict(q_offset=off, window=win, causal=causal)
+    sets = copies([q, k, v, out, dout], limit=4)
+    ms = rotated_ms(lambda *t: ops.flash_attention_bwd(*t, **kw), sets, 5)
+    plain = rotated_ms(lambda q, k, v, out, dout: ref.flash_attention_bwd_ref(
+        q, k, v, dout, **kw), sets[:1], 2)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, attn_mask=flash_mask(case), enable_gqa=True)
+    lib = rotated_ms(lambda g: torch.autograd.grad(o, leaves, g, retain_graph=True),
+                     [[dout]], 5)
+    del o, leaves
+    pairs, empty = cases.flash_visible(case)
+    ops_n = B * H * (5 * 2 * hd * pairs + 2 * hd * Sk * empty)
+    nbytes = q.element_size() * 4 * (q.numel() + k.numel())   # in: q k v out dout; out: dq dk dv
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
+
+
+def flash_bwd_phase(ops, ref, cases):
+    """Step 16: every backward case checked, the training shapes timed."""
+    rows = {}
+    for dtype in DTYPES:
+        for case in cases.FLASH_BWD:
+            err, _ = cases.check_flash_bwd(case, dtype, "cuda")
+            log(f"flash_attention_bwd {str(dtype)[6:]} {case}: max |err| {err:.3e}")
+        for label, case in cases.FLASH_BWD_TRAIN.items():
+            r = rows[(dtype, label)] = flash_bwd_row(ops, ref, cases, case, dtype)
+            torch.cuda.empty_cache()
+            log(f"flash_attention_bwd {str(dtype)[6:]} {label} {case}: max |err| "
+                f"{r['max_abs_err']:.3e}, kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
+                f"ms, sdpa backward {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
+                f"({r['bound_by']})")
+    return rows
+
+
 def identity_phase(cases, pairs):
     """Cold rows against a cache hit's, bit for bit, at full width."""
     for case, first in pairs:
@@ -546,7 +635,7 @@ def check_two_turns(serve, arch, cfg, eng, ctx2, r1, r2, launches):
                              f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
     # one flash launch per layer and prefill, one decode launch per layer and token
     if launches != {"flash_attention": 2 * L, "decode_attention": 2 * num_new * L,
-                    "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}:
+                    "rglru_scan": 0, "rglru_step": 0, "wkv6": 0, "flash_attention_bwd": 0}:
         raise AssertionError(f"launch counts {launches}")
     for i, r in ((1, r1), (2, r2)):
         if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
@@ -999,7 +1088,7 @@ def rwkv_model_phase(ops, tt, cfg):
         raise AssertionError(f"{RWKV}: prefill + step disagrees with prefill")
     if (n_prefill, n_step, counts["wkv6"]) != (L, L, 3 * L) or \
             counts["flash_attention"] or counts["decode_attention"] or \
-            counts["rglru_scan"] or counts["rglru_step"]:
+            counts["rglru_scan"] or counts["rglru_step"] or counts["flash_attention_bwd"]:
         raise AssertionError(f"{RWKV}: launch counts {counts}")
     del params, cache, step, full
     bf16_prefill_ms(tt, cfg, toks[:, :S])
@@ -1143,6 +1232,134 @@ def griffin_model_phase(ops, tt, cfg):
     return {n: sum(g[n] for g in got.values()) for n in SOURCES}
 
 
+# --------------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------------- #
+
+def train_100m_phase(ops, train_100m):
+    """Step 17: the 100M twin on the card, its counts per step exact."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ops)
+    t0 = time.perf_counter()
+    losses = train_100m.main(["--device", "cuda"])
+    dt = time.perf_counter() - t0
+    counts = read_counts(ops)
+    steps, L = len(losses), train_100m.LAYERS
+    want = dict({n: 0 for n in SOURCES}, flash_attention=2 * L * steps,
+                flash_attention_bwd=L * steps)
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    log(f"100M twin: {steps} fp32 steps in {dt:.3f} s ({dt / steps * 1e3:.3f} ms per step, "
+        f"the checkpoint's write included); loss, mean of the first 10 {first:.4f}, of the "
+        f"last 10 {last:.4f}; launches {counts}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not last < first:
+        raise AssertionError("100M twin: the loss did not fall")
+    if counts != want:
+        raise AssertionError(f"100M twin: launch counts {counts}, want {want}")
+    return counts
+
+
+def train_phase(ops, cfg):
+    """Step 18: full width and depth, bf16, TRAIN_STEPS steps of
+    TRAIN_TOKENS tokens, exact counts per step."""
+    from repro_torch.launch.serve import train_bytes
+    from repro_torch.train.data import batch_iterator, batch_to
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(0, cfg, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"{cfg.name} training, full width: {describe(cfg)}; bf16 weights and fp32 moments "
+        f"drawn in {time.perf_counter() - t0:.3f} s; train_bytes {train_bytes(cfg) / 1e9:.3f} "
+        f"GB; allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    # a few small slices of matrices, to see the weights move (a norm's
+    # scale of 1 keeps its bf16 value under updates below half its ulp)
+    probes = {"embed": lambda p: p["embed"][:64],
+              "layers/attn/wq": lambda p: p["layers"]["attn"]["wq"][0, :64],
+              "layers/mlp/w_down": lambda p: p["layers"]["mlp"]["w_down"][-1, :64],
+              "unembed": lambda p: p["unembed"][:, :64]}
+    before = {k: f(params).detach().clone() for k, f in probes.items()}
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS))
+    it = batch_iterator(cfg, 1, TRAIN_TOKENS, seed=0)
+    L = cfg.num_layers
+    want = dict({n: 0 for n in SOURCES}, flash_attention=2 * L, flash_attention_bwd=L)
+    total = {n: 0 for n in SOURCES}
+    for i in range(TRAIN_STEPS):
+        batch = batch_to(next(it), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (params, opt, m), got = launched(ops, lambda: step(params, opt, batch))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        log(f"{cfg.name} training step {i}: {TRAIN_TOKENS} tokens in {dt * 1e3:.3f} ms; loss "
+            f"{loss:.4f}, grad norm {gnorm:.4f}, lr {float(m['lr']):.3e}; launches {got}; "
+            f"peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if got != want:
+            raise AssertionError(f"{cfg.name} training: launch counts {got}, want {want}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{cfg.name} training: loss {loss}, grad norm {gnorm}")
+        for n, c in got.items():
+            total[n] += c
+    with torch.no_grad():
+        moved = {k: float((f(params).float() - before[k].float()).abs().max())
+                 for k, f in probes.items()}
+    log(f"{cfg.name} training: largest change of each probed slice {moved}")
+    if not all(x > 0 for x in moved.values()):
+        raise AssertionError(f"{cfg.name} training: weights did not move: {moved}")
+    return total
+
+
+def layer_grad_phase(ops, ref, tt, cfg):
+    """Step 19: one attention layer's gradients through the kernels against
+    the plain versions, fp32, TRAIN_TOKENS tokens."""
+    from repro_torch.train import tree
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    one = dataclasses.replace(cfg, num_layers=1)
+    layer = tt.layer_params(tt.init_params(gen, one, torch.float32)["layers"], 0)
+    layer = tree.map_leaves(layer, lambda t: t.detach().clone().requires_grad_(True))
+    x = torch.randn((1, TRAIN_TOKENS, cfg.d_model), generator=gen, device="cuda",
+                    requires_grad=True)
+    dy = torch.randn((1, TRAIN_TOKENS, cfg.d_model), generator=gen, device="cuda")
+    names = [k for k, _ in tree.items(layer)] + ["x"]
+
+    def grads():
+        leaves = tree.leaves(layer) + [x]
+        y = tt._attn_layer_fwd(layer, cfg, x, window=tt.attn_window(cfg))
+        return torch.autograd.grad(y, leaves, dy)
+
+    t0 = time.perf_counter()
+    got, counts = launched(ops, grads)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    real = ops.flash_attention
+    ops.flash_attention = ref.flash_attention_ref      # the oracle, for this call only
+    try:
+        t0 = time.perf_counter()
+        want = grads()
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = real
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        worst = max(worst, err / scale)
+        if not (err <= LAYER_GRAD_TOL * scale and math.isfinite(scale)):
+            raise AssertionError(f"{cfg.name} one layer: d{name} max |err| {err:.3e}, "
+                                 f"max |grad| {scale:.3e}")
+    log(f"{cfg.name} one attention layer, {TRAIN_TOKENS} tokens, fp32: {len(names)} "
+        f"gradients through the kernels ({t_kernel * 1e3:.3f} ms; launches {counts}) against "
+        f"the plain versions ({t_plain * 1e3:.3f} ms): largest max |err| / max |grad| "
+        f"{worst:.3e} (limit {LAYER_GRAD_TOL:g})")
+    if (counts["flash_attention"], counts["flash_attention_bwd"]) != (1, 1):
+        raise AssertionError(f"{cfg.name} one layer: launches {counts}")
+
+
 def describe(cfg) -> str:
     if cfg.family == "ssm":
         mixer = f"{cfg.num_rwkv_heads} wkv heads of {cfg.rwkv_head_dim}"
@@ -1266,7 +1483,7 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, cases, ops, ref
     from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.launch import serve, shapes
+    from repro_torch.launch import serve, shapes, train_100m
     from repro_torch.models import moe
     from repro_torch.models import transformer as tt
 
@@ -1318,6 +1535,9 @@ def main():
     rg_rows, rg_step_rows = rglru_phase(ops, ref, cases, griffin)
     log(f"rglru kernel phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
+    bwd_rows = flash_bwd_phase(ops, ref, cases)
+    log(f"flash backward kernel phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
     by_path = {"yi-6b": engine_phase(serve, ops, cases)}
     log(f"yi-6b engine phase: {time.perf_counter() - t0:.3f} s")
 
@@ -1363,6 +1583,16 @@ def main():
         torch.cuda.empty_cache()
         by_path[f"{arch} {name}"] = phase(ops, tt, cases, shapes, get_config(arch))
         log(f"{arch} {name}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    by_path["100M twin training"] = train_100m_phase(ops, train_100m)
+    log(f"100M twin training phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    by_path[f"{TRAIN} training"] = train_phase(ops, get_config(TRAIN))
+    log(f"{TRAIN} training phase: {time.perf_counter() - t0:.3f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    t0 = time.perf_counter()
+    layer_grad_phase(ops, ref, tt, get_config(TRAIN))
+    log(f"{TRAIN} one-layer gradient phase: {time.perf_counter() - t0:.3f} s")
     log(f"launches by path: {by_path}")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
 
@@ -1370,12 +1600,13 @@ def main():
                  "decode_attention": rows[("decode_attention", torch.bfloat16, "turn 2")][1],
                  "rglru_scan": rg_rows["prefill"][1],
                  "rglru_step": rg_step_rows["engine step"][1],
-                 "wkv6": wkv_rows["engine step"][1]}
+                 "wkv6": wkv_rows["engine step"][1],
+                 "flash_attention_bwd": bwd_rows[(torch.bfloat16, TRAIN)]}
     # the engine feeds every token by steps, so the scan's path is the model's
     # prefill and forward
     main_path = {"flash_attention": "yi-6b", "decode_attention": "yi-6b",
                  "rglru_scan": f"{GRIFFIN} model phase", "rglru_step": GRIFFIN,
-                 "wkv6": RWKV}
+                 "wkv6": RWKV, "flash_attention_bwd": f"{TRAIN} training"}
     kernels = []
     for name, replaces in SOURCES.items():
         r = main_rows[name]

@@ -18,6 +18,12 @@ A MoE (``moe``) pytree is a dense one whose layers hold ``moe``
 (``router``, ``w_up``, ``w_gate``, ``w_down``, the experts on a leading
 ``E`` axis) in place of ``mlp``.
 
+``opt_state_from_jax`` turns the reference's ``AdamWState`` (step, mu,
+nu), its leaves numpy arrays, into the port's
+(``repro_torch.train.optimizer.AdamWState``: the step an int, the moments
+fp32 tensors in the parameters' layout), so both packages can take the same
+steps from the same state.
+
 A Griffin (``hybrid``) pytree holds ``units`` and, when ``num_layers`` is
 not a multiple of 3, ``tail`` instead of ``layers``. Its ``units`` stack may
 have length 0: the reference's ``reduced(num_layers=2)`` is two tail layers.
@@ -36,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin, moe, rwkv6
 from repro_torch.models.transformer import griffin_layout
+from repro_torch.train.optimizer import AdamWState
 
 FP32_LEAVES = rwkv6.FP32_LEAVES + griffin.FP32_LEAVES + moe.FP32_LEAVES
 
@@ -91,3 +98,11 @@ def params_from_jax(np_params, cfg: ModelConfig, device="cuda",
         if L != cfg.num_layers:
             raise ValueError(f"params stack {L} layers; config has {cfg.num_layers}")
     return _to_torch(np_params, device, dtype)
+
+
+def opt_state_from_jax(np_state, device="cuda") -> AdamWState:
+    """A reference ``AdamWState`` (or a (step, mu, nu) tuple) with numpy
+    leaves into the port's, the moments fp32 on ``device``."""
+    step, mu, nu = np_state
+    return AdamWState(int(np.asarray(step)), _to_torch(mu, device, torch.float32),
+                      _to_torch(nu, device, torch.float32))

@@ -39,7 +39,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = build_dir_for(Path(__file__).resolve())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("flash_attention", "decode_attention", "rglru_scan", "wkv6")
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "rglru_scan",
+           "wkv6")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the entry points (see the extern "C" blocks in csrc/)
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": (
             _I, [_I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_I] * 4 + [_P]),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": (
+            _I, [_I] + [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_P]),
     },
     "decode_attention": {
         "decode_attention_launch": (
@@ -131,6 +136,19 @@ def on_device(device: torch.device, launch: Callable[[int], int]) -> int:
         return launch(torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(device):
         return launch(torch.cuda.current_stream().cuda_stream)
+
+
+def refuse_grad(name: str, queued: str, *tensors) -> None:
+    """Raise a ``RuntimeError`` where autograd would need the gradient of
+    kernel ``name`` on the card: the kernel has no backward, and its output
+    (a ``torch.empty`` it fills through ``ctypes``) has no ``grad_fn``, so it
+    would cut the graph without a word. ``queued`` says where its backward
+    stands."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel on the card ({queued}); call it under "
+            "torch.no_grad() or torch.inference_mode(), or train on the CPU, where "
+            "its plain version is differentiable")
 
 
 def load(name: str) -> ctypes.CDLL:

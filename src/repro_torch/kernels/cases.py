@@ -5,7 +5,7 @@ One table for every check: ``tests/test_torch_kernels.py`` runs the plain
 versions against the JAX package on the CPU at these shapes,
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run the CUDA kernels
 against the plain versions on the card through ``check_flash``,
-``check_decode``, ``check_rglru`` and ``check_wkv6``, and the flash kernel's
+``check_flash_bwd``, ``check_decode``, ``check_rglru`` and ``check_wkv6``, and the flash kernel's
 cache-hit rows against its cold rows through ``check_flash_hit_rows``.
 
 Flash cases are ``(B, H, KV, Sq, Sk, hd, q_offset, window, causal)``.
@@ -35,6 +35,21 @@ bf16 kernel's tile edges (64 keys, 128 packed query rows);
 which ``check_flash_hit_rows`` holds equal bit for bit. The calls of the
 dense archs after yi-6b and of the long-context phase are not listed here:
 ``repro_torch.launch.shapes`` computes them from the configs and the turns.
+
+The flash backward (``ops.flash_attention_bwd``, reached through autograd
+of ``ops.flash_attention``) is held by ``check_flash_bwd`` at ``FLASH_BWD``,
+the forward's sweep, ragged, empty-band and tile-edge cases, and at
+``FLASH_BWD_TRAIN``, the training shapes: h2o-danube-1.8b's layer at 8,192
+tokens (its window binds), yi-6b's at 4,096, the 100M twin's
+(``repro_torch.launch.train_100m``: yi-6b reduced to 12 layers of d_model
+768, 4 heads of 192, batch 4 of 256 tokens) and an enc-dec cross-attention
+(not causal, Sq != Sk). The output gradient is normal, drawn from
+``seed + 1``. dq, dk and dv are each held to ``TOL`` in the form above (2e-5
+fp32, 2e-2 bf16, the sweep of tests/test_kernels.py) against
+``ref.flash_attention_bwd_ref``, autograd of the plain forward. Both sides
+compute in fp32 on the same input values; the kernel takes D = rowsum(dO *
+O) from the saved output, which in bf16 is rounded (a relative 2**-9 of D,
+far below dO V^T - D's size), and rounds each gradient once.
 
 WKV6 cases are ``(B, H, S, hd, decay, s0_scale, layout[, rkv])``:
 ``decay`` None draws ``w`` uniform in [0.8, 0.999) as
@@ -132,6 +147,14 @@ FLASH_IDENTITY = [
 # window 2048; the model phase's prefill of 2,560 tokens, where the window
 # masks keys
 FLASH_GRIFFIN = [(1, 10, 1, 2560, 2560, 256, 0, 2048, True)]
+# the backward at the forward's cases, and at the training shapes
+FLASH_BWD = FLASH_SWEEP + FLASH_RAGGED + FLASH_EMPTY_BAND + FLASH_TILES
+FLASH_BWD_TRAIN = {
+    "h2o-danube-1.8b": (1, 32, 8, 8192, 8192, 80, 0, 4096, True),
+    "yi-6b": (1, 32, 4, 4096, 4096, 128, 0, None, True),
+    "100M twin": (4, 4, 4, 256, 256, 192, 0, None, True),
+    "enc-dec cross": (1, 16, 16, 512, 1024, 64, 0, None, False),
+}
 DECODE_SWEEP = [                          # the sweep of tests/test_kernels.py:42-46
     (1, 4, 4, 64, 32, 64, 0),
     (2, 8, 2, 256, 64, 100, 0),
@@ -407,6 +430,33 @@ def check_flash(case, dtype, device, seed=0):
     out = ops.flash_attention(q, k, v, q_offset=off, window=win, causal=causal)
     want = ref.flash_attention_ref(q, k, v, q_offset=off, window=win, causal=causal)
     return held("flash_attention", case, out, want), (q, k, v)
+
+
+def flash_bwd_inputs(case, dtype, device, seed=0):
+    """q, k, v as ``flash_inputs`` and the output gradient (B,H,Sq,hd),
+    drawn with numpy from ``seed + 1``."""
+    B, H, KV, Sq, Sk, hd = case[:6]
+    (g,) = _randn(seed + 1, (B, H, Sq, hd))
+    return flash_inputs(case, dtype, device, seed) + [
+        torch.from_numpy(g).to(device=device, dtype=dtype)]
+
+
+def check_flash_bwd(case, dtype, device, seed=0):
+    """dq, dk, dv through autograd of ``ops.flash_attention`` (on the card:
+    the forward kernel, then ``ops.flash_attention_bwd``) against the plain
+    version's; (max |err|, (q, k, v, out, dout))."""
+    q, k, v, dout = flash_bwd_inputs(case, dtype, device, seed)
+    off, win, causal = case[6:]
+    kw = dict(q_offset=off, window=win, causal=causal)
+    with torch.enable_grad():
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        out = ops.flash_attention(*leaves, **kw)
+        got = torch.autograd.grad(out, leaves, dout)
+    q, k, v, out = (t.detach() for t in (q, k, v, out))
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    err = max(held(f"flash_attention_bwd d{n}", case, a, b)
+              for n, a, b in zip("qkv", got, want))
+    return err, (q, k, v, out, dout)
 
 
 def check_flash_hit_rows(case, first, dtype, device, seed=0):

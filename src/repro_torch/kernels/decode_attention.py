@@ -27,7 +27,10 @@ reference gives.
 A tensor on the CPU goes to the plain version (``ref.decode_attention_ref``);
 a CUDA tensor launches the kernel or raises. ``decode_attention.launches``
 counts kernel launches (one per call, which runs both the chunks and the
-merge).
+merge). The kernel has no backward (decoding does not train): a CUDA input
+that requires grad, with grad enabled, raises (``build.refuse_grad``)
+rather than return an output that cuts the graph; on the CPU the plain
+version stays differentiable.
 """
 from __future__ import annotations
 
@@ -133,6 +136,8 @@ def decode_attention(q, k_cache, v_cache, valid):
         return ref.decode_attention_ref(q, k_cache, v_cache, valid)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+    build.refuse_grad("decode_attention", "none is queued: decoding does not train",
+                      q, k_cache, v_cache)
     return _launch(q, k_cache, v_cache, valid)
 
 

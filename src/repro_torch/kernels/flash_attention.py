@@ -35,9 +35,19 @@ band is empty (a window that ends before the keys begin): those get the mean
 of V over all ``Sk`` keys, as ``repro.kernels.ref.flash_attention_ref`` and
 the Pallas kernel give them.
 
-A tensor on the CPU goes to the plain version (``ref.flash_attention_ref``);
-a CUDA tensor launches the kernel or raises. ``flash_attention.launches``
-counts kernel launches.
+A tensor on the CPU goes to the plain version (``ref.flash_attention_ref``),
+whose autograd is its gradient; a CUDA tensor launches the kernel or
+raises. ``flash_attention.launches`` counts kernel launches.
+
+The gradient on the card: where grad is enabled and q, k or v requires it,
+``flash_attention`` runs through ``FlashAttentionFn``, whose forward is the
+same launch (it saves q, k, v and the output) and whose backward is
+``flash_attention_bwd``, the C entry of ``csrc/flash_attention_bwd.cu``
+(two kernels: dQ with the logsumexp and D = rowsum(dO * O), then dK and dV
+per key block; see the source's note for the bound and the design).
+Everywhere else, the serving engine's ``inference_mode`` included, the
+call is the plain launch, which saves nothing. ``flash_attention_bwd
+.launches`` counts calls of that entry.
 """
 from __future__ import annotations
 
@@ -110,6 +120,57 @@ def _launch(q, k, v, q_offset, causal, window):
     return out
 
 
+def _launch_bwd(q, k, v, out, dout, q_offset, causal, window):
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if dout.shape != out.shape or dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise ValueError(f"out {out.dtype} {tuple(out.shape)} and dout {dout.dtype} "
+                         f"{tuple(dout.shape)} must match q {q.dtype} {tuple(q.shape)}")
+    if hd > 1 and dout.stride(-1) != 1:        # an expanded or sliced gradient
+        dout = dout.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if hd > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dimension must be contiguous; "
+                             f"strides {t.stride()}")
+    dq = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:                        # no query row: nothing flows
+        return dq, torch.zeros_like(k), torch.zeros_like(v)
+    dk = torch.empty((B, KV, Sk, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    lib = build.load("flash_attention_bwd")
+    err = build.on_device(q.device, lambda stream: lib.flash_attention_bwd_launch(
+        DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), B, H, KV, Sq, Sk, hd, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3], int(q_offset),
+        int(causal), int(window is not None), int(window or 0), ctypes.c_void_p(stream)))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel with its gradient: the forward launch, and
+    ``flash_attention_bwd`` for the backward. CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, window):
+        out = _launch(q, k, v, q_offset, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (q_offset, causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        q_offset, causal, window = ctx.mask
+        dq, dk, dv = _launch_bwd(q, k, v, out, dout, q_offset, causal, window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
                     window: Optional[int] = None):
     """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd) with H % KV == 0.
@@ -120,7 +181,27 @@ def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
                                        causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_offset, causal, window)
     return _launch(q, k, v, q_offset, causal, window)
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, q_offset: int = 0, causal: bool = True,
+                        window: Optional[int] = None):
+    """The gradients (dq, dk, dv) of ``flash_attention`` at (q, k, v), whose
+    output is ``out``, for the output gradient ``dout`` (both (B,H,Sq,hd)).
+    On the CPU the plain version (``ref.flash_attention_bwd_ref``, which
+    recomputes the output); a CUDA tensor launches the kernel or raises."""
+    _check(q, k, v, q_offset, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, dout, q_offset=q_offset,
+                                           causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not {q.device}")
+    return _launch_bwd(q, k, v, out, dout, q_offset, causal, window)
+
+
+flash_attention_bwd.launches = 0

@@ -6,6 +6,9 @@ the finite mask value ``NEG_INF`` so that a fully masked row gives a
 uniform softmax rather than NaN. ``rglru_step_ref`` is the RG-LRU decode
 step of ``repro/models/griffin.py`` (``_rglru_coeffs`` after its two
 products, then ``a * h + b``), the function the fused step kernel computes.
+``flash_attention_bwd_ref`` is the gradient of ``flash_attention_ref`` by
+autograd, the plain version of the flash backward kernel (the reference
+takes the same gradient by autodiff of its jnp attention).
 The wrappers run these for CPU tensors; ``chip_smoke.py`` holds the CUDA
 kernels against them on the card.
 """
@@ -39,6 +42,18 @@ def flash_attention_ref(q, k, v, *, q_offset: int = 0, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, q_offset: int = 0, causal: bool = True,
+                            window: Optional[int] = None):
+    """The gradients (dq, dk, dv) of ``flash_attention_ref`` at (q, k, v)
+    for the output gradient ``dout`` (B,H,Sq,hd), in the inputs' layouts and
+    dtype: ``torch.autograd.grad`` of the plain forward."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, q_offset=q_offset, causal=causal,
+                                  window=window)
+        return tuple(torch.autograd.grad(out, leaves, dout))
 
 
 def decode_attention_ref(q, k_cache, v_cache, valid):

@@ -31,6 +31,10 @@ signature says; any ``D`` (no block size has to divide it), any ``S >= 0``
 A tensor on the CPU goes to the plain version (``ref.rglru_scan_ref``,
 ``ref.rglru_step_ref``); a CUDA tensor launches the kernel or raises.
 ``rglru_scan.launches`` and ``rglru_step.launches`` count kernel launches.
+Neither kernel has a backward yet (the scan's is queued): a CUDA input that
+requires grad, with grad enabled, raises (``build.refuse_grad``) rather
+than return an output that cuts the graph; on the CPU the plain versions
+stay differentiable.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 MAX_BATCH = 65535          # the grid's y dimension
+RGLRU_BWD_QUEUED = "an rglru_scan backward kernel is queued in ROADMAP Queue 1"
 
 
 def _check(a, b, h0):
@@ -88,6 +93,7 @@ def rglru_scan(a, b, h0):
         return ref.rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cpu or cuda, not {a.device}")
+    build.refuse_grad("rglru_scan", RGLRU_BWD_QUEUED, a, b, h0)
     return _launch(a, b, h0)
 
 
@@ -144,6 +150,8 @@ def rglru_step(gx_a, gx_x, ba, bx, lam, x, h):
         return ref.rglru_step_ref(gx_a, gx_x, ba, bx, lam, x, h)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_step runs on cpu or cuda, not {x.device}")
+    build.refuse_grad("rglru_step", "decoding does not train; the RG-LRU trains through "
+                      f"rglru_scan, and {RGLRU_BWD_QUEUED}", gx_a, gx_x, ba, bx, lam, x, h)
     return _launch_step(gx_a, gx_x, ba, bx, lam, x, h)
 
 

@@ -36,7 +36,10 @@ and ``s_n`` equals ``s0``).
 
 A tensor on the CPU goes to the plain version (``ref.wkv6_ref``, which
 upcasts first); a CUDA tensor launches a kernel or raises. ``wkv6.launches``
-counts kernel launches.
+counts kernel launches. No backward kernel exists yet (queued): a CUDA
+input that requires grad, with grad enabled, raises (``build.refuse_grad``)
+rather than return an output that cuts the graph; on the CPU the plain
+version stays differentiable.
 """
 from __future__ import annotations
 
@@ -101,6 +104,8 @@ def wkv6(r, k, v, w, u, s0):
         return ref.wkv6_ref(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cpu or cuda, not {r.device}")
+    build.refuse_grad("wkv6", "a wkv6 backward kernel is queued in ROADMAP Queue 1",
+                      r, k, v, w, u, s0)
     return _launch(r, k, v, w, u, s0)
 
 

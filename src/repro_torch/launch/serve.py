@@ -71,27 +71,46 @@ CARD_BYTES = 80e9               # one H100's device memory
 FULL_DEPTH = {"dbrx-132b": 8, "grok-1-314b": 5}
 
 
+def _param_counts(cfg):
+    """(elements in the model's dtype, elements kept in fp32: the MoE
+    router, largest leaf's elements) of a dense, MoE, VLM or enc-dec
+    config's weights as ``init_params`` lays them out."""
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    attn = d * (cfg.num_heads + cfg.num_kv_heads) * hd * 2
+    ffn = d * cfg.d_ff * (cfg.num_experts if cfg.family == "moe" else 1)
+    mlp = ffn * (3 if cfg.gated_mlp else 2)
+    router = L * d * cfg.num_experts if cfg.family == "moe" else 0
+    n = 2 * cfg.padded_vocab * d + d
+    if cfg.family == "encdec":          # frames_proj, enc_ln; decoder: self + cross
+        n += d * d + d + cfg.encoder_layers * (attn + mlp + 2 * d) \
+            + L * (2 * attn + mlp + 3 * d)
+    else:
+        n += L * (attn + mlp + 2 * d)
+    if cfg.family == "vlm":             # patch_proj
+        n += d * d
+    largest = max(cfg.padded_vocab * d, max(L, cfg.encoder_layers) * ffn,
+                  L * d * cfg.num_heads * hd)
+    return n, router, largest
+
+
 def weight_bytes(cfg, dtype=torch.bfloat16) -> int:
     """Bytes of a dense, MoE, VLM or enc-dec config's weights as
     ``init_params`` lays them out (a MoE layer's ``E`` experts, and its
     router in fp32; a VLM's ``patch_proj``; an enc-dec model's
     ``frames_proj``, encoder and decoder stacks)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    attn = d * (cfg.num_heads + cfg.num_kv_heads) * hd * 2
-    mlp = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
-    router = 0
-    if cfg.family == "moe":
-        mlp *= cfg.num_experts
-        router = cfg.num_layers * d * cfg.num_experts * 4
-    n = 2 * cfg.padded_vocab * d + d
-    if cfg.family == "encdec":          # frames_proj, enc_ln; decoder: self + cross
-        n += d * d + d + cfg.encoder_layers * (attn + mlp + 2 * d) \
-            + cfg.num_layers * (2 * attn + mlp + 3 * d)
-    else:
-        n += cfg.num_layers * (attn + mlp + 2 * d)
-    if cfg.family == "vlm":             # patch_proj
-        n += d * d
-    return n * torch.finfo(dtype).bits // 8 + router
+    n, router, _ = _param_counts(cfg)
+    return n * torch.finfo(dtype).bits // 8 + router * 4
+
+
+def train_bytes(cfg, dtype=torch.bfloat16) -> int:
+    """Bytes of a training state of such a config on one card: weights and
+    gradients in ``dtype`` (the router's in fp32), fp32 AdamW moments, and
+    the update's two fp32 temporaries of the largest leaf
+    (``train.optimizer.adamw_update``). The activations (one layer input
+    per layer under remat, the loss chunks' fp32 logits) depend on the
+    batch and come on top."""
+    n, router, largest = _param_counts(cfg)
+    return n * (2 * torch.finfo(dtype).bits // 8 + 8) + router * 16 + 2 * 4 * largest
 
 
 def turns(arch: str, reduced: bool):

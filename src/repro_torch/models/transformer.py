@@ -4,7 +4,8 @@
 
 Public API (plain functions over a dict of parameters):
     init_params(generator, cfg, dtype)                      -> params
-    forward(params, cfg, batch, long_context, with_aux)     -> logits[, aux]
+    forward(params, cfg, batch, long_context, remat, return_hidden, with_aux)
+                                                            -> logits[, aux]
     init_cache(cfg, batch, max_len, dtype, device, long_context) -> cache
     prefill(params, cfg, batch, max_len, ...)               -> (logits, cache)
     decode_step(params, cfg, cache, tokens, pos, ...)       -> (logits, cache)
@@ -67,6 +68,16 @@ and the memory's keys and values ``cross_k``/``cross_v`` (L,B,src,KV,hd),
 which it only reads: a step's cross-attention sees all ``src`` slots. Its
 ``prefill`` takes no stored prefix.
 
+``forward`` is also the training forward (``repro_torch.train.steps``).
+Its layers come from ``unstack_layers``, one ``torch.unbind`` per stacked
+leaf, so a gradient reaches each stacked leaf through one stack of the
+layers' gradients. With ``remat`` (the default, as in the reference) and
+grad enabled, each layer, each Griffin unit and tail layer and each enc-dec
+decoder layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
+reference's ``jax.checkpoint``: the backward recomputes it, so only its
+input is kept; under ``no_grad`` or ``inference_mode`` the flag changes
+nothing.
+
 The long-context mode (``long_context=True``, the reference's ``long_500k``
 input shape) gives dense self-attention the window ``attn_window`` names:
 ``cfg.long_context_window``, or the smaller of that and ``cfg.window_size``
@@ -80,6 +91,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import griffin as gr
@@ -133,6 +145,16 @@ def layer_params(stacked, i: int):
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def unstack_layers(stacked):
+    """The layers of parameters stacked on a leading axis, as a list of
+    per-layer trees of views (``torch.unbind`` of each leaf)."""
+    if isinstance(stacked, dict):
+        per_key = {k: unstack_layers(v) for k, v in stacked.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(stacked))
 
 
 def _stacked_init(L: int, init_layer):
@@ -189,9 +211,10 @@ def _ffn(p, cfg: ModelConfig, h):
 
 def _attn_layer_fwd(p, cfg: ModelConfig, x, *, window, q_offset=0,
                     mrope_positions=None, prefix_kv=None, return_kv=False,
-                    auxs=None):
+                    with_aux=False):
     """Residual attention sub-block + FFN sub-block (full sequence). A MoE
-    layer's aux dict is appended to ``auxs`` where one is given."""
+    layer's aux dict is returned beside the output with ``with_aux`` (empty
+    for an MLP layer)."""
     B, S, _ = x.shape
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _qkv(p["attn"], cfg, h)
@@ -204,8 +227,8 @@ def _attn_layer_fwd(p, cfg: ModelConfig, x, *, window, q_offset=0,
     x = x + o.reshape(B, S, -1) @ p["attn"]["wo"]
     y, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
     x = x + y
-    if auxs is not None:
-        auxs.append(aux)
+    if with_aux:
+        return x, aux
     if return_kv:
         return x, (k, v)
     return x
@@ -368,8 +391,8 @@ def _dec_layer_decode(p, cfg: ModelConfig, x_t, sk, sv, ck, cv, pos: int, *,
 
 def _encode(params: Params, cfg: ModelConfig, frames):
     x = frames @ params["frames_proj"]
-    for i in range(cfg.encoder_layers):
-        x = _enc_layer_fwd(layer_params(params["encoder"], i), cfg, x)
+    for lp in unstack_layers(params["encoder"]):
+        x = _enc_layer_fwd(lp, cfg, x)
     return rmsnorm(params["enc_ln"], x, cfg.norm_eps)
 
 
@@ -484,47 +507,62 @@ def _embed_sequence(params: Params, cfg: ModelConfig, batch):
     return x
 
 
+def _remat(fn, x):
+    """``fn(x)``, recomputed in the backward instead of keeping what it
+    saves: the reference's ``jax.checkpoint`` around a layer."""
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def _call(fn, x):
+    return fn(x)
+
+
 def forward(params: Params, cfg: ModelConfig, batch, *, long_context=False,
-            with_aux=False):
+            remat=True, return_hidden=False, with_aux=False):
     """Full-sequence logits (B, S, padded_vocab), S counting a VLM's vision
-    tokens; with ``with_aux``, also the mean over layers of each MoE aux
-    value (empty for other families)."""
+    tokens. ``return_hidden``: the post-final-norm hidden states (B, S, d)
+    instead (training projects them onto the vocabulary in chunks);
+    ``remat``: each layer recomputed in the backward while grad is enabled;
+    ``with_aux``: also the mean over layers of each MoE aux value (empty for
+    other families)."""
     _check_family(cfg)
     x = _embed_sequence(params, cfg, batch)
+    ck = _remat if remat and torch.is_grad_enabled() else _call
     auxs = []
     if cfg.family == "ssm":
         st = _rwkv_empty_state(cfg, x.shape[0], x.dtype, x.device)
-        for i in range(cfg.num_layers):
-            x, _ = _rwkv_layer_fwd(layer_params(params["layers"], i), cfg, x, st)
+        for lp in unstack_layers(params["layers"]):
+            x = ck(lambda x, lp=lp: _rwkv_layer_fwd(lp, cfg, x, st)[0], x)
     elif cfg.family == "hybrid":
         rst = gr.init_recurrent_state(cfg, x.shape[0], x.dtype, x.device)
-        U, tail = griffin_layout(cfg)
-        for i in range(U):
-            up = layer_params(params["units"], i)
+
+        def unit(x, up):
             x, _ = _rec_layer_fwd(up["rec1"], cfg, x, rst)
             x, _ = _rec_layer_fwd(up["rec2"], cfg, x, rst)
-            x = _attn_layer_fwd(up["attn"], cfg, x, window=cfg.local_window)
-        for i in range(tail):
-            x, _ = _rec_layer_fwd(layer_params(params["tail"], i), cfg, x, rst)
+            return _attn_layer_fwd(up["attn"], cfg, x, window=cfg.local_window)
+        for up in unstack_layers(params["units"]):
+            x = ck(lambda x, up=up: unit(x, up), x)
+        for lp in unstack_layers(params["tail"]) if "tail" in params else ():
+            x = ck(lambda x, lp=lp: _rec_layer_fwd(lp, cfg, x, rst)[0], x)
     elif cfg.family == "encdec":
         memory = _encode(params, cfg, batch["frames"].to(x.dtype))
         window = attn_window(cfg, long_context)
-        for i in range(cfg.num_layers):
-            x = _dec_layer_fwd(layer_params(params["decoder"], i), cfg, x, memory,
-                               window=window)
+        for lp in unstack_layers(params["decoder"]):
+            x = ck(lambda x, lp=lp: _dec_layer_fwd(lp, cfg, x, memory, window=window), x)
     else:
         window = attn_window(cfg, long_context)
         mrope_positions = batch.get("positions") if cfg.mrope else None
-        for i in range(cfg.num_layers):
-            x = _attn_layer_fwd(layer_params(params["layers"], i), cfg, x,
-                                window=window, mrope_positions=mrope_positions,
-                                auxs=auxs)
+        for lp in unstack_layers(params["layers"]):
+            x, aux = ck(lambda x, lp=lp: _attn_layer_fwd(
+                lp, cfg, x, window=window, mrope_positions=mrope_positions,
+                with_aux=True), x)
+            auxs.append(aux)
     x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
-    logits = x @ params["unembed"]
+    out = x if return_hidden else x @ params["unembed"]
     if not with_aux:
-        return logits
-    return logits, {k: torch.stack([a[k] for a in auxs]).mean()
-                    for k in (auxs[0] if auxs else {})}
+        return out
+    return out, {k: torch.stack([a[k] for a in auxs]).mean()
+                 for k in (auxs[0] if auxs else {})}
 
 
 # --------------------------------------------------------------------------- #

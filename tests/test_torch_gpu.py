@@ -1,5 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch version,
-the MoE FFN against its dense oracle, the reduced engines (yi-6b,
+"""The port on the card: each CUDA kernel against its plain PyTorch version
+(the flash backward through autograd), the kernels without a backward
+refusing a tensor that requires grad, a reduced training step against the
+CPU's, the MoE FFN against its dense oracle, the reduced engines (yi-6b,
 h2o-danube-1.8b, dbrx-132b, grok-1-314b, rwkv6-1.6b, recurrentgemma-2b,
 qwen2-vl-2b) and the reduced enc-dec model functions on the card against
 the same on the CPU.
@@ -25,6 +27,10 @@ from repro_torch.models import moe
 from repro_torch.models import transformer as tt
 from repro_torch.models.transformer import griffin_layout, init_params
 from repro_torch.serving.realexec import RealExecutionEngine
+from repro_torch.train import tree
+from repro_torch.train.data import batch_iterator, batch_to
+from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.steps import make_train_step
 
 DENSE_FLASH, DENSE_DECODE, DENSE_IDENTITY = shapes.dense_shapes()
 FAMILY_FLASH, FAMILY_DECODE, FAMILY_IDENTITY = shapes.family_shapes()
@@ -291,7 +297,8 @@ def test_reduced_moe_engine_on_card_matches_cpu(cuda, arch):
     num_new = serve.REDUCED_TURNS[2]
     assert launched == {"flash_attention": 2 * cfg.num_layers,
                         "decode_attention": 2 * num_new * cfg.num_layers,
-                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0,
+                        "flash_attention_bwd": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
@@ -341,7 +348,7 @@ def test_reduced_griffin_engine_on_card_matches_cpu(cuda, num_layers):
     # decode-attention launch per unit
     assert launched == {"flash_attention": 0, "decode_attention": steps * units,
                         "rglru_scan": 0, "rglru_step": steps * (2 * units + tail),
-                        "wkv6": 0}
+                        "wkv6": 0, "flash_attention_bwd": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
@@ -363,7 +370,8 @@ def test_reduced_vlm_engine_on_card_matches_cpu(cuda):
     num_new = serve.REDUCED_TURNS[2]
     assert launched == {"flash_attention": 2 * cfg.num_layers,
                         "decode_attention": 2 * num_new * cfg.num_layers,
-                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0,
+                        "flash_attention_bwd": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
@@ -395,7 +403,91 @@ def test_reduced_encdec_prefill_and_steps_on_card_match_cpu(cuda):
         results["cpu"], results[str(cuda)]
     assert launched == {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
                         "decode_attention": 3 * 2 * cfg.num_layers,
-                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0,
+                        "flash_attention_bwd": 0}
     for c, g in [(c_logits, g_logits)] + list(zip(c_steps, g_steps)) + \
             [(c_cache[k], g_cache[k]) for k in c_cache]:
         np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", cases.FLASH_BWD + list(cases.FLASH_BWD_TRAIN.values()))
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
+    """Autograd of ops.flash_attention on the card: one forward launch and
+    one call of the backward entry, dq, dk, dv within cases.TOL."""
+    n, m = ops.flash_attention.launches, ops.flash_attention_bwd.launches
+    cases.check_flash_bwd(case, dtype, cuda)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches, ops.flash_attention_bwd.launches) == (n + 1, m + 1)
+
+
+def _guarded_calls(cuda):
+    q, k, v, valid = cases.decode_inputs(cases.DECODE_SWEEP[0], torch.float32, cuda)
+    return {"decode_attention": (ops.decode_attention, [q, k, v, valid], 0),
+            "wkv6": (ops.wkv6, cases.wkv6_inputs(cases.WKV6_SWEEP[0], cuda), 3),
+            "rglru_scan": (ops.rglru_scan, cases.rglru_inputs(cases.RGLRU_SWEEP[0], cuda), 1),
+            "rglru_step": (ops.rglru_step, cases.rglru_step_inputs(cases.RGLRU_STEP[3], cuda),
+                           5)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["decode_attention", "wkv6", "rglru_scan", "rglru_step"])
+def test_kernel_without_backward_refuses_grad_on_card(cuda, name):
+    """An input that requires grad, with grad enabled, raises (naming the
+    backward's state) and launches nothing; under no_grad it launches."""
+    fn, inputs, i = _guarded_calls(cuda)[name]
+    inputs[i] = inputs[i].detach().requires_grad_(True)
+    n = getattr(ops, name).launches
+    with pytest.raises(RuntimeError, match=f"{name} has no backward kernel"):
+        fn(*inputs)
+    assert getattr(ops, name).launches == n
+    with torch.no_grad():
+        fn(*inputs)
+    torch.cuda.synchronize()
+    assert getattr(ops, name).launches == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "dbrx-132b", "qwen2-vl-2b",
+                                  "seamless-m4t-large-v2"])
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """One fp32 train step of a reduced attention-family model on the card
+    and on the CPU from the same weights: loss and grad norm within 3e-4
+    (the port's fp32 model tolerance), two flash launches per attention
+    call (the forward and remat's recompute) and one backward call."""
+    cfg = get_config(arch).reduced(num_layers=2, d_model=64)
+    params = init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    batch = next(batch_iterator(cfg, 2, 72, seed=0))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1))
+    # attention calls per forward: self (and an enc-dec decoder's cross) per
+    # layer, and the encoder's
+    calls = cfg.num_layers * (2 if cfg.family == "encdec" else 1) + cfg.encoder_layers
+    out = {}
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        p = tree.map_leaves(p, lambda t: t.detach().clone())
+        before = {n: getattr(ops, n).launches for n in ops.__all__}
+        _, _, m = step(p, adamw_init(p), batch_to(batch, device))
+        out[str(device)] = (m, {n: getattr(ops, n).launches - before[n] for n in ops.__all__})
+    (mc, _), (mg, launched) = out["cpu"], out[str(cuda)]
+    # the encoder is not rematerialised: its layers' flash runs once
+    assert launched == {"flash_attention": 2 * calls - cfg.encoder_layers,
+                        "flash_attention_bwd": calls, "decode_attention": 0,
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=3e-4)
+
+
+@pytest.mark.gpu
+def test_forward_under_inference_mode_on_card_launches_as_before(cuda):
+    cfg = get_config("h2o-danube-1.8b").reduced(num_layers=2, d_model=64)
+    params = _to(init_params(torch.Generator().manual_seed(0), cfg, torch.float32), cuda)
+    batch = batch_to(next(batch_iterator(cfg, 2, 72, seed=0)), cuda)
+    for p in tree.leaves(params):
+        p.requires_grad_(True)
+    before = {n: getattr(ops, n).launches for n in ops.__all__}
+    with torch.inference_mode():
+        out = tt.forward(params, cfg, batch)
+    launched = {n: getattr(ops, n).launches - before[n] for n in ops.__all__}
+    assert not out.requires_grad
+    assert launched == dict({n: 0 for n in ops.__all__}, flash_attention=cfg.num_layers)
