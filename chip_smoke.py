@@ -5,8 +5,9 @@
 1. Setup: card name and power limit, torch and nvcc versions; builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
    all started together) and times the build; ptxas's registers and
-   spills per entry function, and no flash instantiation may spill. TF32
-   is off for matmuls and cuDNN.
+   spills per entry function, and no flash instantiation and no
+   tensor-core backward kernel may spill. TF32 is off for matmuls and
+   cuDNN.
 2. Attention kernels: each against its plain PyTorch version, fp32 and
    bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
    ragged, empty-band and tile-edge shapes of
@@ -183,20 +184,29 @@
    prefill and forward (12 encoder, 12 self, 12 cross) and 24 decode
    launches per step (12 self over the ring, 12 cross over every frame).
    The engine serves no enc-dec model, as the reference's cannot.
-16. Flash backward kernel (after step 7, before any engine):
-   ``check_flash_bwd`` at every ``cases.FLASH_BWD`` case (the forward's
-   sweep, ragged, empty-band and tile-edge cases) and at the training
-   shapes ``cases.FLASH_BWD_TRAIN`` (h2o-danube-1.8b (1,32,8,8192,8192,80,
-   window 4096), yi-6b (1,32,4,4096,4096,128), the 100M twin's
-   (4,4,4,256,256,192), an enc-dec cross-attention (1,16,16,512,1024,64, not
-   causal)), fp32 and bf16: dq, dk and dv through autograd of
+16. Flash backward kernels (after step 7, before any engine), fp32 and
+   bf16: the training entry (``ops.flash_attention_train``) at every
+   ``cases.FLASH_BWD``, ``cases.FLASH_IDENTITY`` and
+   ``cases.FLASH_BWD_TRAIN`` case, its output equal
+   to the serving entry's bit for bit and its lse within ``cases.TOL`` of
+   the plain version's (``check_flash_train``); ``check_flash_bwd`` at every
+   ``cases.FLASH_BWD`` case (the forward's sweep, ragged, empty-band and
+   tile-edge cases, and the edges of the backward's own tiles) and at the
+   training shapes ``cases.FLASH_BWD_TRAIN`` (h2o-danube-1.8b
+   (1,32,8,8192,8192,80, window 4096), yi-6b (1,32,4,4096,4096,128), the
+   100M twin's (4,4,4,256,256,192), an enc-dec cross-attention
+   (1,16,16,512,1024,64, not causal)): dq, dk and dv through autograd of
    ``ops.flash_attention`` against ``ref.flash_attention_bwd_ref`` within
-   ``cases.TOL``. At the training shapes also the backward entry's time
-   (``ops.flash_attention_bwd`` alone), the plain version's, SDPA's
+   ``cases.TOL``; and at all of them two backward calls on the same inputs
+   give the same bits (``check_flash_bwd_repeat``). At the training shapes
+   also the backward entry's time (``ops.flash_attention_bwd`` alone, on
+   the training entry's output and lse), the plain version's, SDPA's
    backward (``enable_gqa``, the mask explicit; a yardstick only) and the
    bound: five products of 2·hd flops per visible pair (and 2·hd·Sk per
    empty-band row) at the dtype's peak, or q, k, v, out and dout read and
-   dq, dk, dv written once at 3.35 TB/s.
+   dq, dk, dv written once at 3.35 TB/s. On the tensor-core route the
+   dK/dV block that ``bwd_keys`` did not choose for the mask is held against
+   the plain version and timed too, beside the chosen one.
 17. The 100M twin (``repro_torch.launch.train_100m``, after step 15): yi-6b
    reduced to 12 layers of d_model 768, batch 4 x 256, fp32, 300 steps; the
    mean of the last 10 losses must be below that of the first 10, with
@@ -207,6 +217,12 @@
    ``batch_iterator`` (the window binds in the forward and the backward),
    three steps; finite loss and grad norm, the weights moved, exactly 48
    flash and 24 backward launches per step, time per step and peak memory.
+   Step 1 runs under the profiler, one whole window (step 2 if step 1's
+   window did not record every flash kernel): device time by class of
+   kernel (flash forward, flash backward, GEMMs by name, the optimizer's
+   kernels, those ``adamw_update`` launched, and the rest) and the idle
+   share; the bf16 backward must show as ``flash_bwd_dq_mma_kernel`` and
+   ``flash_bwd_dkdv_mma_kernel``.
 19. One h2o-danube-1.8b attention layer at 8,192 tokens in fp32: the
    gradients of its weights and input through the kernels, then through
    the plain versions (``ops.flash_attention`` swapped for
@@ -268,7 +284,12 @@ CSRC = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_att
 PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
                 "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
                 "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkdv_kernel")   # device names
+                "flash_bwd_dkdv_kernel", "flash_bwd_dq_mma_kernel",
+                "flash_bwd_dkdv_mma_kernel")   # device names
+# the classes of a training step's device time, by kernel name (first match)
+STEP_CLASSES = (("flash backward", re.compile(r"flash_bwd_")),
+                ("flash forward", re.compile(r"flash_mma_kernel|flash_kernel")),
+                ("GEMMs", re.compile(r"gemm|xmma|nvjet|cutlass", re.I)))
 DECODE_BF16_OLD = "decode_partial_kernel<__nv_bfloat16"   # bf16 decode must not run it
 RWKV = "rwkv6-1.6b"
 RWKV_PREFILL = 2048                       # tokens of the model phase's prefill
@@ -382,6 +403,19 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def entry_spills(ptxas_log: str):
+    """{entry function: (spill store bytes, spill load bytes)} from ptxas -v."""
+    spills, fn = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
 def bound(ops_n: float, nbytes: float, dtype):
     t_ops, t_bytes = ops_n / PEAK_OPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -393,15 +427,9 @@ def bound(ops_n: float, nbytes: float, dtype):
 
 def flash_mask(case):
     """The (Sq, Sk) boolean mask of a flash case, for SDPA."""
+    from repro_torch.kernels import ref
     B, H, KV, Sq, Sk, hd, off, win, causal = case
-    qpos = off + torch.arange(Sq, device="cuda")[:, None]
-    kpos = torch.arange(Sk, device="cuda")[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
-    if causal:
-        mask &= kpos <= qpos
-    if win is not None:
-        mask &= kpos > qpos - win
-    return mask
+    return ref.flash_mask(Sq, Sk, off, causal, win, "cuda")
 
 
 def flash_row(ops, ref, cases, case, dtype):
@@ -541,14 +569,19 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
 
 
 def flash_bwd_row(ops, ref, cases, case, dtype):
-    """The backward at a training shape: held (``check_flash_bwd``), then
-    timed by events on the forward's saved tensors: the backward entry
-    alone, the plain version, SDPA's backward."""
-    err, (q, k, v, out, dout) = cases.check_flash_bwd(case, dtype, "cuda")
+    """The backward at a training shape: held (``check_flash_bwd``), two
+    calls the same bits (``check_flash_bwd_repeat``), then timed by events
+    on the training entry's output and lse: the backward entry alone, the
+    plain version, SDPA's backward; on the tensor-core route also the entry
+    with the dK/dV block that ``bwd_keys`` did not choose, held and timed."""
+    from repro_torch.kernels.flash_attention import bwd_keys, bwd_route
+    err, (q, k, v, _, dout) = cases.check_flash_bwd(case, dtype, "cuda")
+    cases.check_flash_bwd_repeat(case, dtype, "cuda")
     B, H, KV, Sq, Sk, hd, off, win, causal = case
     kw = dict(q_offset=off, window=win, causal=causal)
+    out, lse = ops.flash_attention_train(q, k, v, **kw)
     sets = copies([q, k, v, out, dout], limit=4)
-    ms = rotated_ms(lambda *t: ops.flash_attention_bwd(*t, **kw), sets, 5)
+    ms = rotated_ms(lambda *t: ops.flash_attention_bwd(*t, lse=lse, **kw), sets, 5)
     plain = rotated_ms(lambda q, k, v, out, dout: ref.flash_attention_bwd_ref(
         q, k, v, dout, **kw), sets[:1], 2)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -556,27 +589,45 @@ def flash_bwd_row(ops, ref, cases, case, dtype):
     lib = rotated_ms(lambda g: torch.autograd.grad(o, leaves, g, retain_graph=True),
                      [[dout]], 5)
     del o, leaves
+    other = {}
+    if bwd_route(dtype, hd) == "tensor cores":   # the dK/dV block bwd_keys did not choose
+        keys = 192 - bwd_keys(causal, win)
+        other = dict(other_keys=keys, other_err=cases.check_flash_bwd_keys(case, keys, "cuda"),
+                     other_ms=rotated_ms(lambda *t: ops.flash_attention_bwd(
+                         *t, lse=lse, keys=keys, **kw), sets, 5))
     pairs, empty = cases.flash_visible(case)
     ops_n = B * H * (5 * 2 * hd * pairs + 2 * hd * Sk * empty)
     nbytes = q.element_size() * 4 * (q.numel() + k.numel())   # in: q k v out dout; out: dq dk dv
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **other,
                 **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
 
 
 def flash_bwd_phase(ops, ref, cases):
-    """Step 16: every backward case checked, the training shapes timed."""
+    """Step 16: the training entry and every backward case checked, the
+    training shapes timed."""
+    from repro_torch.kernels.flash_attention import bwd_route
     rows = {}
     for dtype in DTYPES:
+        for case in (cases.FLASH_BWD + [c for c, _ in cases.FLASH_IDENTITY]
+                     + list(cases.FLASH_BWD_TRAIN.values())):
+            err = cases.check_flash_train(case, dtype, "cuda")
+            torch.cuda.empty_cache()
+            log(f"flash_attention_train {str(dtype)[6:]} {case}: the serving entry's output "
+                f"bit for bit; lse max |err| {err:.3e}")
         for case in cases.FLASH_BWD:
             err, _ = cases.check_flash_bwd(case, dtype, "cuda")
-            log(f"flash_attention_bwd {str(dtype)[6:]} {case}: max |err| {err:.3e}")
+            cases.check_flash_bwd_repeat(case, dtype, "cuda")
+            log(f"flash_attention_bwd {str(dtype)[6:]} {case} ({bwd_route(dtype, case[5])}): "
+                f"max |err| {err:.3e}; two calls the same bits")
         for label, case in cases.FLASH_BWD_TRAIN.items():
             r = rows[(dtype, label)] = flash_bwd_row(ops, ref, cases, case, dtype)
             torch.cuda.empty_cache()
             log(f"flash_attention_bwd {str(dtype)[6:]} {label} {case}: max |err| "
                 f"{r['max_abs_err']:.3e}, kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
                 f"ms, sdpa backward {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-                f"({r['bound_by']})")
+                f"({r['bound_by']})" + (f"; {r['other_keys']}-key dK/dV blocks (not chosen): "
+                                        f"{r['other_ms']:.5f} ms, max |err| "
+                                        f"{r['other_err']:.3e}" if "other_ms" in r else ""))
     return rows
 
 
@@ -1006,6 +1057,79 @@ def profiled(label, fn):
     return result, calls
 
 
+def profiled_step(label, fn, layers):
+    """Step 18's profile of ``fn()``, one training step, on a whole
+    profiler window: device time by ``STEP_CLASSES``, the optimizer's (the
+    kernels that ``adamw_update`` launched, seen through a
+    ``record_function`` range around it) and the rest's, and the idle
+    share. Returns fn's result and the split in ms, or None (the window
+    discarded) unless the window recorded every flash kernel of the step:
+    2 x ``layers`` forward launches and as many backward kernels (dQ and
+    dK/dV per layer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.train import steps
+    real = steps.adamw_update
+
+    def traced(*a, **kw):
+        with record_function("adamw_update"):
+            return real(*a, **kw)
+
+    steps.adamw_update = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        steps.adamw_update = real
+
+    def klass(name):
+        return next((c for c, pat in STEP_CLASSES if pat.search(name)), None)
+
+    def subtree(e):
+        return list(e.kernels) + [k for ch in e.cpu_children for k in subtree(ch)]
+
+    events = prof.events()
+    us = {c: 0.0 for c, _ in STEP_CLASSES}
+    calls = {c: 0 for c, _ in STEP_CLASSES}
+    by_name = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name == "adamw_update":
+            continue
+        t = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + t
+        c = klass(e.name)
+        if c is not None:
+            us[c] += t
+            calls[c] += 1
+    us["optimizer"] = sum(k.duration for e in events
+                          if e.device_type == DeviceType.CPU and e.name == "adamw_update"
+                          for k in subtree(e)
+                          if k.name != "adamw_update" and klass(k.name) is None)
+    busy = sum(by_name.values())
+    if not busy:
+        log(f"profile of {label}: the profiler saw no device time; window discarded")
+        return result, None
+    us["the rest"] = busy - sum(us.values())
+    whole = calls["flash forward"] == 2 * layers and calls["flash backward"] == 2 * layers
+    log(f"profile of {label}: window {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+        f"idle share {1 - busy / wall_us:.4f}; " + ", ".join(
+            f"{c} {t / 1e3:.3f} ms ({t / busy:.2%})" for c, t in us.items())
+        + f"; flash launches seen: {calls['flash forward']} forward, "
+        f"{calls['flash backward']} backward kernels")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  {t / 1e3:9.3f} ms {t / busy:7.2%}  {name[:100]}")
+    if not whole:
+        log(f"profile of {label}: window discarded (want {2 * layers} flash forward and "
+            f"{2 * layers} backward kernels)")
+        return result, None
+    return result, dict({c: t / 1e3 for c, t in us.items()}, window=wall_us / 1e3,
+                        busy=busy / 1e3, idle_share=1 - busy / wall_us,
+                        names=sorted(by_name))
+
+
 # --------------------------------------------------------------------------- #
 # rwkv6-1.6b: the wkv6 kernel, the model, the engine
 # --------------------------------------------------------------------------- #
@@ -1287,15 +1411,26 @@ def train_phase(ops, cfg):
     L = cfg.num_layers
     want = dict({n: 0 for n in SOURCES}, flash_attention=2 * L, flash_attention_bwd=L)
     total = {n: 0 for n in SOURCES}
+    split = None
     for i in range(TRAIN_STEPS):
         batch = batch_to(next(it), "cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (params, opt, m), got = launched(ops, lambda: step(params, opt, batch))
+
+        def run():
+            return launched(ops, lambda: step(params, opt, batch))
+
+        profiling = i > 0 and split is None      # step 1, or 2 if 1's window is discarded
+        if profiling:
+            ((params, opt, m), got), split = profiled_step(
+                f"{cfg.name} training step {i}", run, L)
+        else:
+            (params, opt, m), got = run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        log(f"{cfg.name} training step {i}: {TRAIN_TOKENS} tokens in {dt * 1e3:.3f} ms; loss "
+        log(f"{cfg.name} training step {i}{' (profiled)' if profiling else ''}: "
+            f"{TRAIN_TOKENS} tokens in {dt * 1e3:.3f} ms; loss "
             f"{loss:.4f}, grad norm {gnorm:.4f}, lr {float(m['lr']):.3e}; launches {got}; "
             f"peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         if got != want:
@@ -1310,6 +1445,12 @@ def train_phase(ops, cfg):
     log(f"{cfg.name} training: largest change of each probed slice {moved}")
     if not all(x > 0 for x in moved.values()):
         raise AssertionError(f"{cfg.name} training: weights did not move: {moved}")
+    if split is None:
+        raise AssertionError(f"{cfg.name} training: no profiled step recorded every flash kernel")
+    missing = [n for n in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+               if not any(n in name for name in split["names"])]
+    if missing:
+        raise AssertionError(f"{cfg.name} training: the bf16 backward ran no {missing}")
     return total
 
 
@@ -1504,10 +1645,11 @@ def main():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        build.build_logs.get("flash_attention", ""))
-    if any(a != "0" or b != "0" for a, b in spills):
-        raise AssertionError(f"flash_attention spills: {spills}")
+    spills = {f: n for lib in ("flash_attention", "flash_attention_bwd")
+              for f, n in entry_spills(build.build_logs.get(lib, "")).items()
+              if lib == "flash_attention" or "_mma_kernel" in f}
+    if any(n != (0, 0) for n in spills.values()):
+        raise AssertionError(f"flash kernels spill: {spills}")
 
     flash_main, decode_main = shapes.main_path_shapes(get_config("yi-6b"))
     decode_main["griffin turn 2"] = shapes.griffin_decode_shape(get_config(GRIFFIN))

@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded with
 ``ctypes``. Libraries land in ``build/repro_torch_kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. An installed copy
-that lies in no checkout (a non-editable ``pip install``) builds into
-``$XDG_CACHE_HOME/repro_torch_kernels`` (``~/.cache`` by default) instead,
-never into the interpreter's library directory. ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.
+the checkout, named by a hash of the source, the headers beside it
+(``csrc/*.cuh``, which every source may include) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+An installed copy that lies in no checkout (a non-editable ``pip install``)
+builds into ``$XDG_CACHE_HOME/repro_torch_kernels`` (``~/.cache`` by
+default) instead, never into the interpreter's library directory.
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
@@ -48,10 +50,12 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": (
             _I, [_I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_I] * 4 + [_P]),
+        "flash_attention_train_launch": (
+            _I, [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_I] * 4 + [_P]),
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": (
-            _I, [_I] + [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_P]),
+            _I, [_I] * 3 + [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_P]),
     },
     "decode_attention": {
         "decode_attention_launch": (
@@ -82,9 +86,15 @@ def nvcc_path() -> str:
                        "machine with the card (PATH or /usr/local/cuda/bin)")
 
 
+def source_bytes(name: str) -> bytes:
+    """``csrc/<name>.cu`` and every header beside it, the bytes a build of
+    it depends on."""
+    headers = sorted(CSRC.glob("*.cuh"))
+    return b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *headers])
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(source_bytes(name) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

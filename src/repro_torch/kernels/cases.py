@@ -38,7 +38,8 @@ dense archs after yi-6b and of the long-context phase are not listed here:
 
 The flash backward (``ops.flash_attention_bwd``, reached through autograd
 of ``ops.flash_attention``) is held by ``check_flash_bwd`` at ``FLASH_BWD``,
-the forward's sweep, ragged, empty-band and tile-edge cases, and at
+the forward's sweep, ragged, empty-band and tile-edge cases and
+``FLASH_BWD_TILES``, either side of the backward's own tiles, and at
 ``FLASH_BWD_TRAIN``, the training shapes: h2o-danube-1.8b's layer at 8,192
 tokens (its window binds), yi-6b's at 4,096, the 100M twin's
 (``repro_torch.launch.train_100m``: yi-6b reduced to 12 layers of d_model
@@ -49,7 +50,15 @@ fp32, 2e-2 bf16, the sweep of tests/test_kernels.py) against
 ``ref.flash_attention_bwd_ref``, autograd of the plain forward. Both sides
 compute in fp32 on the same input values; the kernel takes D = rowsum(dO *
 O) from the saved output, which in bf16 is rounded (a relative 2**-9 of D,
-far below dO V^T - D's size), and rounds each gradient once.
+far below dO V^T - D's size), and rounds each gradient once; in bf16 it also
+rounds P and dS to bf16 before the products that take them (as
+FlashAttention-2 and -3 do), a relative 2**-9 per term that averages out
+over the rows and keys of each sum. ``check_flash_bwd_repeat`` holds two
+backward calls on the same inputs to the same bits. ``check_flash_train``
+holds the training entry (``ops.flash_attention_train``, whose lse the
+backward takes) to the serving entry's output bit for bit and its lse to
+the plain version's (``ref.flash_attention_lse_ref``) within ``TOL`` of
+fp32.
 
 WKV6 cases are ``(B, H, S, hd, decay, s0_scale, layout[, rkv])``:
 ``decay`` None draws ``w`` uniform in [0.8, 0.999) as
@@ -147,8 +156,30 @@ FLASH_IDENTITY = [
 # window 2048; the model phase's prefill of 2,560 tokens, where the window
 # masks keys
 FLASH_GRIFFIN = [(1, 10, 1, 2560, 2560, 256, 0, 2048, True)]
-# the backward at the forward's cases, and at the training shapes
-FLASH_BWD = FLASH_SWEEP + FLASH_RAGGED + FLASH_EMPTY_BAND + FLASH_TILES
+# either side of the backward's tensor-core tiles: 128 packed query rows a
+# dQ block (G heads x 128/G positions) over 64-key K/V tiles; a dK/dV block
+# of 64 keys (causal without a window) or 128 keys (64 a warpgroup: a window,
+# or no causal mask) over 64-row Q/dO tiles; hd 64, 80 and 128, and hd 136,
+# the first that bf16 takes on the CUDA cores
+FLASH_BWD_TILES = [
+    (1, 4, 4, 127, 129, 64, 2, None, True),       # G = 1: rows one below a dQ block, keys one above a dK/dV block
+    (1, 4, 4, 129, 127, 128, 0, None, True),      # G = 1: the other way round
+    (1, 8, 2, 33, 65, 80, 32, None, True),        # G = 4 (32 positions a dQ block): one above; keys one above a warpgroup
+    (1, 8, 2, 31, 63, 80, 32, 40, True),          # one below both; the window edge inside a tile
+    (1, 32, 4, 65, 200, 128, 135, 100, True),     # G = 8: rows one above a Q/dO tile, window 100
+    (1, 64, 1, 3, 131, 64, 128, None, True),      # G = 64: 2 positions a dQ block; a dK/dV block of 3 keys
+    (1, 8, 2, 63, 129, 80, 66, None, False),      # not causal: rows one below a Q/dO tile
+    (1, 4, 1, 40, 100, 64, 100, 20, True),        # rows 19-39 see no key: a dQ block of both kinds, one of empty rows
+    (1, 4, 2, 65, 129, 128, 0, None, True),       # hd 128, the tensor cores' widest ...
+    (1, 4, 2, 65, 129, 136, 0, None, True),       # ... and hd 136, the CUDA cores in bf16
+    (1, 8, 2, 127, 127, 80, 0, 64, True),         # window: keys one below a 128-key dK/dV block
+    (1, 4, 4, 129, 129, 128, 0, 96, True),        # window: keys one above it, rows one above a dQ block
+    (1, 16, 4, 50, 65, 64, 15, None, False),      # not causal: one key in the second warpgroup's 64
+]
+# the backward at the forward's cases, its own tiles' edges, and at the
+# training shapes
+FLASH_BWD = (FLASH_SWEEP + FLASH_RAGGED + FLASH_EMPTY_BAND + FLASH_TILES
+             + FLASH_BWD_TILES)
 FLASH_BWD_TRAIN = {
     "h2o-danube-1.8b": (1, 32, 8, 8192, 8192, 80, 0, 4096, True),
     "yi-6b": (1, 32, 4, 4096, 4096, 128, 0, None, True),
@@ -457,6 +488,50 @@ def check_flash_bwd(case, dtype, device, seed=0):
     err = max(held(f"flash_attention_bwd d{n}", case, a, b)
               for n, a, b in zip("qkv", got, want))
     return err, (q, k, v, out, dout)
+
+
+def check_flash_bwd_repeat(case, dtype, device, seed=0):
+    """Two calls of ``ops.flash_attention_bwd`` on the same inputs (with the
+    training entry's output and lse) must give the same bits; raises unless
+    they do."""
+    q, k, v, dout = flash_bwd_inputs(case, dtype, device, seed)
+    kw = dict(q_offset=case[6], window=case[7], causal=case[8])
+    out, lse = ops.flash_attention_train(q, k, v, **kw)
+    first, second = (ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
+                     for _ in range(2))
+    for n, a, b in zip("qkv", first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash_attention_bwd {case} {dtype}: d{n} differs between "
+                                 f"two calls in {int((a != b).sum())} entries")
+
+
+def check_flash_bwd_keys(case, keys, device, seed=0):
+    """``ops.flash_attention_bwd`` in bf16 with dK/dV blocks of ``keys``
+    (whichever ``bwd_keys`` would choose), on the training entry's output
+    and lse, against the plain version; max |err|."""
+    q, k, v, dout = flash_bwd_inputs(case, torch.bfloat16, device, seed)
+    kw = dict(q_offset=case[6], window=case[7], causal=case[8])
+    out, lse = ops.flash_attention_train(q, k, v, **kw)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, keys=keys, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    return max(held(f"flash_attention_bwd keys={keys} d{n}", case, a, b)
+               for n, a, b in zip("qkv", got, want))
+
+
+def check_flash_train(case, dtype, device, seed=0):
+    """The training entry against the serving entry (the same output bits)
+    and its lse against the plain version's within ``TOL`` of fp32; max
+    |lse err|."""
+    q, k, v = flash_inputs(case, dtype, device, seed)
+    kw = dict(q_offset=case[6], window=case[7], causal=case[8])
+    out, lse = ops.flash_attention_train(q, k, v, **kw)
+    with torch.no_grad():
+        served = ops.flash_attention(q, k, v, **kw)
+    if not torch.equal(out, served):
+        raise AssertionError(f"flash_attention_train {case} {dtype}: the output differs from "
+                             f"the serving entry's in {int((out != served).sum())} entries")
+    _, want = ref.flash_attention_lse_ref(q, k, v, **kw)
+    return held("flash_attention_train lse", case, lse, want)
 
 
 def check_flash_hit_rows(case, first, dtype, device, seed=0):

@@ -9,7 +9,15 @@
 //   hd <= 256. Every tensor comes by strides; the head dimension must be
 //   contiguous.
 //
-// One entry, flash_attention_launch, with two routes chosen by dtype alone:
+// Two entries. flash_attention_launch serves; flash_attention_train_launch,
+// the training path's forward, also writes each row's logsumexp to lse
+// (B,H,Sq) fp32, in base 2 of the scores times hd^-0.5 log2 e (the units in
+// which both kernels keep their running max, and in which the backward's
+// ex2 exponentiates), so that the backward does not recompute it. The write
+// sits in each route's epilogue behind a template flag (kLse) that the
+// serving entry's instantiations leave false, so their code is the code
+// without it. A row whose band is empty gets -1e30 log2 e, the mask value's.
+// Each entry has two routes chosen by dtype alone:
 //
 //  * bf16 -> flash_mma_kernel<HDP>, both products on the tensor cores.
 //  * fp32 -> flash_kernel<NJ>, fp32 FMA on the CUDA cores. The fp32 callers
@@ -75,17 +83,17 @@
 //    against -1e30), else 0.
 // The fp32 route (flash_kernel) keeps its CUDA-core form: key tiles staged
 // in shared memory, the fp32 running max, sum and accumulator in registers.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr float kNegInf = -1e30f;              // the reference's mask value
 constexpr int kMaxGroup = 64;                  // query heads per kv head
-constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -104,18 +112,6 @@ struct Params {
   int pairs;     // bf16 route: output rows allow 4-byte stores of 2 values
   float scale;
 };
-
-// Sets a kernel's dynamic shared memory limit once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int* allowed) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
-  return err;
-}
 
 // --------------------------------------------------------------------------
 // fp32 route: CUDA-core FMA
@@ -149,8 +145,8 @@ size_t smem_bytes(int hd) {
 // softmax reductions are warp shuffles; lane l owns keys l and l+32 of a tile
 // and output columns l, l+32, ... of its rows. NJ = number of 32-wide column
 // groups a lane holds (hd <= 32 * NJ).
-template <int NJ>
-__global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
+template <int NJ, bool kLse>
+__global__ void __launch_bounds__(kThreads) flash_kernel(const Params p, float* lse) {
   extern __shared__ float smem[];
   const int hd = p.hd;
   const int kst = hd | 1;                 // odd stride: column reads hit 32 banks
@@ -298,18 +294,23 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
         const int d = lane + 32 * j;
         if (d < hd) orow[d] = acc[i][j] / den;
       }
+      if constexpr (kLse) {            // base 2: m and l are natural-log units here
+        if (lane == 0)
+          lse[((long long)b * p.KV * p.G + kvh * p.G + g) * p.Sq + q0 + qi] =
+              (m[i] + logf(l[i])) * kLog2e;
+      }
     }
   }
 }
 
-template <int NJ>
-cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+template <int NJ, bool kLse>
+cudaError_t launch_f32(const Params& p, float* lse, int B, cudaStream_t stream) {
   static int allowed[kMaxDevices];
   const int smem = (int)smem_bytes(p.hd);
-  cudaError_t err = allow_smem(flash_kernel<NJ>, smem, allowed);
+  cudaError_t err = allow_smem(flash_kernel<NJ, kLse>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.KV, B);
-  flash_kernel<NJ><<<grid, kThreads, smem, stream>>>(p);
+  flash_kernel<NJ, kLse><<<grid, kThreads, smem, stream>>>(p, lse);
   return cudaGetLastError();
 }
 
@@ -334,192 +335,6 @@ struct Shape {
   static constexpr int kQBytes = kRows * HDP * 2;
   static constexpr int kKVBytes = kBK * HDP * 2;
   static constexpr int kSmem = kQBytes + kStages * 2 * kKVBytes + 1024;   // + alignment
-};
-
-__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
-  return (uint32_t)((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
-// wgmma matrix descriptor of a 128-byte-swizzled tile at shared address
-// `addr` (1024-byte aligned atoms): leading and stride byte offsets.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-// generic-proxy writes (cp.async, st.shared) before async-proxy reads (wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator registers across the async ops
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// 2^x on the special-function unit; subnormal results flush to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
-      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
-      "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
-      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "
-      "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127}"
-      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]),
-        "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),
-        "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
-        "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <int N> struct SS;
-template <> struct SS<64> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
-    wgmma_ss_n64(d, da, db, 1);
-  }
-};
-template <int N> struct RS;
-template <> struct RS<64> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db) {
-    wgmma_rs_n64(d, a, db);
-  }
-};
-template <> struct RS<128> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db) {
-    wgmma_rs_n128(d, a, db);
-  }
-};
-template <> struct RS<256> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db) {
-    wgmma_rs_n256(d, a, db);
-  }
 };
 
 // Q rows of the block into the swizzled tile at `sq` (zero past Sq, G, hd).
@@ -548,32 +363,6 @@ __device__ __forceinline__ void load_q(const Params& p, uint32_t sq, unsigned ch
       *reinterpret_cast<__nv_bfloat16*>(gq + swz(r, d >> 3, kRows) + (d & 7) * 2) = x;
     }
   }
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-// box (c0, c1, c2, c3) of a 4-d tensor map into shared memory at dst;
-// completion adds its bytes to the transaction count of mbarrier bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-         "r"(bar)
-      : "memory");
 }
 
 // Keys kt .. kt + BK - 1 of K and V into the ring slot at sk (K, then V) by
@@ -637,10 +426,10 @@ __device__ unsigned long long phase_clocks[2][6];
 // accumulator rows w*64 + 16*(t/32) + (t%32)/4 and that + 8; for each 8-key
 // (or 8-column) group n it holds columns 8n + 2*(t%4) + {0, 1}: registers
 // 4n, 4n+1 on the first row, 4n+2, 4n+3 on the second.
-template <int HDP>
+template <int HDP, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_mma_kernel(const Params p, const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv) {
+                     const __grid_constant__ CUtensorMap tv, float* lse) {
   using Sh = Shape<HDP>;
   constexpr int kStages = Sh::kStages;
   constexpr int kSlot = 2 * Sh::kKVBytes;
@@ -873,100 +662,41 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (d + 1 < p.hd) orow[d + 1] = __float2bfloat16(x1);
         }
       }
+      // base 2, of the raw scores times scale log2 e, as the backward's ex2
+      // takes it; a row that saw no visible key gets the mask value's
+      if constexpr (kLse) {
+        if ((lane & 3) == 0)
+          lse[((long long)b * p.KV * p.G + kvh * p.G + g) * p.Sq + q0 + qi] =
+              m[h] == kNegInf ? kNegInf * kLog2e : m[h] + log2f(l[h]);
+      }
     }
   }
 }
 
 }  // namespace tc
 
-template <int HDP>
-cudaError_t launch_mma(const Params& p, const CUtensorMap& tk, const CUtensorMap& tv, int B,
-                       cudaStream_t stream) {
+template <int HDP, bool kLse>
+cudaError_t launch_mma(const Params& p, const CUtensorMap& tk, const CUtensorMap& tv,
+                       float* lse, int B, cudaStream_t stream) {
   static int allowed[kMaxDevices];
   constexpr int smem = tc::Shape<HDP>::kSmem;
-  cudaError_t err = allow_smem(tc::flash_mma_kernel<HDP>, smem, allowed);
+  cudaError_t err = allow_smem(tc::flash_mma_kernel<HDP, kLse>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.KV, B);
-  tc::flash_mma_kernel<HDP><<<grid, tc::kThreads, smem, stream>>>(p, tk, tv);
+  tc::flash_mma_kernel<HDP, kLse><<<grid, tc::kThreads, smem, stream>>>(p, tk, tv, lse);
   return cudaGetLastError();
 }
 
-// A stride allows 16-byte copies if it is a positive multiple of 8 elements
-// or its dimension has one entry (then it is never applied).
-bool aligned8(long long stride, int n) { return n == 1 || (stride > 0 && stride % 8 == 0); }
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
-// (so the library needs no link to libcuda); null if the driver lacks it.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// Describes k or v (B, KV, Sk, hd; strides in elements) to the TMA unit as
-// boxes of 64 head columns x 64 keys in the 128-byte swizzle. Dimension 0 is
-// the head column; keys, kv heads and batch follow in order of stride, a
-// dimension of one entry last with the stride that would follow. dim[j]
-// receives the map dimension of keys (j = 0), kv heads (1) and batch (2).
-// Returns false if the driver has no encoder or refuses the map.
-bool encode_kv(CUtensorMap* map, const void* base, int hd, int Sk, int KV, int B,
-               long long ss, long long sh, long long sb, int* dim) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const long long n[3] = {Sk, KV, B}, st[3] = {ss, sh, sb};
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)          // insertion sort: size-1 last, else by stride
-    for (int j = i; j > 0; --j) {
-      const int a = order[j - 1], c = order[j];
-      const bool swap = (n[a] == 1 && n[c] > 1) ||
-                        (n[a] > 1 && n[c] > 1 && st[c] < st[a]);
-      if (!swap) break;
-      order[j - 1] = c;
-      order[j] = a;
-    }
-  cuuint64_t gdim[4] = {(cuuint64_t)hd, 1, 1, 1}, gstride[3];
-  cuuint32_t box[4] = {64, 1, 1, 1}, estride[4] = {1, 1, 1, 1};
-  unsigned long long extent = 2ull * hd;   // bytes spanned by the dimensions so far
-  for (int i = 0; i < 3; ++i) {
-    const int d = order[i];
-    const unsigned long long bytes = n[d] > 1 ? 2ull * st[d] : (extent + 15) / 16 * 16;
-    gdim[i + 1] = (cuuint64_t)n[d];
-    gstride[i] = bytes;
-    box[i + 1] = d == 0 ? tc::kBK : 1;
-    extent = bytes * n[d];
-    dim[d] = i + 1;
-  }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
-                gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 fp32, 1 bf16. Returns a cudaError_t (0 = launched).
-int flash_attention_launch(int dtype, const void* q, const void* k, const void* v,
-                           void* o, int B, int H, int KV, int Sq, int Sk, int hd,
-                           long long q_sb, long long q_sh, long long q_ss,
-                           long long k_sb, long long k_sh, long long k_ss,
-                           long long v_sb, long long v_sh, long long v_ss,
-                           long long o_sb, long long o_sh, long long o_ss,
-                           int q_offset, int causal, int has_window, int window,
-                           void* stream) {
+// Both entries: kLse (the training entry) also writes lse; the serving
+// entry's instantiations (kLse = false) never read the pointer.
+template <bool kLse>
+int launch_entry(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                 int B, int H, int KV, int Sq, int Sk, int hd,
+                 long long q_sb, long long q_sh, long long q_ss,
+                 long long k_sb, long long k_sh, long long k_ss,
+                 long long v_sb, long long v_sh, long long v_ss,
+                 long long o_sb, long long o_sh, long long o_ss,
+                 int q_offset, int causal, int has_window, int window, void* stream) {
   if (KV <= 0 || H % KV != 0 || hd <= 0 || hd > 256 || H / KV > kMaxGroup || Sq <= 0 ||
       Sk <= 0)
     return (int)cudaErrorInvalidValue;
@@ -983,9 +713,9 @@ int flash_attention_launch(int dtype, const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     p.bq = kRows / p.G;
-    if (hd <= 64) return (int)launch_f32<2>(p, B, st);
-    if (hd <= 128) return (int)launch_f32<4>(p, B, st);
-    return (int)launch_f32<8>(p, B, st);
+    if (hd <= 64) return (int)launch_f32<2, kLse>(p, lse, B, st);
+    if (hd <= 128) return (int)launch_f32<4, kLse>(p, lse, B, st);
+    return (int)launch_f32<8, kLse>(p, lse, B, st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   p.bq = tc::kRows / p.G;
@@ -996,14 +726,47 @@ int flash_attention_launch(int dtype, const void* q, const void* k, const void* 
   p.tma = hd % 8 == 0 && (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0 &&
           aligned8(k_sb, B) && aligned8(k_sh, KV) && aligned8(k_ss, Sk) && aligned8(v_sb, B) &&
           aligned8(v_sh, KV) && aligned8(v_ss, Sk);
-  if (p.tma && !(encode_kv(&tk, k, hd, Sk, KV, B, k_ss, k_sh, k_sb, p.kdim) &&
-                 encode_kv(&tv, v, hd, Sk, KV, B, v_ss, v_sh, v_sb, p.vdim)))
+  if (p.tma && !(encode_rows(&tk, k, hd, Sk, KV, B, k_ss, k_sh, k_sb, p.kdim, tc::kBK) &&
+                 encode_rows(&tv, v, hd, Sk, KV, B, v_ss, v_sh, v_sb, p.vdim, tc::kBK)))
     return (int)cudaErrorNotSupported;
   p.pairs = hd % 2 == 0 && (uintptr_t)o % 4 == 0 && o_sb % 2 == 0 && o_sh % 2 == 0 &&
             o_ss % 2 == 0;
-  if (hd <= 64) return (int)launch_mma<64>(p, tk, tv, B, st);
-  if (hd <= 128) return (int)launch_mma<128>(p, tk, tv, B, st);
-  return (int)launch_mma<256>(p, tk, tv, B, st);
+  if (hd <= 64) return (int)launch_mma<64, kLse>(p, tk, tv, lse, B, st);
+  if (hd <= 128) return (int)launch_mma<128, kLse>(p, tk, tv, lse, B, st);
+  return (int)launch_mma<256, kLse>(p, tk, tv, lse, B, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 fp32, 1 bf16. Returns a cudaError_t (0 = launched).
+int flash_attention_launch(int dtype, const void* q, const void* k, const void* v,
+                           void* o, int B, int H, int KV, int Sq, int Sk, int hd,
+                           long long q_sb, long long q_sh, long long q_ss,
+                           long long k_sb, long long k_sh, long long k_ss,
+                           long long v_sb, long long v_sh, long long v_ss,
+                           long long o_sb, long long o_sh, long long o_ss,
+                           int q_offset, int causal, int has_window, int window,
+                           void* stream) {
+  return launch_entry<false>(dtype, q, k, v, o, nullptr, B, H, KV, Sq, Sk, hd, q_sb, q_sh,
+                             q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+                             q_offset, causal, has_window, window, stream);
+}
+
+// The training entry: the same launch, and lse (B, H, Sq) fp32 contiguous,
+// each row's logsumexp in base 2 of its scores times hd^-0.5 log2 e.
+int flash_attention_train_launch(int dtype, const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int B, int H, int KV, int Sq, int Sk,
+                                 int hd, long long q_sb, long long q_sh, long long q_ss,
+                                 long long k_sb, long long k_sh, long long k_ss,
+                                 long long v_sb, long long v_sh, long long v_ss,
+                                 long long o_sb, long long o_sh, long long o_ss,
+                                 int q_offset, int causal, int has_window, int window,
+                                 void* stream) {
+  return launch_entry<true>(dtype, q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, hd,
+                            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
+                            o_ss, q_offset, causal, has_window, window, stream);
 }
 
 #ifdef FLASH_PHASE_CLOCKS

@@ -7,9 +7,14 @@ takes it by autodiff; ``flash_attention`` calls it from autograd).
 The model code calls only these. Each runs its hand-written CUDA kernel for
 a CUDA tensor and its plain PyTorch version for a CPU tensor; there is no
 flag that picks the plain version on the card.
+
+``flash_attention_train`` (the forward's output with each row's logsumexp,
+as ``flash_attention``'s autograd saves them for the backward) is not in
+``__all__``: its launches count in ``flash_attention.launches``.
 """
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                 flash_attention_train)
 from repro_torch.kernels.rglru import rglru_scan, rglru_step
 from repro_torch.kernels.wkv6 import wkv6
 

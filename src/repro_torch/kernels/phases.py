@@ -53,7 +53,8 @@ def shapes():
 
 def library_path() -> Path:
     """The clock build, named by a hash of the source and the flags."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(build.source_bytes("flash_attention")
+                            + " ".join(FLAGS).encode()).hexdigest()[:16]
     return build.BUILD_DIR / f"libflash_attention_clocks-{digest}.so"
 
 

@@ -9,6 +9,10 @@ products, then ``a * h + b``), the function the fused step kernel computes.
 ``flash_attention_bwd_ref`` is the gradient of ``flash_attention_ref`` by
 autograd, the plain version of the flash backward kernel (the reference
 takes the same gradient by autodiff of its jnp attention).
+``flash_attention_lse_ref`` is the training forward's plain version: the
+same output and each row's logsumexp in the kernels' base-2 units;
+``flash_attention_bwd_lse_ref`` is the closed form the backward kernels
+compute from that lse.
 The wrappers run these for CPU tensors; ``chip_smoke.py`` holds the CUDA
 kernels against them on the card.
 """
@@ -20,28 +24,81 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 RG_C = 8.0          # the RG-LRU's decay scale, repro/models/griffin.py
+
+
+def flash_mask(Sq: int, Sk: int, q_offset: int, causal: bool, window: Optional[int],
+               device=None):
+    """(Sq, Sk) bool: the keys each query row sees (causal and window band)."""
+    qpos = q_offset + torch.arange(Sq, device=device)
+    kpos = torch.arange(Sk, device=device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def _masked_scores(q, k, q_offset, causal, window):
+    """fp32 scores (B,KV,G,Sq,Sk) times hd ** -0.5, NEG_INF off the band."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, hd).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * hd ** -0.5
+    mask = flash_mask(Sq, Sk, q_offset, causal, window, q.device)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
 
 def flash_attention_ref(q, k, v, *, q_offset: int = 0, causal: bool = True,
                         window: Optional[int] = None):
     """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) -> (B,H,Sq,hd)."""
     B, H, Sq, hd = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, KV, G, Sq, hd).float()
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * hd ** -0.5
-    qpos = q_offset + torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Sk, device=q.device)
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_masked_scores(q, k, q_offset, causal, window), dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                            window: Optional[int] = None):
+    """(``flash_attention_ref``'s output, lse (B,H,Sq) fp32): each row's
+    logsumexp of its masked scores in base 2, ``log2 sum_j 2^(s_j log2 e)``
+    = the natural logsumexp times log2 e, the units in which the kernels
+    exponentiate. A row whose band is empty scores NEG_INF on every key, so
+    its lse is NEG_INF log2 e (log Sk is lost in fp32)."""
+    B, H, Sq, hd = q.shape
+    lse = torch.logsumexp(_masked_scores(q, k, q_offset, causal, window), dim=-1) * LOG2E
+    out = flash_attention_ref(q, k, v, q_offset=q_offset, causal=causal, window=window)
+    return out, lse.reshape(B, H, Sq)
+
+
+def flash_attention_bwd_lse_ref(q, k, v, out, lse, dout, *, q_offset: int = 0,
+                                causal: bool = True, window: Optional[int] = None):
+    """The closed form of the gradients (dq, dk, dv) that the backward
+    kernels compute from the forward's output and lse, in fp32, returned in
+    the inputs' dtype: P = 2^(s log2 e - lse) on the band (0 off it), D =
+    rowsum(dO * O), dV = P^T dO, dS = P (dO V^T - D), dQ = scale dS K, dK =
+    scale dS^T Q; a row whose band is empty adds dO / Sk to every key's dV
+    and nothing to dQ and dK."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, scale = H // KV, hd ** -0.5
+    shape5 = (B, KV, G, Sq)
+    qg, og, gg = (t.reshape(*shape5, hd).float() for t in (q, out, dout))
+    kf, vf = k.float(), v.float()
+    mask = flash_mask(Sq, Sk, q_offset, causal, window, q.device)
+    live = mask.any(dim=-1)                                   # (Sq,)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf) * scale
+    p = torch.where(mask & live[:, None], torch.exp2(s * LOG2E - lse.reshape(*shape5, 1)),
+                    torch.zeros_like(s))
+    D = (gg * og).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", gg, vf) - D)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, gg)
+    dv = dv + (gg * (~live)[:, None].float()).sum(dim=(2, 3))[:, :, None] / Sk
+    return dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_ref(q, k, v, dout, *, q_offset: int = 0, causal: bool = True,

@@ -422,6 +422,38 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
     assert (ops.flash_attention.launches, ops.flash_attention_bwd.launches) == (n + 1, m + 1)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", cases.FLASH_BWD + [c for c, _ in cases.FLASH_IDENTITY]
+                         + list(cases.FLASH_BWD_TRAIN.values()))
+def test_flash_train_entry_matches_serving_entry_and_plain_lse(cuda, dtype, case):
+    """The training entry: the serving entry's output bit for bit, its lse
+    within cases.TOL of the plain version's; both launches counted in
+    flash_attention.launches."""
+    n = ops.flash_attention.launches
+    cases.check_flash_train(case, dtype, cuda)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keys", [64, 128])
+@pytest.mark.parametrize("case", [c for c in cases.FLASH_BWD if c[5] <= 128])
+def test_flash_bwd_either_key_block_matches_plain(cuda, keys, case):
+    """The tensor-core route with dK/dV blocks of 64 and of 128 keys,
+    whichever the mask would choose: dq, dk, dv within cases.TOL."""
+    cases.check_flash_bwd_keys(case, keys, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", cases.FLASH_BWD + list(cases.FLASH_BWD_TRAIN.values()))
+def test_flash_bwd_kernel_gives_the_same_bits_twice(cuda, dtype, case):
+    """Two backward calls on the same inputs: the same dq, dk, dv bits (no
+    atomics on either route)."""
+    cases.check_flash_bwd_repeat(case, dtype, cuda)
+
+
 def _guarded_calls(cuda):
     q, k, v, valid = cases.decode_inputs(cases.DECODE_SWEEP[0], torch.float32, cuda)
     return {"decode_attention": (ops.decode_attention, [q, k, v, valid], 0),

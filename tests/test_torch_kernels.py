@@ -24,7 +24,8 @@ from repro_torch.kernels.cases import (DECODE_MAIN, DECODE_RAGGED, DECODE_SWEEP,
                                        FLASH_EMPTY_BAND, FLASH_RAGGED, FLASH_SWEEP,
                                        FLASH_TILES)
 from repro_torch.kernels.decode_attention import MAX_SPLITS, TILE, split_plan
-from repro_torch.kernels.flash_attention import _entry_args
+from repro_torch.kernels.flash_attention import (BWD_ROUTES, DTYPES, _bwd_args,
+                                                 _entry_args, bwd_keys, bwd_route, rows16)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -327,6 +328,88 @@ def test_flash_entry_args_carry_the_views_strides():
     assert args[23:27] == (16, 1, 1, 12)
     assert _entry_args(q.float(), k.float(), v.float(), out.float(), 0, False, None,
                        0)[23:27] == (0, 0, 0, 0)
+
+
+def test_flash_train_entry_args_put_lse_after_the_output():
+    """The training entry takes the lse pointer after the output's, and
+    otherwise the serving entry's arguments."""
+    q = torch.zeros(1, 8, 5, 80, dtype=torch.bfloat16)
+    k = v = torch.zeros(1, 2, 9, 80, dtype=torch.bfloat16)
+    out, lse = torch.empty_like(q), torch.empty(1, 8, 5)
+    served = _entry_args(q, k, v, out, 4, True, 3, 0)
+    args = _entry_args(q, k, v, out, 4, True, 3, 0, lse)
+    assert len(args) == len(build._SIGNATURES["flash_attention"]
+                            ["flash_attention_train_launch"][1])
+    assert args[:5] + args[6:-1] == served[:-1] and args[5] == lse.data_ptr()
+
+
+@pytest.mark.parametrize("case", cases.FLASH_BWD)
+def test_flash_train_plain_version_matches_float64_logsumexp(case):
+    """The training forward's plain version: the output of
+    ref.flash_attention_ref bit for bit, and each row's lse (base 2) within
+    cases.TOL of a float64 NumPy logsumexp of the masked scores, empty
+    bands included (their lse is the mask value's, -1e30 log2 e)."""
+    B, H, KV, Sq, Sk, hd, off, win, causal = case
+    q, k, v = cases.flash_inputs(case, torch.float32, "cpu")
+    kw = dict(q_offset=off, window=win, causal=causal)
+    out, lse = ops.flash_attention_train(q, k, v, **kw)
+    assert torch.equal(out, ref.flash_attention_ref(q, k, v, **kw))
+    qg = q.numpy().astype(np.float64).reshape(B, KV, H // KV, Sq, hd)
+    s = np.einsum("bkgqd,bksd->bkgqs", qg, k.numpy().astype(np.float64)) * hd ** -0.5
+    s = np.where(ref.flash_mask(Sq, Sk, off, causal, win).numpy(), s, -1e30)
+    m = s.max(-1, keepdims=True)
+    want = (m[..., 0] + np.log(np.exp(s - m).sum(-1))) / np.log(2.0)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    cases.held("flash_attention_train lse", case, lse,
+               torch.from_numpy(want.reshape(B, H, Sq).astype(np.float32)))
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 136, 256])
+def test_flash_bwd_route_depends_on_dtype_and_head_dim_alone(hd):
+    """bf16 up to hd 128 on the tensor cores, the rest on the CUDA cores;
+    the C entry takes the route as its second argument and the dK/dV block
+    of ``bwd_keys`` as its third, whatever the shape and strides."""
+    assert bwd_route(torch.bfloat16, hd) == ("tensor cores" if hd <= 128 else "cuda cores")
+    assert bwd_route(torch.float32, hd) == "cuda cores"
+    _, argtypes = build._SIGNATURES["flash_attention_bwd"]["flash_attention_bwd_launch"]
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, KV, Sq, Sk, off, causal, win in ((1, 4, 2, 8, 8, 0, True, None),
+                                                   (2, 8, 1, 3, 40, 37, False, 5)):
+            q, dout, out, dq = (torch.zeros(B, H, Sq, hd, dtype=dtype) for _ in range(4))
+            k, v, dk, dv = (torch.zeros(B, KV, Sk, hd, dtype=dtype) for _ in range(4))
+            lse = dsum = torch.zeros(B, H, Sq)
+            args = _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, off, causal, win, 0)
+            assert len(args) == len(argtypes)
+            assert args[:3] == (DTYPES[dtype], BWD_ROUTES[bwd_route(dtype, hd)],
+                                bwd_keys(causal, win))
+            assert _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, off, causal, win, 0,
+                             keys=64)[2] == 64
+
+
+@pytest.mark.parametrize("causal, window, keys", [(True, None, 64), (True, 4096, 128),
+                                                  (False, None, 128), (False, 7, 128)])
+def test_flash_bwd_keys_follow_the_mask(causal, window, keys):
+    """64-key dK/dV blocks under a causal mask without a window (the first
+    keys see every row), 128 with a window or without a causal mask; a
+    block of another size is refused before any launch."""
+    assert bwd_keys(causal, window) == keys
+    with pytest.raises(ValueError, match="64 or 128"):
+        ops.flash_attention_bwd(*(torch.zeros(1, 2, 4, 8) for _ in range(5)), causal=causal,
+                                window=window, keys=96)
+
+
+def test_rows16_gives_16_byte_rows_and_the_same_values():
+    """Tensors the TMA unit takes pass as they are; the others (an odd hd,
+    a storage offset off 16 bytes) become padded copies of the same values
+    whose strides are whole 16-byte chunks."""
+    x = torch.randn(2, 4, 6, 64).to(torch.bfloat16)
+    t = x.transpose(1, 2)                  # a view by strides, each a whole chunk
+    assert rows16(x) is x and rows16(t) is t
+    for t in (torch.randn(1, 2, 5, 7).to(torch.bfloat16),
+              cases.at_offset(torch.randn(1, 2, 5, 16).to(torch.bfloat16), 1)):
+        got = rows16(t)
+        assert got.data_ptr() % 16 == 0 and got.stride(-1) == 1
+        assert all(st % 8 == 0 for st in got.stride()[:3]) and torch.equal(got, t)
 
 
 def test_phases_cover_the_main_paths_bf16_flash_calls():

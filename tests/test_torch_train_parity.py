@@ -239,21 +239,23 @@ def test_checkpoint_moves_both_ways(tmp_path):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=key)
 
 
-@pytest.mark.parametrize("case", cases.FLASH_SWEEP + cases.FLASH_RAGGED
-                         + cases.FLASH_EMPTY_BAND)
+@pytest.mark.parametrize("case", cases.FLASH_BWD)
 def test_flash_bwd_plain_version_matches_reference_vjp(case):
-    """The plain backward, and the wrapper on the CPU, against jax.vjp of
-    the reference's flash_attention_ref (empty bands and non-causal rows
-    included)."""
+    """The plain backward, the wrapper on the CPU, and the closed form the
+    backward kernels compute from the training forward's lse
+    (ref.flash_attention_bwd_lse_ref fed ops.flash_attention_train's
+    output and lse) against jax.vjp of the reference's flash_attention_ref
+    (empty bands and non-causal rows included)."""
     q, k, v, dout = cases.flash_bwd_inputs(case, torch.float32, "cpu")
     off, win, causal = case[6:]
     kw = dict(q_offset=off, window=win, causal=causal)
     _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(q, k, v, **kw),
                      *(jnp.asarray(t.numpy()) for t in (q, k, v)))
     want = vjp(jnp.asarray(dout.numpy()))
-    out = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention_train(q, k, v, **kw)
     for got in (ref.flash_attention_bwd_ref(q, k, v, dout, **kw),
-                ops.flash_attention_bwd(q, k, v, out, dout, **kw)):
+                ops.flash_attention_bwd(q, k, v, out, dout, **kw),
+                ref.flash_attention_bwd_lse_ref(q, k, v, out, lse, dout, **kw)):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=FLASH_BWD_TOL,
                                        atol=FLASH_BWD_TOL)
