@@ -195,7 +195,8 @@
    training shapes ``cases.FLASH_BWD_TRAIN`` (h2o-danube-1.8b
    (1,32,8,8192,8192,80, window 4096), yi-6b (1,32,4,4096,4096,128), the
    100M twin's (4,4,4,256,256,192), an enc-dec cross-attention
-   (1,16,16,512,1024,64, not causal)): dq, dk and dv through autograd of
+   (1,16,16,512,1024,64, not causal), recurrentgemma-2b's
+   (1,10,1,8192,8192,256, window 2048)): dq, dk and dv through autograd of
    ``ops.flash_attention`` against ``ref.flash_attention_bwd_ref`` within
    ``cases.TOL``; and at all of them two backward calls on the same inputs
    give the same bits (``check_flash_bwd_repeat``). At the training shapes
@@ -204,7 +205,9 @@
    backward (``enable_gqa``, the mask explicit; a yardstick only) and the
    bound: five products of 2·hd flops per visible pair (and 2·hd·Sk per
    empty-band row) at the dtype's peak, or q, k, v, out and dout read and
-   dq, dk, dv written once at 3.35 TB/s. On the tensor-core route the
+   dq, dk, dv written once at 3.35 TB/s; and the training entry's time
+   beside its own bound (two products; q, k, v read, the output and lse
+   written). On the tensor-core route the
    dK/dV block that ``bwd_keys`` did not choose for the mask is held against
    the plain version and timed too, beside the chosen one.
 17. The 100M twin (``repro_torch.launch.train_100m``, after step 15): yi-6b
@@ -228,19 +231,55 @@
    the plain versions (``ops.flash_attention`` swapped for
    ``ref.flash_attention_ref`` for that call only: the oracle, not the
    path), each within ``LAYER_GRAD_TOL`` x its largest entry.
-20. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
+20. wkv6 backward (after step 16, before any engine): the training entry
+   (``ops.wkv6_train``) at every ``WKV6_*`` forward case and at rwkv6-1.6b's
+   training shape ``cases.WKV6_BWD_TRAIN`` (1,32,4096,64, bf16 r/k/v), its
+   y and s_n the serving entry's bit for bit and its checkpoints within
+   ``WKV6_TOL`` of ``ref.wkv6_train_ref``'s; at every ``cases.WKV6_BWD``
+   case and the training shape, dr, dk, dv, dw, du and ds0 through autograd
+   of ``ops.wkv6`` against ``ref.wkv6_bwd_ref`` (fp32 gradients within
+   ``WKV6_TOL``, bf16 ones within ``TOL[bf16]``), and two backward calls
+   the same bits. At the training shape: the backward entry's time alone,
+   the plain version's, the device time per call with the inputs cold, and
+   the bound (14·hd² fp32 operations per (b, h, t) at 67 TFLOP/s, or the
+   bytes at 3.35 TB/s); the training entry's time beside the serving
+   entry's. No PyTorch call computes this gradient: no library time.
+21. rglru backward (after step 20): ``ops.rglru_scan_bwd`` through
+   autograd of ``ops.rglru_scan`` against ``ref.rglru_scan_bwd_ref`` at
+   every ``cases.RGLRU_BWD`` case and at ``RGLRU_BWD_TRAIN`` (1,8192,2560),
+   within ``RGLRU_TOL``, two calls the same bits; at the training shape the
+   same times and bound (bytes 4·(5·BSD + 2·BD) at 3.35 TB/s).
+22. rwkv6-1.6b training at every published width and full depth (after
+   step 19), as step 18: bf16 weights from ``init_train_state`` (seed 0),
+   batch 1 x 4,096 tokens, three steps; finite loss and grad norm, the
+   weights moved, exactly 48 wkv6 training-entry launches (the forward and
+   remat's recompute) and 24 ``wkv6_bwd`` calls per step, peak memory
+   under 80 GB; step 1 profiled, with the ``wkv6 backward`` and ``wkv6
+   forward`` classes.
+23. recurrentgemma-2b training, the same at 1 x 8,192 tokens (its 2,048
+   window binds): exactly 36 rglru scans, 18 ``rglru_scan_bwd``, 16 flash
+   and 8 flash backward calls per step (at hd 256 the backward runs on the
+   CUDA cores: ``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``); the
+   ``rglru backward`` and ``rglru scan`` classes in the profile.
+24. One layer's gradients through the kernels against the plain versions,
+   fp32, as step 19: an rwkv6-1.6b time-mix at 4,096 tokens
+   (``ops.wkv6`` swapped for ``ref.wkv6_ref``) and a Griffin recurrent
+   block at 8,192 (``ops.rglru_scan`` for ``ref.rglru_scan_ref``).
+25. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
    ``library_device_ms`` and ``library_premasked_device_ms``; decode's,
-   wkv6's and the rglru kernels' with ``device_ms``; the fused step's with
-   ``plain_device_ms``), the card line, and last
-   ``{"ok": true, "device": {...}}``. Every kernel must have launched on
-   its main path: flash, decode on yi-6b; wkv6 on rwkv6-1.6b's engine; the
-   fused rglru step on recurrentgemma-2b's engine; the rglru scan in that
-   model's prefill and forward (the engine feeds every token by steps); the
-   flash backward in h2o-danube-1.8b's training.
+   wkv6's, the rglru kernels' and the two recurrent backwards' with
+   ``device_ms``; the fused step's with ``plain_device_ms``), the card
+   line, and last ``{"ok": true, "device": {...}}``. Every kernel must
+   have launched on its main path: flash, decode on yi-6b; wkv6 on
+   rwkv6-1.6b's engine; the fused rglru step on recurrentgemma-2b's engine;
+   the rglru scan in that model's prefill and forward (the engine feeds
+   every token by steps); the flash backward in h2o-danube-1.8b's training;
+   ``wkv6_bwd`` in rwkv6-1.6b's and ``rglru_scan_bwd`` in
+   recurrentgemma-2b's training.
 
-Steps 4 and 7 run right after step 2, before any engine: after the yi-6b
-replay's profile (host and device activity), every profiler window of the
-wkv6 rows lost one launch.
+Steps 4, 7, 16, 20 and 21 run right after step 2, before any engine: after
+the yi-6b replay's profile (host and device activity), every profiler
+window of the wkv6 rows lost one launch.
 
 Any failure raises and exits non-zero. Without a card, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -277,18 +316,28 @@ SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
            "wkv6": "src/repro/kernels/wkv6.py:55",
            # no Pallas kernel: the reference takes this gradient by autodiff
            # of its jnp attention (repro/models/common.py, _attend)
-           "flash_attention_bwd": "src/repro/models/common.py:167"}
+           "flash_attention_bwd": "src/repro/models/common.py:167",
+           # no Pallas kernel: autodiff of the reference's scans (its model
+           # path's wkv_scan, and the associative_scan of its rglru_scan)
+           "wkv6_bwd": "src/repro/models/rwkv6.py:91",
+           "rglru_scan_bwd": "src/repro/models/griffin.py:67"}
 CSRC = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_attention.cu",
         "rglru_scan": "rglru_scan.cu", "rglru_step": "rglru_scan.cu", "wkv6": "wkv6.cu",
-        "flash_attention_bwd": "flash_attention_bwd.cu"}
+        "flash_attention_bwd": "flash_attention_bwd.cu", "wkv6_bwd": "wkv6_bwd.cu",
+        "rglru_scan_bwd": "rglru_scan.cu"}
 PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
                 "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
                 "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_mma_kernel",
-                "flash_bwd_dkdv_mma_kernel")   # device names
+                "flash_bwd_dkdv_mma_kernel", "wkv6_bwd_kernel",
+                "rglru_bwd_kernel")   # device names
 # the classes of a training step's device time, by kernel name (first match)
 STEP_CLASSES = (("flash backward", re.compile(r"flash_bwd_")),
                 ("flash forward", re.compile(r"flash_mma_kernel|flash_kernel")),
+                ("wkv6 backward", re.compile(r"wkv6_bwd_kernel")),
+                ("wkv6 forward", re.compile(r"wkv6_kernel|wkv6_step_kernel")),
+                ("rglru backward", re.compile(r"rglru_bwd_kernel")),
+                ("rglru scan", re.compile(r"rglru_kernel")),
                 ("GEMMs", re.compile(r"gemm|xmma|nvjet|cutlass", re.I)))
 DECODE_BF16_OLD = "decode_partial_kernel<__nv_bfloat16"   # bf16 decode must not run it
 RWKV = "rwkv6-1.6b"
@@ -302,6 +351,8 @@ MOE_TOKENS = 512                          # tokens of the MoE module check
 TRAIN = "h2o-danube-1.8b"                 # trains at full width and depth
 TRAIN_TOKENS = 8192                       # batch 1: past the 4,096 window
 TRAIN_STEPS = 3
+RWKV_TRAIN_TOKENS = 4096                  # rwkv6-1.6b's training batch, 1 x 4,096
+GRIFFIN_TRAIN_TOKENS = 8192               # recurrentgemma-2b's: past its 2,048 window
 # one layer's gradients through the kernels against the plain versions, each
 # within this times its largest entry: the fp32 model tolerance of the
 # reference's test_prefill_decode_consistency (5e-4), scaled to the gradient
@@ -384,11 +435,9 @@ def per_token(cfg):
     """Launches per fed or decoded token through ``decode_step``."""
     from repro_torch.models.transformer import griffin_layout
     if cfg.family == "ssm":
-        return {"flash_attention": 0, "decode_attention": 0, "rglru_scan": 0,
-                "rglru_step": 0, "wkv6": cfg.num_layers, "flash_attention_bwd": 0}
+        return dict({n: 0 for n in SOURCES}, wkv6=cfg.num_layers)
     units, tail = griffin_layout(cfg)
-    return {"flash_attention": 0, "decode_attention": units, "rglru_scan": 0,
-            "rglru_step": 2 * units + tail, "wkv6": 0, "flash_attention_bwd": 0}
+    return dict({n: 0 for n in SOURCES}, decode_attention=units, rglru_step=2 * units + tail)
 
 
 def tree_map(tree, fn):
@@ -598,7 +647,15 @@ def flash_bwd_row(ops, ref, cases, case, dtype):
     pairs, empty = cases.flash_visible(case)
     ops_n = B * H * (5 * 2 * hd * pairs + 2 * hd * Sk * empty)
     nbytes = q.element_size() * 4 * (q.numel() + k.numel())   # in: q k v out dout; out: dq dk dv
+    # the training entry (the forward that saves lse) at the same shape: two
+    # products, q, k, v read and the output and lse written once
+    fwd_ms = rotated_ms(lambda q, k, v, *_: ops.flash_attention_train(q, k, v, **kw), sets, 5)
+    fwd_bound = bound(B * H * (4 * hd * pairs + 2 * hd * Sk * empty),
+                      q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+                      + 4 * B * H * Sq, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **other,
+                train_fwd_ms=fwd_ms, train_fwd_bound_ms=fwd_bound[0],
+                train_fwd_bound_by=fwd_bound[1],
                 **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
 
 
@@ -625,7 +682,9 @@ def flash_bwd_phase(ops, ref, cases):
             log(f"flash_attention_bwd {str(dtype)[6:]} {label} {case}: max |err| "
                 f"{r['max_abs_err']:.3e}, kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
                 f"ms, sdpa backward {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-                f"({r['bound_by']})" + (f"; {r['other_keys']}-key dK/dV blocks (not chosen): "
+                f"({r['bound_by']}); training forward {r['train_fwd_ms']:.5f} ms, bound "
+                f"{r['train_fwd_bound_ms']:.6f} ms ({r['train_fwd_bound_by']})"
+                + (f"; {r['other_keys']}-key dK/dV blocks (not chosen): "
                                         f"{r['other_ms']:.5f} ms, max |err| "
                                         f"{r['other_err']:.3e}" if "other_ms" in r else ""))
     return rows
@@ -685,8 +744,7 @@ def check_two_turns(serve, arch, cfg, eng, ctx2, r1, r2, launches):
         raise AssertionError(f"reuse: turn 1 {r1.reused_tokens}, turn 2 "
                              f"{r2.reused_tokens}/{r2.prefill_tokens_computed}")
     # one flash launch per layer and prefill, one decode launch per layer and token
-    if launches != {"flash_attention": 2 * L, "decode_attention": 2 * num_new * L,
-                    "rglru_scan": 0, "rglru_step": 0, "wkv6": 0, "flash_attention_bwd": 0}:
+    if launches != seq_counts(flash=2 * L, decode=2 * num_new * L):
         raise AssertionError(f"launch counts {launches}")
     for i, r in ((1, r1), (2, r2)):
         if len(r.tokens) != num_new or r.last_logits.shape != (cfg.vocab_size,) \
@@ -1057,15 +1115,16 @@ def profiled(label, fn):
     return result, calls
 
 
-def profiled_step(label, fn, layers):
-    """Step 18's profile of ``fn()``, one training step, on a whole
-    profiler window: device time by ``STEP_CLASSES``, the optimizer's (the
-    kernels that ``adamw_update`` launched, seen through a
+def profiled_step(label, fn, whole):
+    """The training phases' profile of ``fn()``, one training step, on a
+    whole profiler window: device time by ``STEP_CLASSES``, the optimizer's
+    (the kernels that ``adamw_update`` launched, seen through a
     ``record_function`` range around it) and the rest's, and the idle
     share. Returns fn's result and the split in ms, or None (the window
-    discarded) unless the window recorded every flash kernel of the step:
-    2 x ``layers`` forward launches and as many backward kernels (dQ and
-    dK/dV per layer)."""
+    discarded) unless the window recorded every kernel of the step that
+    ``whole`` counts: {class: device launches}, e.g. 2 x layers flash
+    forward launches and as many backward kernels (dQ and dK/dV per
+    layer)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.train import steps
@@ -1113,17 +1172,15 @@ def profiled_step(label, fn, layers):
         log(f"profile of {label}: the profiler saw no device time; window discarded")
         return result, None
     us["the rest"] = busy - sum(us.values())
-    whole = calls["flash forward"] == 2 * layers and calls["flash backward"] == 2 * layers
+    seen = {c: calls[c] for c in whole}
     log(f"profile of {label}: window {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
         f"idle share {1 - busy / wall_us:.4f}; " + ", ".join(
             f"{c} {t / 1e3:.3f} ms ({t / busy:.2%})" for c, t in us.items())
-        + f"; flash launches seen: {calls['flash forward']} forward, "
-        f"{calls['flash backward']} backward kernels")
+        + f"; kernels seen by class: {seen}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {t / 1e3:9.3f} ms {t / busy:7.2%}  {name[:100]}")
-    if not whole:
-        log(f"profile of {label}: window discarded (want {2 * layers} flash forward and "
-            f"{2 * layers} backward kernels)")
+    if seen != whole:
+        log(f"profile of {label}: window discarded (want {whole})")
         return result, None
     return result, dict({c: t / 1e3 for c, t in us.items()}, window=wall_us / 1e3,
                         busy=busy / 1e3, idle_share=1 - busy / wall_us,
@@ -1210,9 +1267,7 @@ def rwkv_model_phase(ops, tt, cfg):
         f"launches {n_prefill} prefill, {n_step} step; counts {counts}")
     if not err <= 5e-4 or not math.isfinite(scale):
         raise AssertionError(f"{RWKV}: prefill + step disagrees with prefill")
-    if (n_prefill, n_step, counts["wkv6"]) != (L, L, 3 * L) or \
-            counts["flash_attention"] or counts["decode_attention"] or \
-            counts["rglru_scan"] or counts["rglru_step"] or counts["flash_attention_bwd"]:
+    if (n_prefill, n_step) != (L, L) or counts != dict({n: 0 for n in SOURCES}, wkv6=3 * L):
         raise AssertionError(f"{RWKV}: launch counts {counts}")
     del params, cache, step, full
     bf16_prefill_ms(tt, cfg, toks[:, :S])
@@ -1319,6 +1374,101 @@ def rglru_phase(ops, ref, cases, cfg):
     return rows, step_rows
 
 
+def wkv6_bwd_row(ops, ref, cases, case):
+    """The wkv6 backward at a training shape: held and repeated, then timed
+    by events (the backward entry alone, on the training entry's
+    checkpoints; the plain version, once), its device time per call with
+    the inputs cold, and its bound; the training entry's time beside the
+    serving entry's."""
+    err, (inputs, dy, dsn) = cases.check_wkv6_bwd(case, "cuda")
+    cases.check_wkv6_bwd_repeat(case, "cuda")
+    B, H, S, hd = case[:4]
+    _, _, ckpt = ops.wkv6_train(*inputs)
+    args = inputs + [ckpt, dy]
+    fn = lambda *t: ops.wkv6_bwd(*t, dsn)       # noqa: E731
+    sets = copies(args, limit=4)
+    ms = rotated_ms(fn, sets, 5)
+    plain = rotated_ms(lambda *t: ref.wkv6_bwd_ref(*t, dsn), sets[:1], 1)
+    dev = cold_device_ms(fn, args, "wkv6_bwd_kernel", iters=5)
+    fwd_sets = [s[:6] for s in sets]
+    train_ms = rotated_ms(ops.wkv6_train, fwd_sets, 5)
+    serve_ms = rotated_ms(ops.wkv6, fwd_sets, 5)
+    # per (b, h, t): the states' recompute 3·hd², the four sums 2·hd² each,
+    # G's update 3·hd²; r, k, v, w, dy, the checkpoints (and ds_n) read, the
+    # gradients written once
+    elt = inputs[0].element_size()
+    n = B * H * S * hd
+    nbytes = (2 * 3 * elt * n + 4 * 3 * n + 4 * (ckpt.numel() + 2 * H * hd + B * H * hd * hd)
+              + (0 if dsn is None else 4 * dsn.numel()))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, device_ms=dev,
+                train_fwd_ms=train_ms, serving_fwd_ms=serve_ms,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(14 * B * H * S * hd * hd, nbytes, torch.float32))))
+
+
+def wkv6_bwd_phase(ops, ref, cases):
+    """Step 20: the training entry at every forward case and the training
+    shape, the backward at every ``cases.WKV6_BWD`` case, the training
+    shape held and timed."""
+    for case in (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN + cases.WKV6_STEP
+                 + cases.WKV6_FLOOR + cases.WKV6_BF16 + list(cases.WKV6_BWD_TRAIN.values())):
+        err = cases.check_wkv6_train(case, "cuda")
+        log(f"wkv6_train {case}: the serving entry's y and s_n bit for bit; checkpoints max "
+            f"|err| {err:.3e}")
+    for case in cases.WKV6_BWD:
+        err, _ = cases.check_wkv6_bwd(case, "cuda")
+        cases.check_wkv6_bwd_repeat(case, "cuda")
+        log(f"wkv6_bwd {case}: max |err| {err:.3e}; two calls the same bits")
+    rows = {}
+    for label, case in cases.WKV6_BWD_TRAIN.items():
+        r = rows[label] = wkv6_bwd_row(ops, ref, cases, case)
+        torch.cuda.empty_cache()
+        log(f"wkv6_bwd {label} {case}: max |err| {r['max_abs_err']:.3e}, kernel "
+            f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library none, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}); device per call {r['device_ms']:.6f} "
+            f"ms; training forward {r['train_fwd_ms']:.5f} ms, serving forward "
+            f"{r['serving_fwd_ms']:.5f} ms")
+    return rows
+
+
+def rglru_bwd_row(ops, ref, cases, case):
+    """The scan's backward at a training shape: held and repeated, timed
+    (events; the plain version; device time with the inputs cold) beside
+    its bound."""
+    err, ((a, b, h0), dy, dh) = cases.check_rglru_bwd(case, "cuda")
+    cases.check_rglru_bwd_repeat(case, "cuda")
+    B, S, D = case[:3]
+    y, _ = ops.rglru_scan(a, b, h0)
+    args = [a, h0, y, dy]
+    fn = lambda *t: ops.rglru_scan_bwd(*t, dh)     # noqa: E731
+    sets = copies(args, limit=4)
+    ms = rotated_ms(fn, sets, 10)
+    plain = rotated_ms(lambda *t: ref.rglru_scan_bwd_ref(*t, dh), sets[:1], 1)
+    dev = cold_device_ms(fn, args, "rglru_bwd_kernel", iters=10)
+    # a, y, dy in and da, db out (B,S,D); h0 in, dh0 out (and dh_S in)
+    nbytes = 4 * (5 * B * S * D + (2 if dh is None else 3) * B * D)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, device_ms=dev,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(3 * B * S * D, nbytes, torch.float32))))
+
+
+def rglru_bwd_phase(ops, ref, cases):
+    """Step 21: the scan's backward at every ``cases.RGLRU_BWD`` case, the
+    training shape held and timed."""
+    for case in cases.RGLRU_BWD:
+        err, _ = cases.check_rglru_bwd(case, "cuda")
+        cases.check_rglru_bwd_repeat(case, "cuda")
+        log(f"rglru_scan_bwd {case}: max |err| {err:.3e}; two calls the same bits")
+    rows = {}
+    for label, case in cases.RGLRU_BWD_TRAIN.items():
+        r = rows[label] = rglru_bwd_row(ops, ref, cases, case)
+        log(f"rglru_scan_bwd {label} {case}: max |err| {r['max_abs_err']:.3e}, kernel "
+            f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library none, bound "
+            f"{r['bound_ms']:.7f} ms ({r['bound_by']}); device per call {r['device_ms']:.6f} "
+            "ms")
+    return rows
+
+
 def griffin_model_phase(ops, tt, cfg):
     """Full width in fp32: prefill(S) + decode_step against forward(S + 1),
     with exact launch counts per call; then the time of a bf16 prefill of S
@@ -1384,13 +1534,48 @@ def train_100m_phase(ops, train_100m):
     return counts
 
 
+def train_spec(cfg):
+    """(tokens, launches per step, {class: device launches} of a whole
+    profiled step, kernels the profile must show, {name: slice of the
+    weights to watch move}) of a training phase at full width and depth. A
+    few small slices of matrices: a norm's scale of 1 keeps its bf16 value
+    under updates below half its ulp."""
+    from repro_torch.models.transformer import griffin_layout
+    L = cfg.num_layers
+    probes = {"embed": lambda p: p["embed"][:64], "unembed": lambda p: p["unembed"][:, :64]}
+    if cfg.family == "ssm":          # the forward and remat's recompute, one backward a layer
+        probes.update({"layers/tmix/wr": lambda p: p["layers"]["tmix"]["wr"][0, :64],
+                       "layers/cmix/wv": lambda p: p["layers"]["cmix"]["wv"][-1, :64]})
+        return (RWKV_TRAIN_TOKENS, dict(wkv6=2 * L, wkv6_bwd=L),
+                {"wkv6 forward": 2 * L, "wkv6 backward": L},
+                ("wkv6_kernel", "wkv6_bwd_kernel"), probes)
+    if cfg.family == "hybrid":       # per unit: two scans and one attention, remat per unit
+        units, tail = griffin_layout(cfg)
+        rec = 2 * units + tail
+        probes.update({"units/rec1/rg/wa": lambda p: p["units"]["rec1"]["rg"]["wa"][0, :64],
+                       "units/attn/attn/wq": lambda p: p["units"]["attn"]["attn"]["wq"][0, :64],
+                       "tail/mlp/w_down": lambda p: p["tail"]["mlp"]["w_down"][-1, :64]})
+        return (GRIFFIN_TRAIN_TOKENS,
+                dict(rglru_scan=2 * rec, rglru_scan_bwd=rec, flash_attention=2 * units,
+                     flash_attention_bwd=units),
+                {"rglru scan": 2 * rec, "rglru backward": rec, "flash forward": 2 * units,
+                 "flash backward": 2 * units},
+                ("rglru_bwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"), probes)
+    probes.update({"layers/attn/wq": lambda p: p["layers"]["attn"]["wq"][0, :64],
+                   "layers/mlp/w_down": lambda p: p["layers"]["mlp"]["w_down"][-1, :64]})
+    return (TRAIN_TOKENS, dict(flash_attention=2 * L, flash_attention_bwd=L),
+            {"flash forward": 2 * L, "flash backward": 2 * L},
+            ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel"), probes)
+
+
 def train_phase(ops, cfg):
-    """Step 18: full width and depth, bf16, TRAIN_STEPS steps of
-    TRAIN_TOKENS tokens, exact counts per step."""
+    """Steps 18, 22 and 23: full width and depth, bf16, TRAIN_STEPS steps of
+    ``train_spec``'s tokens, exact counts per step, step 1 profiled."""
     from repro_torch.launch.serve import train_bytes
     from repro_torch.train.data import batch_iterator, batch_to
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.steps import init_train_state, make_train_step
+    tokens, counts, whole, must_run, probes = train_spec(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1399,17 +1584,10 @@ def train_phase(ops, cfg):
     log(f"{cfg.name} training, full width: {describe(cfg)}; bf16 weights and fp32 moments "
         f"drawn in {time.perf_counter() - t0:.3f} s; train_bytes {train_bytes(cfg) / 1e9:.3f} "
         f"GB; allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
-    # a few small slices of matrices, to see the weights move (a norm's
-    # scale of 1 keeps its bf16 value under updates below half its ulp)
-    probes = {"embed": lambda p: p["embed"][:64],
-              "layers/attn/wq": lambda p: p["layers"]["attn"]["wq"][0, :64],
-              "layers/mlp/w_down": lambda p: p["layers"]["mlp"]["w_down"][-1, :64],
-              "unembed": lambda p: p["unembed"][:, :64]}
     before = {k: f(params).detach().clone() for k, f in probes.items()}
     step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS))
-    it = batch_iterator(cfg, 1, TRAIN_TOKENS, seed=0)
-    L = cfg.num_layers
-    want = dict({n: 0 for n in SOURCES}, flash_attention=2 * L, flash_attention_bwd=L)
+    it = batch_iterator(cfg, 1, tokens, seed=0)
+    want = dict({n: 0 for n in SOURCES}, **counts)
     total = {n: 0 for n in SOURCES}
     split = None
     for i in range(TRAIN_STEPS):
@@ -1423,14 +1601,14 @@ def train_phase(ops, cfg):
         profiling = i > 0 and split is None      # step 1, or 2 if 1's window is discarded
         if profiling:
             ((params, opt, m), got), split = profiled_step(
-                f"{cfg.name} training step {i}", run, L)
+                f"{cfg.name} training step {i}", run, whole)
         else:
             (params, opt, m), got = run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         log(f"{cfg.name} training step {i}{' (profiled)' if profiling else ''}: "
-            f"{TRAIN_TOKENS} tokens in {dt * 1e3:.3f} ms; loss "
+            f"{tokens} tokens in {dt * 1e3:.3f} ms; loss "
             f"{loss:.4f}, grad norm {gnorm:.4f}, lr {float(m['lr']):.3e}; launches {got}; "
             f"peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         if got != want:
@@ -1445,60 +1623,93 @@ def train_phase(ops, cfg):
     log(f"{cfg.name} training: largest change of each probed slice {moved}")
     if not all(x > 0 for x in moved.values()):
         raise AssertionError(f"{cfg.name} training: weights did not move: {moved}")
+    if torch.cuda.max_memory_allocated() >= 80e9:
+        raise AssertionError(f"{cfg.name} training: peak memory past one card's 80 GB")
     if split is None:
-        raise AssertionError(f"{cfg.name} training: no profiled step recorded every flash kernel")
-    missing = [n for n in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
-               if not any(n in name for name in split["names"])]
+        raise AssertionError(f"{cfg.name} training: no profiled step recorded every kernel "
+                             f"of {whole}")
+    missing = [n for n in must_run if not any(n in name for name in split["names"])]
     if missing:
-        raise AssertionError(f"{cfg.name} training: the bf16 backward ran no {missing}")
+        raise AssertionError(f"{cfg.name} training: the profiled step ran no {missing}")
     return total
 
 
-def layer_grad_phase(ops, ref, tt, cfg):
-    """Step 19: one attention layer's gradients through the kernels against
-    the plain versions, fp32, TRAIN_TOKENS tokens."""
+def grads_against_plain(ops, label, fwd, layer, x, dy, swap, want):
+    """The gradients of ``fwd(layer, x)`` against ``dy``, of the layer's
+    leaves and of ``x``, through the kernels, then with ``ops.<name>``
+    swapped for its plain version (``swap``: (name, plain); the oracle, for
+    that call only), each within ``LAYER_GRAD_TOL`` x its largest entry; the
+    kernels' launches must be ``want`` (the rest 0)."""
     from repro_torch.train import tree
-    torch.cuda.empty_cache()
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    one = dataclasses.replace(cfg, num_layers=1)
-    layer = tt.layer_params(tt.init_params(gen, one, torch.float32)["layers"], 0)
-    layer = tree.map_leaves(layer, lambda t: t.detach().clone().requires_grad_(True))
-    x = torch.randn((1, TRAIN_TOKENS, cfg.d_model), generator=gen, device="cuda",
-                    requires_grad=True)
-    dy = torch.randn((1, TRAIN_TOKENS, cfg.d_model), generator=gen, device="cuda")
     names = [k for k, _ in tree.items(layer)] + ["x"]
 
     def grads():
         leaves = tree.leaves(layer) + [x]
-        y = tt._attn_layer_fwd(layer, cfg, x, window=tt.attn_window(cfg))
-        return torch.autograd.grad(y, leaves, dy)
+        return torch.autograd.grad(fwd(layer, x), leaves, dy)
 
     t0 = time.perf_counter()
     got, counts = launched(ops, grads)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
-    real = ops.flash_attention
-    ops.flash_attention = ref.flash_attention_ref      # the oracle, for this call only
+    name, plain = swap
+    real = getattr(ops, name)
+    setattr(ops, name, plain)
     try:
         t0 = time.perf_counter()
-        want = grads()
+        want_grads = grads()
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
     finally:
-        ops.flash_attention = real
+        setattr(ops, name, real)
     worst = 0.0
-    for name, a, b in zip(names, got, want):
+    for n, a, b in zip(names, got, want_grads):
         err, scale = float((a - b).abs().max()), float(b.abs().max())
         worst = max(worst, err / scale)
         if not (err <= LAYER_GRAD_TOL * scale and math.isfinite(scale)):
-            raise AssertionError(f"{cfg.name} one layer: d{name} max |err| {err:.3e}, "
-                                 f"max |grad| {scale:.3e}")
-    log(f"{cfg.name} one attention layer, {TRAIN_TOKENS} tokens, fp32: {len(names)} "
-        f"gradients through the kernels ({t_kernel * 1e3:.3f} ms; launches {counts}) against "
-        f"the plain versions ({t_plain * 1e3:.3f} ms): largest max |err| / max |grad| "
-        f"{worst:.3e} (limit {LAYER_GRAD_TOL:g})")
-    if (counts["flash_attention"], counts["flash_attention_bwd"]) != (1, 1):
-        raise AssertionError(f"{cfg.name} one layer: launches {counts}")
+            raise AssertionError(f"{label}: d{n} max |err| {err:.3e}, max |grad| {scale:.3e}")
+    log(f"{label}, fp32: {len(names)} gradients through the kernels ({t_kernel * 1e3:.3f} ms; "
+        f"launches {counts}) against the plain versions ({t_plain * 1e3:.3f} ms): largest "
+        f"max |err| / max |grad| {worst:.3e} (limit {LAYER_GRAD_TOL:g})")
+    if counts != dict({n: 0 for n in SOURCES}, **want):
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+
+
+def layer_grad_phase(ops, ref, tt, cfg):
+    """Steps 19 and 24: one layer's gradients through the kernels against
+    the plain versions, fp32, at the training tokens: an h2o-danube-1.8b
+    attention layer (``cfg`` dense), an rwkv6-1.6b time-mix (``ssm``) or a
+    Griffin recurrent block (``hybrid``)."""
+    from repro_torch.models import griffin as gr
+    from repro_torch.models import rwkv6 as rw
+    from repro_torch.train import tree
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    one = dataclasses.replace(cfg, num_layers=1)
+    params = tt.init_params(gen, one, torch.float32)
+    tokens = train_spec(cfg)[0]
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device="cuda", requires_grad=True)
+    dy = torch.randn((1, tokens, cfg.d_model), generator=gen, device="cuda")
+    if cfg.family == "ssm":
+        layer = tt.layer_params(params["layers"], 0)["tmix"]
+        zero = tt._rwkv_empty_state(cfg, 1, torch.float32, "cuda")
+        fwd = lambda p, x: rw.time_mix(p, cfg, x, zero["x_tm"], zero["wkv"])[0]   # noqa: E731
+        label, swap, want = (f"{cfg.name} one time-mix layer, {tokens} tokens",
+                             ("wkv6", ref.wkv6_ref), dict(wkv6=1, wkv6_bwd=1))
+    elif cfg.family == "hybrid":
+        layer = tt.layer_params(params["tail"], 0)["rg"]
+        zero = gr.init_recurrent_state(cfg, 1, torch.float32, "cuda")
+        fwd = lambda p, x: gr.rglru_block(p, x, zero)[0]      # noqa: E731
+        label, swap, want = (f"{cfg.name} one recurrent block, {tokens} tokens",
+                             ("rglru_scan", ref.rglru_scan_ref),
+                             dict(rglru_scan=1, rglru_scan_bwd=1))
+    else:
+        layer = tt.layer_params(params["layers"], 0)
+        fwd = lambda p, x: tt._attn_layer_fwd(p, cfg, x, window=tt.attn_window(cfg))  # noqa: E731
+        label, swap, want = (f"{cfg.name} one attention layer, {tokens} tokens",
+                             ("flash_attention", ref.flash_attention_ref),
+                             dict(flash_attention=1, flash_attention_bwd=1))
+    layer = tree.map_leaves(layer, lambda t: t.detach().clone().requires_grad_(True))
+    grads_against_plain(ops, label, fwd, layer, x, dy, swap, want)
 
 
 def describe(cfg) -> str:
@@ -1680,6 +1891,12 @@ def main():
     bwd_rows = flash_bwd_phase(ops, ref, cases)
     log(f"flash backward kernel phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
+    wkv_bwd_rows = wkv6_bwd_phase(ops, ref, cases)
+    log(f"wkv6 backward kernel phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    rg_bwd_rows = rglru_bwd_phase(ops, ref, cases)
+    log(f"rglru backward kernel phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
     by_path = {"yi-6b": engine_phase(serve, ops, cases)}
     log(f"yi-6b engine phase: {time.perf_counter() - t0:.3f} s")
 
@@ -1735,6 +1952,15 @@ def main():
     t0 = time.perf_counter()
     layer_grad_phase(ops, ref, tt, get_config(TRAIN))
     log(f"{TRAIN} one-layer gradient phase: {time.perf_counter() - t0:.3f} s")
+    for arch in (RWKV, GRIFFIN):
+        t0 = time.perf_counter()
+        by_path[f"{arch} training"] = train_phase(ops, get_config(arch))
+        log(f"{arch} training phase: {time.perf_counter() - t0:.3f} s, peak memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for arch in (RWKV, GRIFFIN):
+        t0 = time.perf_counter()
+        layer_grad_phase(ops, ref, tt, get_config(arch))
+        log(f"{arch} one-layer gradient phase: {time.perf_counter() - t0:.3f} s")
     log(f"launches by path: {by_path}")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
 
@@ -1743,12 +1969,15 @@ def main():
                  "rglru_scan": rg_rows["prefill"][1],
                  "rglru_step": rg_step_rows["engine step"][1],
                  "wkv6": wkv_rows["engine step"][1],
-                 "flash_attention_bwd": bwd_rows[(torch.bfloat16, TRAIN)]}
+                 "flash_attention_bwd": bwd_rows[(torch.bfloat16, TRAIN)],
+                 "wkv6_bwd": wkv_bwd_rows[RWKV],
+                 "rglru_scan_bwd": rg_bwd_rows[GRIFFIN]}
     # the engine feeds every token by steps, so the scan's path is the model's
     # prefill and forward
     main_path = {"flash_attention": "yi-6b", "decode_attention": "yi-6b",
                  "rglru_scan": f"{GRIFFIN} model phase", "rglru_step": GRIFFIN,
-                 "wkv6": RWKV, "flash_attention_bwd": f"{TRAIN} training"}
+                 "wkv6": RWKV, "flash_attention_bwd": f"{TRAIN} training",
+                 "wkv6_bwd": f"{RWKV} training", "rglru_scan_bwd": f"{GRIFFIN} training"}
     kernels = []
     for name, replaces in SOURCES.items():
         r = main_rows[name]

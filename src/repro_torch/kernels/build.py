@@ -42,7 +42,7 @@ BUILD_DIR = build_dir_for(Path(__file__).resolve())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "rglru_scan",
-           "wkv6")
+           "wkv6", "wkv6_bwd")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the entry points (see the extern "C" blocks in csrc/)
@@ -65,9 +65,14 @@ _SIGNATURES = {
     "rglru_scan": {
         "rglru_scan_launch": (_I, [_P] * 5 + [_I] * 3 + [_L] * 7 + [_P]),
         "rglru_step_launch": (_I, [_P] * 9 + [_I] * 3 + [_L] * 4 + [_P]),
+        "rglru_scan_bwd_launch": (_I, [_P] * 8 + [_I] * 3 + [_L] * 11 + [_P]),
     },
     "wkv6": {
         "wkv6_launch": (_I, [_P] * 8 + [_I] * 5 + [_L] * 19 + [_P]),
+        "wkv6_train_launch": (_I, [_P] * 9 + [_I] * 6 + [_L] * 19 + [_P]),
+    },
+    "wkv6_bwd": {
+        "wkv6_bwd_launch": (_I, [_P] * 15 + [_L] + [_I] * 6 + [_L] * 28 + [_P]),
     },
 }
 

@@ -5,7 +5,8 @@ One table for every check: ``tests/test_torch_kernels.py`` runs the plain
 versions against the JAX package on the CPU at these shapes,
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` run the CUDA kernels
 against the plain versions on the card through ``check_flash``,
-``check_flash_bwd``, ``check_decode``, ``check_rglru`` and ``check_wkv6``, and the flash kernel's
+``check_flash_bwd``, ``check_decode``, ``check_rglru``, ``check_wkv6``,
+``check_wkv6_bwd`` and ``check_rglru_bwd``, and the flash kernel's
 cache-hit rows against its cold rows through ``check_flash_hit_rows``.
 
 Flash cases are ``(B, H, KV, Sq, Sk, hd, q_offset, window, causal)``.
@@ -43,9 +44,10 @@ the forward's sweep, ragged, empty-band and tile-edge cases and
 ``FLASH_BWD_TRAIN``, the training shapes: h2o-danube-1.8b's layer at 8,192
 tokens (its window binds), yi-6b's at 4,096, the 100M twin's
 (``repro_torch.launch.train_100m``: yi-6b reduced to 12 layers of d_model
-768, 4 heads of 192, batch 4 of 256 tokens) and an enc-dec cross-attention
-(not causal, Sq != Sk). The output gradient is normal, drawn from
-``seed + 1``. dq, dk and dv are each held to ``TOL`` in the form above (2e-5
+768, 4 heads of 192, batch 4 of 256 tokens), an enc-dec cross-attention
+(not causal, Sq != Sk) and recurrentgemma-2b's local attention at 8,192
+tokens (hd 256: the CUDA-core route in bf16 too). The output gradient is
+normal, drawn from ``seed + 1``. dq, dk and dv are each held to ``TOL`` in the form above (2e-5
 fp32, 2e-2 bf16, the sweep of tests/test_kernels.py) against
 ``ref.flash_attention_bwd_ref``, autograd of the plain forward. Both sides
 compute in fp32 on the same input values; the kernel takes D = rowsum(dO *
@@ -82,6 +84,28 @@ and ``b`` as the two halves of one (B,S,2D) buffer and ``h0`` as half of a
 1e-5 in the same form (the ``atol`` 1e-5 of ``tests/test_kernels.py:79-80``),
 on ``y`` and ``h_S``. ``RGLRU_FLOOR`` is the smallest call, a launch's fixed
 cost.
+
+The recurrent backwards. ``WKV6_BWD`` cases are the WKV6 cases with two
+more entries, ``(..., layout, rkv, ds_n)``: ``ds_n`` "random" passes a normal
+gradient of s_n, "zero" passes None (as the model's training does: it
+reads no s_n); the output gradient dy is normal, in the case's layout, both
+drawn from ``seed + 1``. ``check_wkv6_bwd`` holds dr, dk, dv, dw, du and
+ds0 through autograd of ``ops.wkv6`` (on the card: the training entry
+``ops.wkv6_train``, then ``ops.wkv6_bwd``) against ``ref.wkv6_bwd_ref`` on
+the plain training entry's checkpoints, fp32 gradients at ``WKV6_TOL`` and
+those returned in bf16 (dr, dk, dv of bf16 r, k, v: accumulated in fp32,
+rounded once) at ``TOL[bf16]``; the plain version computes in float64, so
+the tolerance judges the kernel's fp32 sums alone. ``check_wkv6_bwd_repeat``
+holds two backward calls to the same bits, ``check_wkv6_train`` the
+training entry's y and s_n to the serving entry's bit for bit and its
+checkpoints to ``ref.wkv6_train_ref``'s at ``WKV6_TOL``. ``WKV6_BWD_TRAIN``
+is rwkv6-1.6b's layer at 4,096 tokens. ``RGLRU_BWD`` cases are the scan's
+with a fifth entry, ``dh_S`` "random" or "zero" (None); ``check_rglru_bwd``
+holds da, db and dh0 through autograd of ``ops.rglru_scan`` against
+``ref.rglru_scan_bwd_ref`` at ``RGLRU_TOL`` (the kernel rounds every
+product and sum as the plain version does), ``check_rglru_bwd_repeat``
+two calls to the same bits; ``RGLRU_BWD_TRAIN`` is recurrentgemma-2b's
+recurrent layer at 8,192 tokens.
 
 RG-LRU step cases (``ops.rglru_step``) are ``(B, D, x dtype, layout)``:
 ``gx_a`` and ``gx_x`` normal times 2, ``ba`` and ``bx`` normal times 0.5,
@@ -185,6 +209,8 @@ FLASH_BWD_TRAIN = {
     "yi-6b": (1, 32, 4, 4096, 4096, 128, 0, None, True),
     "100M twin": (4, 4, 4, 256, 256, 192, 0, None, True),
     "enc-dec cross": (1, 16, 16, 512, 1024, 64, 0, None, False),
+    # its 8 local-attention layers at 8,192 tokens, hd 256: the CUDA cores
+    "recurrentgemma-2b": (1, 10, 1, 8192, 8192, 256, 0, 2048, True),
 }
 DECODE_SWEEP = [                          # the sweep of tests/test_kernels.py:42-46
     (1, 4, 4, 64, 32, 64, 0),
@@ -255,6 +281,27 @@ WKV6_STEP = [
 WKV6_FLOOR = [(1, 1, 1, 32, None, 0.1, "bhsd", "bf16")]
 # the time loop with bf16 r, k, v, as the model's prefill passes them
 WKV6_BF16 = [(1, 3, 20, 64, None, 0.1, "bshd", "bf16")]
+# the backward (and the training entry): every forward case above, with a
+# random ds_n, then S = 1 and 0, the checkpoint interval (16) and one step
+# more, hd 1 and 80, bf16 and fp32 r/k/v, ds_n zero (None) and random, the
+# model's views and the off-16-byte element path
+WKV6_BWD = [c[:7] + (c[7] if len(c) > 7 else "fp32", "random")
+            for c in (WKV6_SWEEP + WKV6_EDGE + WKV6_NO_TOKEN + WKV6_STEP + WKV6_FLOOR
+                      + WKV6_BF16)] + [
+    (1, 2, 0, 32, None, 0.1, "bhsd", "fp32", "zero"),    # no token: ds0 = 0
+    (1, 2, 1, 64, None, 0.1, "bshd", "bf16", "zero"),    # one token (the step kernel)
+    (1, 3, 16, 64, None, 0.1, "bshd", "bf16", "zero"),   # one whole chunk
+    (1, 3, 17, 64, None, 0.1, "bshd", "bf16", "random"),  # and a chunk of one step
+    (2, 2, 33, 1, None, 0.1, "bhsd", "fp32", "random"),  # hd 1
+    (1, 2, 40, 80, None, 0.1, "bshd", "bf16", "random"),  # hd 80: the 128-wide kernels
+    (1, 2, 37, 80, None, 0.1, "off", "fp32", "zero"),
+    (2, 3, 50, 64, None, 0.1, "bshd", "fp32", "zero"),
+    (1, 2, 40, 32, 0.0, 0.1, "bhsd", "bf16", "random"),  # decay 0
+    (1, 2, 48, 64, 1.0, 0.1, "bhsd", "fp32", "random"),  # no decay
+]
+# rwkv6-1.6b's layer at 4,096 tokens, r, k, v bf16 as the model passes them;
+# the model reads no s_n, so ds_n is None
+WKV6_BWD_TRAIN = {"rwkv6-1.6b": (1, 32, 4096, 64, None, 0.1, "bshd", "bf16", "zero")}
 
 RGLRU_SWEEP = [                           # the sweep of tests/test_kernels.py:70-71
     (1, 16, 64, "bsd"),
@@ -272,6 +319,16 @@ RGLRU_EDGE = [
 RGLRU_NO_TOKEN = [(1, 0, 64, "bsd")]
 # the fixed cost of a scan call: one step of 32 channels
 RGLRU_FLOOR = [(1, 1, 32, "bsd")]
+# the scan's backward: every scan case above with a random dh_S, and a few
+# with none (dh_S zero, as the model's training passes it)
+RGLRU_BWD = [c + ("random",) for c in RGLRU_SWEEP + RGLRU_EDGE + RGLRU_NO_TOKEN
+             + RGLRU_FLOOR] + [
+    (2, 33, 128, "bsd", "zero"),
+    (2, 19, 200, "wide", "zero"),
+    (1, 0, 64, "bsd", "zero"),            # no token: dh0 = 0
+]
+# recurrentgemma-2b's recurrent layer at 8,192 tokens
+RGLRU_BWD_TRAIN = {"recurrentgemma-2b": (1, 8192, 2560, "bsd", "zero")}
 RGLRU_STEP = [
     (1, 2560, "bf16", "bd"),              # recurrentgemma-2b's engine step
     (1, 2560, "fp32", "bd"),
@@ -346,13 +403,26 @@ def _bf16_values(x):
     return torch.from_numpy(x).bfloat16().float().numpy()
 
 
+def _rkv_bf16(case) -> bool:
+    return len(case) > 7 and case[7] == "bf16"
+
+
+def _layout(t, layout):
+    """Contiguous (B,H,S,hd) ``t`` in a WKV6 case's layout: "bshd" a
+    permuted view of a (B,S,H,hd) buffer, "off" a copy one element into its
+    storage."""
+    if layout == "bshd":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    return at_offset(t, 1) if layout == "off" else t
+
+
 def wkv6_arrays(case, seed=0):
     """numpy r, k, v, w (B,H,S,hd), u (H,hd), s0 (B,H,hd,hd), all fp32; for
     a bf16 case r, k and v hold bf16 values."""
     B, H, S, hd, decay, s0_scale = case[:6]
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, H, S, hd)).astype(np.float32) for _ in range(3))
-    if case[7:] == ("bf16",):
+    if _rkv_bf16(case):
         r, k, v = map(_bf16_values, (r, k, v))
     if decay is None:
         w = rng.uniform(0.8, 0.999, (B, H, S, hd)).astype(np.float32)
@@ -369,12 +439,11 @@ def wkv6_inputs(case, device, seed=0):
     of (B,S,H,hd) buffers, in "off" every tensor starts one element into its
     storage."""
     r, k, v, w, u, s0 = (torch.from_numpy(x).to(device) for x in wkv6_arrays(case, seed))
-    if case[7:] == ("bf16",):
+    if _rkv_bf16(case):
         r, k, v = (t.bfloat16() for t in (r, k, v))
-    if case[6] == "bshd":
-        r, k, v, w = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, w))
-    elif case[6] == "off":
-        r, k, v, w, u, s0 = (at_offset(t, 1) for t in (r, k, v, w, u, s0))
+    r, k, v, w = (_layout(t, case[6]) for t in (r, k, v, w))
+    if case[6] == "off":
+        u, s0 = at_offset(u, 1), at_offset(s0, 1)
     return [r, k, v, w, u, s0]
 
 
@@ -590,3 +659,111 @@ def check_rglru_step(case, device, seed=0):
     err = max(held("rglru_step y", case, y, want_y, y_tol),
               held("rglru_step h", case, hn, want_hn, RGLRU_TOL))
     return err, inputs
+
+
+def wkv6_bwd_inputs(case, device, seed=0):
+    """The forward's inputs of ``wkv6_inputs``, the output gradient dy
+    (B,H,S,hd) fp32 in the case's layout, and ds_n (B,H,hd,hd) fp32, or
+    None where the case says "zero"; both normal, drawn from ``seed + 1``."""
+    B, H, S, hd = case[:4]
+    dy, dsn = _randn(seed + 1, (B, H, S, hd), (B, H, hd, hd))
+    dy = _layout(torch.from_numpy(dy).to(device), case[6])
+    dsn = torch.from_numpy(dsn).to(device) if case[8] == "random" else None
+    return wkv6_inputs(case[:8], device, seed), dy, dsn
+
+
+def _bwd_tol(t):
+    """The tolerance of a gradient returned in ``t``'s dtype: one bf16
+    rounding of an fp32 sum (``TOL``) or WKV6_TOL in fp32."""
+    return TOL[torch.bfloat16] if t.dtype == torch.bfloat16 else WKV6_TOL
+
+
+def check_wkv6_bwd(case, device, seed=0):
+    """dr, dk, dv, dw, du and ds0 through autograd of ``ops.wkv6`` (on the
+    card: the training entry, then ``ops.wkv6_bwd``) against
+    ``ref.wkv6_bwd_ref`` on the plain training entry's checkpoints; (max
+    |err|, (inputs, dy, ds_n))."""
+    inputs, dy, dsn = wkv6_bwd_inputs(case, device, seed)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        y, sn = ops.wkv6(*leaves)
+        outs, grads = ((y, sn), (dy, dsn)) if dsn is not None else ((y,), (dy,))
+        got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+    # at S = 0 the plain version's graph reaches neither k, v, w nor u
+    got = [torch.zeros_like(t) if g is None else g for g, t in zip(got, inputs)]
+    _, _, ckpt = ref.wkv6_train_ref(*inputs, ref.WKV6_EVERY)
+    want = ref.wkv6_bwd_ref(*inputs, ckpt, dy, dsn)
+    err = max(held(f"wkv6_bwd d{n}", case, a, b, _bwd_tol(b))
+              for n, a, b in zip(("r", "k", "v", "w", "u", "s0"), got, want))
+    return err, (inputs, dy, dsn)
+
+
+def check_wkv6_bwd_repeat(case, device, seed=0):
+    """Two calls of ``ops.wkv6_bwd`` on the same inputs (with the training
+    entry's checkpoints) must give the same bits; raises unless they do."""
+    inputs, dy, dsn = wkv6_bwd_inputs(case, device, seed)
+    _, _, ckpt = ops.wkv6_train(*inputs)
+    first, second = (ops.wkv6_bwd(*inputs, ckpt, dy, dsn) for _ in range(2))
+    for n, a, b in zip(("r", "k", "v", "w", "u", "s0"), first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"wkv6_bwd {case}: d{n} differs between two calls in "
+                                 f"{int((a != b).sum())} entries")
+
+
+def check_wkv6_train(case, device, seed=0):
+    """The training entry against the serving entry (the same y and s_n
+    bits) and its checkpoints against ``ref.wkv6_train_ref``'s within
+    ``WKV6_TOL``; max |ckpt err|."""
+    inputs = wkv6_inputs(case[:8], device, seed)
+    y, sn, ckpt = ops.wkv6_train(*inputs)
+    with torch.no_grad():
+        served = ops.wkv6(*inputs)
+    for n, a, b in (("y", y, served[0]), ("s_n", sn, served[1])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"wkv6_train {case}: {n} differs from the serving entry's "
+                                 f"in {int((a != b).sum())} entries")
+    _, _, want = ref.wkv6_train_ref(*inputs, ref.WKV6_EVERY)
+    return held("wkv6_train ckpt", case, ckpt, want, WKV6_TOL)
+
+
+def rglru_bwd_inputs(case, device, seed=0):
+    """The scan's inputs of ``rglru_inputs``, the output gradient dy (B,S,D)
+    (in the "wide" layout half of a (B,S,2D) buffer) and dh_S (B,D), or
+    None where the case says "zero"; both normal, drawn from ``seed + 1``."""
+    B, S, D = case[:3]
+    dy, dh = (torch.from_numpy(x).to(device) for x in _randn(seed + 1, (B, S, D), (B, D)))
+    if case[3] == "wide":
+        dy = torch.cat([dy, torch.zeros_like(dy)], dim=-1)[..., :D]
+    return rglru_inputs(case[:4], device, seed), dy, dh if case[4] == "random" else None
+
+
+def check_rglru_bwd(case, device, seed=0):
+    """da, db and dh0 through autograd of ``ops.rglru_scan`` (on the card:
+    the scan, then ``ops.rglru_scan_bwd``) against
+    ``ref.rglru_scan_bwd_ref`` on the plain scan's output, at
+    ``RGLRU_TOL``; (max |err|, (inputs, dy, dh_S))."""
+    inputs, dy, dh = rglru_bwd_inputs(case, device, seed)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        y, hn = ops.rglru_scan(*leaves)
+        outs, grads = ((y, hn), (dy, dh)) if dh is not None else ((y,), (dy,))
+        got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+    # at S = 0 the plain version's graph reaches neither a nor b
+    got = [torch.zeros_like(t) if g is None else g for g, t in zip(got, inputs)]
+    a, b, h0 = inputs
+    want = ref.rglru_scan_bwd_ref(a, h0, ref.rglru_scan_ref(a, b, h0)[0], dy, dh)
+    err = max(held(f"rglru_scan_bwd d{n}", case, x, w, RGLRU_TOL)
+              for n, x, w in zip(("a", "b", "h0"), got, want))
+    return err, (inputs, dy, dh)
+
+
+def check_rglru_bwd_repeat(case, device, seed=0):
+    """Two calls of ``ops.rglru_scan_bwd`` on the same inputs must give the
+    same bits; raises unless they do."""
+    (a, b, h0), dy, dh = rglru_bwd_inputs(case, device, seed)
+    y, _ = ops.rglru_scan(a, b, h0)
+    first, second = (ops.rglru_scan_bwd(a, h0, y, dy, dh) for _ in range(2))
+    for n, x, w in zip(("a", "b", "h0"), first, second):
+        if not torch.equal(x, w):
+            raise AssertionError(f"rglru_scan_bwd {case}: d{n} differs between two calls "
+                                 f"in {int((x != w).sum())} entries")

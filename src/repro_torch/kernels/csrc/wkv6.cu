@@ -51,6 +51,14 @@
 // Columns and rows past hd (hd below the template width) hold zeros and are
 // never stored; any hd from 1 to 128.
 //
+// The training entry, wkv6_train_launch, runs the same kernels with the
+// template flag CKPT set: they also write the state before every `every`-th
+// step (at the start of a staged chunk; the step kernel writes s0) into
+// ckpt, from which the backward (csrc/wkv6_bwd.cu) recomputes each chunk's
+// states. y and s_n are the serving entry's bit for bit. CKPT is false in
+// the serving instantiations, whose code is unchanged: the two fields the
+// flag reads come last in Params.
+//
 // Bound on the H100: bytes, (2|4)·3·B·H·S·hd for r, k, v plus
 // 4·(2·B·H·S·hd + 2·B·H·hd² + H·hd) for w, y, the state in and out and u,
 // at 3.35 TB/s: at the engine's shape (1,32,1,64) with bf16 r, k, v about
@@ -87,6 +95,11 @@ struct Params {
   long long y_sb, y_sh, y_ss;
   long long u_sh;
   long long s_sb, s_sh, s_si;
+  // the training entry's (last, so that the fields above keep their
+  // offsets and the serving instantiations their code): the state before
+  // every `every`-th step, (B,H,ceil(S/every),hd,hd) contiguous
+  float* ckpt;
+  int every;
 };
 
 __device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
@@ -152,7 +165,7 @@ __device__ __forceinline__ void store4(float* p, int n, const float* o) {
   }
 }
 
-template <int HD, typename T, Path P>
+template <int HD, typename T, Path P, bool CKPT>
 __global__ void __launch_bounds__(32) wkv6_step_kernel(const Params p) {
   constexpr int kRpt = HD / 16;                   // state rows per lane
   constexpr int kRv = kRpt < 4 ? kRpt : 4;        // elements per row-vector load
@@ -186,6 +199,15 @@ __global__ void __launch_bounds__(32) wkv6_step_kernel(const Params p) {
   for (int a = 0; a < kRpt; ++a) {
     const int i = i0 + a;
     loadn<4, P>(s0 + i * p.s_si + j0, i < hd ? hd - j0 : 0, st[a]);
+  }
+
+  if constexpr (CKPT) {             // the state before the one step: s0
+    float* ck = p.ckpt + ((long long)b * p.H + h) * hd * hd;
+#pragma unroll
+    for (int a = 0; a < kRpt; ++a) {
+      const int i = i0 + a;
+      if (P == kFull || i < hd) store4<P>(ck + i * hd + j0, hd - j0, st[a]);
+    }
   }
 
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -242,7 +264,7 @@ __device__ __forceinline__ void fetch4(const T* r, const T* k, const T* v, const
     for (int e = 0; e < 4; ++e) o[q][e] = in ? o[q][e] : 0.f;
 }
 
-template <int HD, typename T, Path P>
+template <int HD, typename T, Path P, bool CKPT>
 __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
   constexpr int kThreads = HD * kGroups;
   constexpr int kRows = HD / kGroups;             // state rows per thread
@@ -276,6 +298,17 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
 
   for (int t0 = 0; t0 < S; t0 += kChunk) {
     const int n = min(kChunk, S - t0);
+    if constexpr (CKPT) {            // S_{t0}, at every `every`-th step (a multiple of kChunk)
+      if (t0 % p.every == 0) {
+        const long long nck = (S + p.every - 1) / p.every;
+        float* ck = p.ckpt + (((long long)b * p.H + h) * nck + t0 / p.every) * hd * hd;
+#pragma unroll
+        for (int a = 0; a < kRows; ++a) {
+          const int i = g * kRows + a;
+          if (i < hd && j < hd) ck[i * hd + j] = st[a];
+        }
+      }
+    }
     if constexpr (P == kFull) {
       if (tid < kChunk * HD / 4) {
         const int c = tid / (HD / 4), d = tid % (HD / 4) * 4;
@@ -353,32 +386,48 @@ bool vec4(const Params& p, int elem_rkv) {
          ok(p.w, 4) && ok(p.u, 4) && ok(p.s0, 4) && ok(p.y, 4) && ok(p.sn, 4);
 }
 
-template <int HD, typename T, Path P>
+template <int HD, typename T, Path P, bool CKPT>
 void launch(const Params& p, int B, cudaStream_t st) {
   if (p.S == 1) {
     const dim3 grid((unsigned)B * (unsigned)p.H * (unsigned)((p.hd + kSlice - 1) / kSlice));
-    wkv6_step_kernel<HD, T, P><<<grid, 32, 0, st>>>(p);
+    wkv6_step_kernel<HD, T, P, CKPT><<<grid, 32, 0, st>>>(p);
   } else {
-    wkv6_kernel<HD, T, P><<<(unsigned)B * (unsigned)p.H, HD * kGroups, 0, st>>>(p);
+    wkv6_kernel<HD, T, P, CKPT><<<(unsigned)B * (unsigned)p.H, HD * kGroups, 0, st>>>(p);
   }
 }
 
-template <int HD, typename T>
+template <int HD, typename T, bool CKPT>
 void launch(const Params& p, int B, cudaStream_t st) {
   if (p.hd == HD && vec4(p, (int)sizeof(T)))
-    launch<HD, T, kFull>(p, B, st);
+    launch<HD, T, kFull, CKPT>(p, B, st);
   else
-    launch<HD, T, kElem>(p, B, st);
+    launch<HD, T, kElem, CKPT>(p, B, st);
 }
 
-template <typename T>
+template <typename T, bool CKPT>
 void launch_hd(const Params& p, int B, cudaStream_t st) {
   if (p.hd <= 32)
-    launch<32, T>(p, B, st);
+    launch<32, T, CKPT>(p, B, st);
   else if (p.hd <= 64)
-    launch<64, T>(p, B, st);
+    launch<64, T, CKPT>(p, B, st);
   else
-    launch<128, T>(p, B, st);
+    launch<128, T, CKPT>(p, B, st);
+}
+
+// The fields both entries fill; false when the sizes are out of range.
+bool fill(Params& p, const void* r, const void* k, const void* v, const float* w,
+          const float* u, const float* s0, float* y, float* sn, int B, int H, int S, int hd,
+          const long long* strides) {
+  if (B <= 0 || H <= 0 || S < 0 || hd <= 0 || hd > kMaxHd) return false;
+  p.r = r; p.k = k; p.v = v; p.w = w; p.u = u; p.s0 = s0; p.y = y; p.sn = sn;
+  p.H = H; p.S = S; p.hd = hd;
+  long long* f[] = {&p.r_sb, &p.r_sh, &p.r_ss, &p.k_sb, &p.k_sh, &p.k_ss,
+                    &p.v_sb, &p.v_sh, &p.v_ss, &p.w_sb, &p.w_sh, &p.w_ss,
+                    &p.y_sb, &p.y_sh, &p.y_ss, &p.u_sh, &p.s_sb, &p.s_sh, &p.s_si};
+  for (int q = 0; q < 19; ++q) *f[q] = strides[q];
+  p.ckpt = nullptr;
+  p.every = 0;
+  return true;
 }
 
 }  // namespace
@@ -400,22 +449,47 @@ int wkv6_launch(const void* r, const void* k, const void* v, const float* w,
                 long long y_sb, long long y_sh, long long y_ss,
                 long long u_sh, long long s_sb, long long s_sh, long long s_si,
                 void* stream) {
-  if (B <= 0 || H <= 0 || S < 0 || hd <= 0 || hd > kMaxHd)
-    return (int)cudaErrorInvalidValue;
+  const long long strides[] = {r_sb, r_sh, r_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                               w_sb, w_sh, w_ss, y_sb, y_sh, y_ss, u_sh, s_sb, s_sh, s_si};
   Params p;
-  p.r = r; p.k = k; p.v = v; p.w = w; p.u = u; p.s0 = s0; p.y = y; p.sn = sn;
-  p.H = H; p.S = S; p.hd = hd;
-  p.r_sb = r_sb; p.r_sh = r_sh; p.r_ss = r_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.w_sb = w_sb; p.w_sh = w_sh; p.w_ss = w_ss;
-  p.y_sb = y_sb; p.y_sh = y_sh; p.y_ss = y_ss;
-  p.u_sh = u_sh; p.s_sb = s_sb; p.s_sh = s_sh; p.s_si = s_si;
+  if (!fill(p, r, k, v, w, u, s0, y, sn, B, H, S, hd, strides))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rkv_bf16)
-    launch_hd<__nv_bfloat16>(p, B, st);
+    launch_hd<__nv_bfloat16, false>(p, B, st);
   else
-    launch_hd<float>(p, B, st);
+    launch_hd<float, false>(p, B, st);
+  return (int)cudaGetLastError();
+}
+
+// The training entry: wkv6_launch's y and s_n, bit for bit (the same
+// kernels, the same arithmetic), and ckpt (B,H,ceil(S/every),hd,hd)
+// contiguous, the state before steps 0, every, 2·every, ... for the
+// backward (csrc/wkv6_bwd.cu). `every` must be a positive multiple of 16,
+// the time loop's staging (cudaErrorInvalidValue otherwise).
+int wkv6_train_launch(const void* r, const void* k, const void* v, const float* w,
+                      const float* u, const float* s0, float* y, float* sn, float* ckpt,
+                      int every, int B, int H, int S, int hd, int rkv_bf16,
+                      long long r_sb, long long r_sh, long long r_ss,
+                      long long k_sb, long long k_sh, long long k_ss,
+                      long long v_sb, long long v_sh, long long v_ss,
+                      long long w_sb, long long w_sh, long long w_ss,
+                      long long y_sb, long long y_sh, long long y_ss,
+                      long long u_sh, long long s_sb, long long s_sh, long long s_si,
+                      void* stream) {
+  const long long strides[] = {r_sb, r_sh, r_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                               w_sb, w_sh, w_ss, y_sb, y_sh, y_ss, u_sh, s_sb, s_sh, s_si};
+  Params p;
+  if (every <= 0 || every % 16 != 0 ||
+      !fill(p, r, k, v, w, u, s0, y, sn, B, H, S, hd, strides))
+    return (int)cudaErrorInvalidValue;
+  p.ckpt = ckpt;
+  p.every = every;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rkv_bf16)
+    launch_hd<__nv_bfloat16, true>(p, B, st);
+  else
+    launch_hd<float, true>(p, B, st);
   return (int)cudaGetLastError();
 }
 

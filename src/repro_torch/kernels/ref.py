@@ -12,7 +12,11 @@ takes the same gradient by autodiff of its jnp attention).
 ``flash_attention_lse_ref`` is the training forward's plain version: the
 same output and each row's logsumexp in the kernels' base-2 units;
 ``flash_attention_bwd_lse_ref`` is the closed form the backward kernels
-compute from that lse.
+compute from that lse. ``wkv6_train_ref`` is the wkv6 training entry's
+plain version (``wkv6_ref``'s output and the state before every
+``every``-th step), ``wkv6_bwd_ref`` and ``rglru_scan_bwd_ref`` the closed
+forms of the gradients that the two recurrent backward kernels compute
+(the reference takes both by autodiff of its scans).
 The wrappers run these for CPU tensors; ``chip_smoke.py`` holds the CUDA
 kernels against them on the card.
 """
@@ -26,6 +30,11 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 RG_C = 8.0          # the RG-LRU's decay scale, repro/models/griffin.py
+# steps between two checkpoints of the wkv6 state that the training entry
+# writes and the backward recomputes from: at rwkv6-1.6b's (1,32,4096,64)
+# 256 checkpoints of 64x64 fp32 per head, 134 MB, live for one layer's
+# backward under remat
+WKV6_EVERY = 16
 
 
 def flash_mask(Sq: int, Sk: int, q_offset: int, causal: bool, window: Optional[int],
@@ -135,7 +144,7 @@ def rglru_scan_ref(a, b, h0):
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]
         ys.append(h)
-    y = torch.stack(ys, dim=1) if ys else a.new_empty(a.shape)
+    y = torch.stack(ys, dim=1) if ys else a[:, :0].clone()   # empty, in the graph
     return y, (h0.clone() if not ys else h)
 
 
@@ -175,5 +184,89 @@ def wkv6_ref(r, k, v, w, u, s0):
         eff = s + u[None, :, :, None] * kv
         ys.append(torch.einsum("bhij,bhi->bhj", eff, r[:, :, t]))
         s = s * w[:, :, t, :, None] + kv
-    y = torch.stack(ys, dim=2) if ys else r.new_empty((B, H, 0, hd))
+    y = torch.stack(ys, dim=2) if ys else r[:, :, :0].clone()   # empty, in the graph
     return y, (s0.clone() if S == 0 else s)
+
+
+def rglru_scan_bwd_ref(a, h0, y, dy, dh_S=None):
+    """The gradients (da, db, dh0) of ``rglru_scan_ref`` at (a, b, h0), whose
+    output is ``y`` (B,S,D), for the output gradients ``dy`` (B,S,D) and
+    ``dh_S`` (B,D) (``None``: zero), all fp32. A reverse scan from ``g_{S-1} =
+    dy_{S-1} + dh_S`` with ``g_t = dy_t + a_{t+1} g_{t+1}``: ``db_t = g_t``,
+    ``da_t = g_t y_{t-1}`` (``y_{-1} = h0``), ``dh0 = a_0 g_0``. At S = 0, da
+    and db are empty and dh0 is dh_S."""
+    S = a.shape[1]
+    carry = torch.zeros_like(h0) if dh_S is None else dh_S.clone()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        g = dy[:, t] + carry
+        db[:, t] = g
+        da[:, t] = g * (y[:, t - 1] if t else h0)
+        carry = a[:, t] * g
+    return da, db, carry
+
+
+def wkv6_train_ref(r, k, v, w, u, s0, every: int):
+    """``wkv6_ref``'s (y, s_n) and the state before every ``every``-th step,
+    ckpt (B,H,⌈S/every⌉,hd,hd) fp32: ``ckpt[:, :, c]`` is S_{c·every}, the
+    state the backward recomputes chunk ``c``'s steps from."""
+    B, H, S, hd = r.shape
+    ckpt = s0.new_empty((B, H, -(-S // every), hd, hd))
+    s = s0
+    ys = []
+    for c in range(ckpt.shape[2]):
+        ckpt[:, :, c] = s
+        sl = slice(c * every, min(S, (c + 1) * every))
+        y, s = wkv6_ref(r[:, :, sl], k[:, :, sl], v[:, :, sl], w[:, :, sl], u, s)
+        ys.append(y)
+    y = torch.cat(ys, dim=2) if ys else r.new_empty((B, H, 0, hd), dtype=torch.float32)
+    return y, (s0.clone() if S == 0 else s), ckpt
+
+
+def wkv6_bwd_ref(r, k, v, w, u, s0, ckpt, dy, ds_n=None, every: int = WKV6_EVERY):
+    """The gradients (dr, dk, dv, dw, du, ds0) of ``wkv6_ref`` at (r, k, v,
+    w, u, s0), from the training entry's checkpoints ``ckpt`` (S_{c·every},
+    ``wkv6_train_ref`` with the same ``every``), for the output gradients ``dy`` (B,H,S,hd) and
+    ``ds_n`` (B,H,hd,hd; ``None``: zero): the closed form that the backward
+    kernel computes. Each chunk's states are recomputed from its checkpoint
+    (never backwards as ``(S_{t+1} - k_t v_tᵀ) / w_t``: w comes arbitrarily
+    close to 0); then from ``G_S = ds_n``, for t = S-1 down to 0:
+
+        dr_t[i] = Σ_j (S_t[i,j] + u_i k_t[i] v_t[j]) dy_t[j]
+        dk_t[i] = Σ_j (G_{t+1}[i,j] + u_i r_t[i] dy_t[j]) v_t[j]
+        dv_t[j] = Σ_i (G_{t+1}[i,j] + u_i r_t[i] dy_t[j]) k_t[i]
+        dw_t[i] = Σ_j S_t[i,j] G_{t+1}[i,j]
+        du[i]  += Σ_b r_t[i] k_t[i] (v_t · dy_t)
+        G_t     = diag(w_t) G_{t+1} + r_t ⊗ dy_t
+
+    and ``ds0 = G_0``. Computed in float64 (the oracle's own rounding stays
+    far below the kernel's fp32 tolerance at thousands of steps), returned
+    with dr, dk, dv in r's dtype and dw, du, ds0 in fp32."""
+    B, H, S, hd = r.shape
+    f = torch.float64
+    r64, k64, v64, w64, dy64 = (t.to(f) for t in (r, k, v, w, dy))
+    u64 = u.to(f)[None, :, :, None]
+    G = torch.zeros((B, H, hd, hd), dtype=f, device=r.device) if ds_n is None \
+        else ds_n.to(f)
+    dr, dk, dv, dw = (torch.empty((B, H, S, hd), dtype=f, device=r.device)
+                      for _ in range(4))
+    du = torch.zeros((B, H, hd), dtype=f, device=r.device)
+    for c in range(ckpt.shape[2] - 1, -1, -1):
+        t0, t1 = c * every, min(S, (c + 1) * every)
+        states = [ckpt[:, :, c].to(f)]
+        for t in range(t0, t1 - 1):
+            kv = k64[:, :, t, :, None] * v64[:, :, t, None, :]
+            states.append(states[-1] * w64[:, :, t, :, None] + kv)
+        for t in range(t1 - 1, t0 - 1, -1):
+            st = states[t - t0]
+            rt, kt, vt, wt, gt = (x[:, :, t] for x in (r64, k64, v64, w64, dy64))
+            vdy = (vt * gt).sum(-1, keepdim=True)                    # (B,H,1)
+            urk = (u64[..., 0] * rt * kt).sum(-1, keepdim=True)      # (B,H,1)
+            dr[:, :, t] = torch.einsum("bhij,bhj->bhi", st, gt) + u64[..., 0] * kt * vdy
+            dk[:, :, t] = torch.einsum("bhij,bhj->bhi", G, vt) + u64[..., 0] * rt * vdy
+            dv[:, :, t] = torch.einsum("bhij,bhi->bhj", G, kt) + urk * gt
+            dw[:, :, t] = (st * G).sum(-1)
+            du += rt * kt * vdy
+            G = G * wt[..., None] + rt[..., None] * gt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.float(),
+            du.sum(0).float(), G.float())

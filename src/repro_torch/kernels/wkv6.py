@@ -35,11 +35,29 @@ in ``r``'s memory layout (``torch.empty_like``), so for such views it is a
 and ``s_n`` equals ``s0``).
 
 A tensor on the CPU goes to the plain version (``ref.wkv6_ref``, which
-upcasts first); a CUDA tensor launches a kernel or raises. ``wkv6.launches``
-counts kernel launches. No backward kernel exists yet (queued): a CUDA
-input that requires grad, with grad enabled, raises (``build.refuse_grad``)
-rather than return an output that cuts the graph; on the CPU the plain
-version stays differentiable.
+upcasts first, and whose autograd is its gradient); a CUDA tensor launches
+a kernel or raises. ``wkv6.launches`` counts kernel launches of either
+forward entry.
+
+The gradient on the card. Where grad is enabled and an input requires it,
+``wkv6`` runs through ``Wkv6Fn``, whose forward is ``wkv6_train``, the C
+entry ``wkv6_train_launch``: the same kernels with a template flag that also
+writes the state before every ``ref.WKV6_EVERY``-th step (16:
+(B,H,⌈S/16⌉,hd,hd) fp32, 134 MB at rwkv6-1.6b's (1,32,4096,64), and under
+remat only one layer's are live in the backward); its y and s_n are the
+serving entry's bit for bit. Its backward is ``wkv6_bwd``, the C entry of
+``csrc/wkv6_bwd.cu``, a gradient the reference takes by autodiff of its
+scans (``repro/models/rwkv6.py::wkv_scan``): one block per (b, h) walks the
+chunks from the last, recomputes each chunk's 16 states from its
+checkpoint into an L2-resident scratch and sweeps back through them with
+the state's gradient G in registers, fp32 on the CUDA cores (TF32 would
+miss the 1e-4 tolerance); dr, dk, dv come back in r's dtype, rounded once,
+in the inputs' layouts. It is bound by the CUDA cores' fp32 rate and the
+bytes alike (0.11 ms at the training shape); with 32 blocks for 132 SMs
+and a dependent chain of S steps it sits far above that (see ``PERF.md``).
+``wkv6_bwd.launches`` counts its calls. Everywhere else, the serving
+engine's ``inference_mode`` included, the call is the serving launch,
+which saves nothing.
 """
 from __future__ import annotations
 
@@ -71,42 +89,151 @@ def _check(r, k, v, w, u, s0):
         raise ValueError("r, k, v, w, u and s0 must be on one device")
 
 
-def _launch(r, k, v, w, u, s0):
-    B, H, S, hd = r.shape
+def _strides(*tensors):
+    """The (batch, head, step) strides of each (B,H,S,hd) tensor, in order."""
+    return [x for t in tensors for x in t.stride()[:3]]
+
+
+def _check_layout(**tensors):
+    hd = next(iter(tensors.values())).shape[-1]
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"kernel takes 1 <= hd <= {MAX_HEAD_DIM}; got hd={hd}")
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("s0", s0)):
+    for name, t in tensors.items():
         if hd > 1 and t.numel() and t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous; "
                              f"strides {t.stride()}")
+
+
+def _launch(r, k, v, w, u, s0, train=False):
+    """The serving entry's (y, s_n), or with ``train`` the training entry's
+    (y, s_n, ckpt)."""
+    B, H, S, hd = r.shape
+    _check_layout(r=r, k=k, v=v, w=w, u=u, s0=s0)
     y = torch.empty_like(r, dtype=torch.float32)
     sn = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    ckpt = torch.empty((B, H, -(-S // ref.WKV6_EVERY), hd, hd), dtype=torch.float32,
+                       device=r.device) if train else None
     if B * H == 0:
-        return y, sn
+        return (y, sn, ckpt) if train else (y, sn)
     lib = build.load("wkv6")
-    err = build.on_device(r.device, lambda stream: lib.wkv6_launch(
+    entry = lib.wkv6_train_launch if train else lib.wkv6_launch
+    extra = (ckpt.data_ptr(), ref.WKV6_EVERY) if train else ()
+    err = build.on_device(r.device, lambda stream: entry(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        s0.data_ptr(), y.data_ptr(), sn.data_ptr(), B, H, S, hd,
-        int(r.dtype == torch.bfloat16),
-        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
-        *y.stride()[:3], u.stride(0), *s0.stride()[:3], stream))
+        s0.data_ptr(), y.data_ptr(), sn.data_ptr(), *extra, B, H, S, hd,
+        int(r.dtype == torch.bfloat16), *_strides(r, k, v, w, y), u.stride(0),
+        *s0.stride()[:3], stream))
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
-    return y, sn
+    return (y, sn, ckpt) if train else (y, sn)
+
+
+def _launch_bwd(r, k, v, w, u, ckpt, dy, ds_n):
+    B, H, S, hd = r.shape
+    every = ref.WKV6_EVERY
+    if ckpt.shape != (B, H, -(-S // every), hd, hd) or ckpt.dtype != torch.float32 \
+            or not ckpt.is_contiguous():
+        raise ValueError("wkv6_bwd takes the training entry's checkpoints, (B,H,ceil(S/"
+                         f"{every}),hd,hd) fp32 contiguous; got {ckpt.dtype} "
+                         f"{tuple(ckpt.shape)}")
+    if dy.shape != r.shape or dy.dtype != torch.float32:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)}: want fp32 {tuple(r.shape)}")
+    if ds_n is not None and (ds_n.shape != (B, H, hd, hd) or ds_n.dtype != torch.float32):
+        raise ValueError(f"ds_n {ds_n.dtype} {tuple(ds_n.shape)}: want fp32 "
+                         f"{(B, H, hd, hd)}")
+    if hd > 1 and dy.numel() and dy.stride(-1) != 1:    # an expanded or sliced gradient
+        dy = dy.contiguous()
+    ds_n = None if ds_n is None else ds_n.contiguous()
+    _check_layout(r=r, k=k, v=v, w=w, u=u)
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+    du = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if B * H == 0:
+        return dr, dk, dv, dw, du.sum(0), ds0
+    # the recomputed states, 16 steps of W x W per (b, h) for the kernel's
+    # width W (the C entry refuses a smaller scratch)
+    width = 32 if hd <= 32 else 64 if hd <= 64 else MAX_HEAD_DIM
+    scratch = torch.empty(B * H * every * width * width, dtype=torch.float32,
+                          device=r.device)
+    lib = build.load("wkv6_bwd")
+    err = build.on_device(r.device, lambda stream: lib.wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        ckpt.data_ptr(), dy.data_ptr(), None if ds_n is None else ds_n.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        ds0.data_ptr(), scratch.data_ptr(), scratch.numel(), every, B, H, S, hd,
+        int(r.dtype == torch.bfloat16), *_strides(r, k, v, w, dy, dr, dk, dv, dw),
+        u.stride(0), stream))
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error {err}")
+    wkv6_bwd.launches += 1
+    # the per-(b, h) partials of du, summed over b in one fixed order (at
+    # B = 1, the training batch, no sum and no launch)
+    return dr, dk, dv, dw, du[0] if B == 1 else du.sum(0), ds0
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """The kernel with its gradient: the training entry's launch, and
+    ``wkv6_bwd`` on its checkpoints for the backward. CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        y, sn, ckpt = _launch(r, k, v, w, u, s0, train=True)
+        ctx.save_for_backward(r, k, v, w, u, ckpt)
+        ctx.set_materialize_grads(False)
+        return y, sn
+
+    @staticmethod
+    def backward(ctx, dy, ds_n):
+        r, k, v, w, u, ckpt = ctx.saved_tensors
+        if dy is None:                   # only s_n reached the loss
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        return _launch_bwd(r, k, v, w, u, ckpt, dy, ds_n)
+
+
+def _device(r, name):
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {r.device}")
+    return r.device.type
 
 
 def wkv6(r, k, v, w, u, s0):
     """r, k, v: (B, H, S, hd) fp32 or bf16; w: (B, H, S, hd) fp32; u: (H, hd);
     s0: (B, H, hd, hd). Returns (y (B, H, S, hd), s_n (B, H, hd, hd)), fp32."""
     _check(r, k, v, w, u, s0)
-    if r.device.type == "cpu":
+    if _device(r, "wkv6") == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6 runs on cpu or cuda, not {r.device}")
-    build.refuse_grad("wkv6", "a wkv6 backward kernel is queued in ROADMAP Queue 1",
-                      r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
+        return Wkv6Fn.apply(r, k, v, w, u, s0)
     return _launch(r, k, v, w, u, s0)
 
 
 wkv6.launches = 0
+
+
+def wkv6_train(r, k, v, w, u, s0):
+    """``wkv6``'s (y, s_n) and the checkpoints ckpt (B, H, ⌈S/16⌉, hd, hd)
+    fp32, the state before every ``ref.WKV6_EVERY``-th (16th) step
+    (``ref.wkv6_train_ref`` on the CPU; on the card the training entry,
+    counted in ``wkv6.launches``). No autograd: ``wkv6`` is the
+    differentiable call."""
+    _check(r, k, v, w, u, s0)
+    if _device(r, "wkv6_train") == "cpu":
+        return ref.wkv6_train_ref(r, k, v, w, u, s0, ref.WKV6_EVERY)
+    return _launch(r, k, v, w, u, s0, train=True)
+
+
+def wkv6_bwd(r, k, v, w, u, s0, ckpt, dy, ds_n=None):
+    """The gradients (dr, dk, dv, dw, du, ds0) of ``wkv6`` at (r, k, v, w,
+    u, s0), from ``wkv6_train``'s checkpoints ``ckpt``, for the output
+    gradients dy (B,H,S,hd) fp32 and ds_n (B,H,hd,hd) fp32 (``None``: zero).
+    dr, dk, dv in r's dtype and layout, dw in w's; du (H,hd), ds0
+    (B,H,hd,hd), fp32. On the CPU the plain version
+    (``ref.wkv6_bwd_ref``); a CUDA tensor launches the kernel or raises."""
+    _check(r, k, v, w, u, s0)
+    if _device(r, "wkv6_bwd") == "cpu":
+        return ref.wkv6_bwd_ref(r, k, v, w, u, s0, ckpt, dy, ds_n, ref.WKV6_EVERY)
+    return _launch_bwd(r, k, v, w, u, ckpt, dy, ds_n)
+
+
+wkv6_bwd.launches = 0

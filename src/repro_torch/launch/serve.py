@@ -38,7 +38,8 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.policies import POLICIES
-from repro_torch.models.transformer import init_params
+from repro_torch.models import rwkv6 as rw
+from repro_torch.models.transformer import griffin_layout, init_params
 from repro_torch.serving.realexec import (RealExecutionEngine, check_servable,
                                           resolve_device)
 
@@ -72,15 +73,32 @@ FULL_DEPTH = {"dbrx-132b": 8, "grok-1-314b": 5}
 
 
 def _param_counts(cfg):
-    """(elements in the model's dtype, elements kept in fp32: the MoE
-    router, largest leaf's elements) of a dense, MoE, VLM or enc-dec
-    config's weights as ``init_params`` lays them out."""
-    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    """(elements in the model's dtype, elements kept in fp32, largest
+    leaf's elements) of ``cfg``'s weights as ``init_params`` lays them out,
+    for every family. The fp32 leaves are the MoE router, RWKV6's
+    ``FP32_LEAVES`` (``mu``, ``decay_base``, ``u``, ``mu_k``, ``mu_r``) and
+    Griffin's ``ba``, ``bx`` and ``lam``."""
+    d, hd, L, V = cfg.d_model, cfg.head_dim, cfg.num_layers, cfg.padded_vocab
     attn = d * (cfg.num_heads + cfg.num_kv_heads) * hd * 2
+    mlp = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    n = 2 * V * d + d                   # embed, unembed, final_ln
+    if cfg.family == "ssm":             # ln1, ln2, time-mix, channel-mix
+        mixes = len(rw._MIX_NAMES)
+        tmix = 2 * mixes * rw.LORA_R * d + 5 * d * d + 2 * rw.DECAY_LORA_R * d + 2 * d
+        n += L * (2 * d + tmix + 2 * d * cfg.d_ff + d * d)
+        fp32 = L * (mixes + 4) * d
+        return n, fp32, max(V * d, L * d * max(cfg.d_ff, d))
+    if cfg.family == "hybrid":          # units of (rec, rec, attn) and tail rec layers
+        units, tail = griffin_layout(cfg)
+        dr = cfg.rnn_width
+        rec = 2 * d + 3 * d * dr + cfg.conv_width * dr + dr + 2 * dr * dr + mlp
+        n += (2 * units + tail) * rec + units * (2 * d + attn + mlp)
+        fp32 = (2 * units + tail) * 3 * dr
+        widest = max(d * cfg.d_ff, d * dr, dr * dr, d * cfg.num_heads * hd)
+        return n, fp32, max(V * d, max(units, tail) * widest)
     ffn = d * cfg.d_ff * (cfg.num_experts if cfg.family == "moe" else 1)
     mlp = ffn * (3 if cfg.gated_mlp else 2)
-    router = L * d * cfg.num_experts if cfg.family == "moe" else 0
-    n = 2 * cfg.padded_vocab * d + d
+    fp32 = L * d * cfg.num_experts if cfg.family == "moe" else 0   # the router
     if cfg.family == "encdec":          # frames_proj, enc_ln; decoder: self + cross
         n += d * d + d + cfg.encoder_layers * (attn + mlp + 2 * d) \
             + L * (2 * attn + mlp + 3 * d)
@@ -88,29 +106,29 @@ def _param_counts(cfg):
         n += L * (attn + mlp + 2 * d)
     if cfg.family == "vlm":             # patch_proj
         n += d * d
-    largest = max(cfg.padded_vocab * d, max(L, cfg.encoder_layers) * ffn,
-                  L * d * cfg.num_heads * hd)
-    return n, router, largest
+    largest = max(V * d, max(L, cfg.encoder_layers) * ffn, L * d * cfg.num_heads * hd)
+    return n, fp32, largest
 
 
 def weight_bytes(cfg, dtype=torch.bfloat16) -> int:
-    """Bytes of a dense, MoE, VLM or enc-dec config's weights as
-    ``init_params`` lays them out (a MoE layer's ``E`` experts, and its
-    router in fp32; a VLM's ``patch_proj``; an enc-dec model's
-    ``frames_proj``, encoder and decoder stacks)."""
-    n, router, _ = _param_counts(cfg)
-    return n * torch.finfo(dtype).bits // 8 + router * 4
+    """Bytes of ``cfg``'s weights as ``init_params`` lays them out, the
+    fp32 leaves in fp32 (``_param_counts``): a MoE layer's ``E`` experts and
+    router, a VLM's ``patch_proj``, an enc-dec model's ``frames_proj``,
+    encoder and decoder stacks, RWKV6's and Griffin's layers."""
+    n, fp32, _ = _param_counts(cfg)
+    return n * torch.finfo(dtype).bits // 8 + fp32 * 4
 
 
 def train_bytes(cfg, dtype=torch.bfloat16) -> int:
-    """Bytes of a training state of such a config on one card: weights and
-    gradients in ``dtype`` (the router's in fp32), fp32 AdamW moments, and
-    the update's two fp32 temporaries of the largest leaf
+    """Bytes of a training state of ``cfg`` on one card: weights and
+    gradients in ``dtype`` (the fp32 leaves' in fp32), fp32 AdamW moments,
+    and the update's two fp32 temporaries of the largest leaf
     (``train.optimizer.adamw_update``). The activations (one layer input
-    per layer under remat, the loss chunks' fp32 logits) depend on the
-    batch and come on top."""
-    n, router, largest = _param_counts(cfg)
-    return n * (2 * torch.finfo(dtype).bits // 8 + 8) + router * 16 + 2 * 4 * largest
+    per layer under remat, the loss chunks' fp32 logits, the recurrent
+    backward's checkpoints for one layer) depend on the batch and come on
+    top."""
+    n, fp32, largest = _param_counts(cfg)
+    return n * (2 * torch.finfo(dtype).bits // 8 + 8) + fp32 * 16 + 2 * 4 * largest
 
 
 def turns(arch: str, reduced: bool):

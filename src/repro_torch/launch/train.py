@@ -7,18 +7,20 @@ example):
         --d-model 512 --layers 8 --batch 8 --seq 256 --steps 300
 
 On the card (``--device cuda``, the default), the same step with the
-attention's gradient in the flash backward kernel, e.g. h2o-danube-1.8b at
-full width and depth:
+kernels' gradients (the flash backward, the wkv6 backward, the RG-LRU
+scan's backward), e.g. at full width and depth:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+        --batch 1 --seq 8192 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+        --batch 1 --seq 4096 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
         --batch 1 --seq 8192 --steps 3
 
 The reference's flags, plus ``--device``; weights in fp32, as the
 reference's ``launch/train.py`` draws them. ``--device cuda`` raises where there is no
 card. Before any weight is drawn it refuses, with a ``ValueError``, a
-config whose training state (``serve.train_bytes``) does not fit one card,
-and the ``ssm`` and ``hybrid`` families, whose recurrent kernels (``wkv6``,
-``rglru_scan``) have no backward kernel yet: they train on the CPU.
+config whose training state (``serve.train_bytes``) does not fit one card.
 """
 from __future__ import annotations
 
@@ -36,7 +38,6 @@ from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.steps import init_train_state, make_train_step
 
 DTYPE = torch.float32
-QUEUED_BACKWARD = {"ssm": "wkv6", "hybrid": "rglru_scan"}
 
 
 def train_device(name: str, cfg, dtype=DTYPE) -> torch.device:
@@ -48,10 +49,6 @@ def train_device(name: str, cfg, dtype=DTYPE) -> torch.device:
         raise ValueError(f"trains on cpu or cuda, not {device}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card here: pass --device cpu to train on the CPU")
-    if cfg.family in QUEUED_BACKWARD:
-        raise ValueError(f"{cfg.name} ({cfg.family}) does not train on the card yet: the "
-                         f"{QUEUED_BACKWARD[cfg.family]} kernel has no backward kernel "
-                         "(queued); train it with --device cpu")
     need = serve.train_bytes(cfg, dtype)
     if need > serve.CARD_BYTES:
         raise ValueError(f"{cfg.name}: its training state in {str(dtype)[6:]} takes "

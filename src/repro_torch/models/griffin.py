@@ -18,6 +18,9 @@ version on the CPU. The reference's model path runs an ``associative_scan``
 with ``h0`` folded into ``b[:, 0]`` and its step computes ``a * h + b``
 inline; the scan is the same function as the kernel's sequential loop,
 rounded in another order, and the step rounds as the reference's does.
+Under autograd (training, ``repro_torch.train.steps``) the scan's gradient
+on the card is the backward kernel ``ops.rglru_scan_bwd``; on the CPU,
+autograd of the plain version. The step is not trained.
 
 Numerics against the reference, where PyTorch would otherwise differ:
 

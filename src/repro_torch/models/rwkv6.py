@@ -12,6 +12,9 @@ after another. The reference switches to ``wkv_scan_chunked`` for
 ``S >= 32``, a reordering of the same sums, so the two models agree at
 ``S >= 32`` to that function's own tolerance against the scan, not to the
 scan's rounding. ``wkv_scan_chunked`` is not ported (ROADMAP.md Queue 2b).
+Under autograd (training, ``repro_torch.train.steps``) the same call runs the
+kernel's training entry on the card, and its gradient is the wkv6 backward
+kernel (``ops.wkv6_bwd``); on the CPU, autograd of the plain version.
 
 Numerics against the reference, where PyTorch would otherwise differ:
 

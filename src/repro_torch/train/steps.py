@@ -5,12 +5,12 @@ update.
 ``make_train_step`` returns ``train_step(params, opt_state, batch) ->
 (params, opt_state, metrics)``, as the reference's does; it takes the
 gradients with ``torch.autograd.grad`` of ``loss_fn`` and updates the
-parameters in place (``optimizer.adamw_update``). On the card the
-attention's gradient is the flash backward kernel
-(``ops.flash_attention_bwd``); the recurrent kernels (``wkv6``,
-``rglru_scan``) have no backward kernel yet and refuse a tensor that
-requires grad, so an ``ssm`` or ``hybrid`` model trains on the CPU only,
-through the plain versions.
+parameters in place (``optimizer.adamw_update``). On the card every
+family trains through the kernels' gradients: the attention's is the flash
+backward kernel (``ops.flash_attention_bwd``), RWKV6's recurrence's the
+wkv6 backward (``ops.wkv6_bwd``, from the checkpoints of the forward's
+training entry) and the RG-LRU scan's ``ops.rglru_scan_bwd``; on the CPU,
+autograd of the plain versions.
 
 ``batch`` holds torch tensors (``data.batch_to``): ``tokens`` and
 ``labels`` (B, S) int64, plus the family extras of ``forward``.

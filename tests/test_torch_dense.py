@@ -286,18 +286,37 @@ def test_engine_takes_no_long_context_option():
         assert "long_context" not in inspect.signature(fn).parameters
 
 
-def test_weight_bytes_counts_init_params():
-    cfg = get_config("minitron-8b").reduced(num_layers=2, d_model=128)
+@pytest.mark.parametrize("arch,layers", [("minitron-8b", 2), ("rwkv6-1.6b", 3),
+                                         ("recurrentgemma-2b", 5)])
+def test_weight_bytes_counts_init_params(arch, layers):
+    """The bytes and the largest leaf of ``init_params``'s weights, the fp32
+    leaves (RWKV6's ``FP32_LEAVES``, Griffin's ``ba``, ``bx``, ``lam``) in
+    fp32; recurrentgemma-2b at 5 layers is one unit and two tail layers."""
+    cfg = get_config(arch).reduced(num_layers=layers, d_model=128)
     p = tt.init_params(torch.Generator().manual_seed(0), cfg, torch.bfloat16)
     leaves = [p]
-    n = 0
+    n = largest = 0
     while leaves:
         x = leaves.pop()
         if isinstance(x, dict):
             leaves.extend(x.values())
         else:
             n += x.numel() * x.element_size()
+            largest = max(largest, x.numel())
     assert serve.weight_bytes(cfg) == n
+    assert serve._param_counts(cfg)[2] == largest
+
+
+@pytest.mark.parametrize("arch,elements,fp32", [("rwkv6-1.6b", 1_599_719_424, 442_368),
+                                                ("recurrentgemma-2b", 3_549_934_080, 138_240)])
+def test_param_counts_of_the_recurrent_archs_at_full_width(arch, elements, fp32):
+    """The elements ``init_params`` draws at the published widths (counted
+    once on the CPU), of them the fp32 leaves: 24 x 9 x 2,048 for RWKV6's
+    mixes, decay base, bonus and channel-mix shifts, 18 x 3 x 2,560 for
+    Griffin's ba, bx and lam."""
+    n, f, _ = serve._param_counts(get_config(arch))
+    assert (n + f, f) == (elements, fp32)
+    assert serve.weight_bytes(get_config(arch)) == 2 * n + 4 * f
 
 
 # --------------------------------------------------------------------------- #

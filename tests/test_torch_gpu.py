@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version
-(the flash backward through autograd), the kernels without a backward
-refusing a tensor that requires grad, a reduced training step against the
-CPU's, the MoE FFN against its dense oracle, the reduced engines (yi-6b,
+(the flash, wkv6 and rglru backwards through autograd), the kernels without
+a backward refusing a tensor that requires grad, reduced training steps
+against the CPU's (the attention families' and the two recurrent ones'),
+the MoE FFN against its dense oracle, the reduced engines (yi-6b,
 h2o-danube-1.8b, dbrx-132b, grok-1-314b, rwkv6-1.6b, recurrentgemma-2b,
 qwen2-vl-2b) and the reduced enc-dec model functions on the card against
 the same on the CPU.
@@ -30,7 +31,7 @@ from repro_torch.serving.realexec import RealExecutionEngine
 from repro_torch.train import tree
 from repro_torch.train.data import batch_iterator, batch_to
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import loss_fn, make_train_step
 
 DENSE_FLASH, DENSE_DECODE, DENSE_IDENTITY = shapes.dense_shapes()
 FAMILY_FLASH, FAMILY_DECODE, FAMILY_IDENTITY = shapes.family_shapes()
@@ -298,7 +299,8 @@ def test_reduced_moe_engine_on_card_matches_cpu(cuda, arch):
     assert launched == {"flash_attention": 2 * cfg.num_layers,
                         "decode_attention": 2 * num_new * cfg.num_layers,
                         "rglru_scan": 0, "rglru_step": 0, "wkv6": 0,
-                        "flash_attention_bwd": 0}
+                        "flash_attention_bwd": 0, "wkv6_bwd": 0,
+                        "rglru_scan_bwd": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
@@ -348,7 +350,8 @@ def test_reduced_griffin_engine_on_card_matches_cpu(cuda, num_layers):
     # decode-attention launch per unit
     assert launched == {"flash_attention": 0, "decode_attention": steps * units,
                         "rglru_scan": 0, "rglru_step": steps * (2 * units + tail),
-                        "wkv6": 0, "flash_attention_bwd": 0}
+                        "wkv6": 0, "flash_attention_bwd": 0, "wkv6_bwd": 0,
+                        "rglru_scan_bwd": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
@@ -371,7 +374,8 @@ def test_reduced_vlm_engine_on_card_matches_cpu(cuda):
     assert launched == {"flash_attention": 2 * cfg.num_layers,
                         "decode_attention": 2 * num_new * cfg.num_layers,
                         "rglru_scan": 0, "rglru_step": 0, "wkv6": 0,
-                        "flash_attention_bwd": 0}
+                        "flash_attention_bwd": 0, "wkv6_bwd": 0,
+                        "rglru_scan_bwd": 0}
     for c, g in ((c1, g1), (c2, g2)):
         assert (g.tokens, g.reused_tokens) == (c.tokens, c.reused_tokens)
         np.testing.assert_allclose(g.last_logits.cpu().numpy(),
@@ -404,7 +408,8 @@ def test_reduced_encdec_prefill_and_steps_on_card_match_cpu(cuda):
     assert launched == {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
                         "decode_attention": 3 * 2 * cfg.num_layers,
                         "rglru_scan": 0, "rglru_step": 0, "wkv6": 0,
-                        "flash_attention_bwd": 0}
+                        "flash_attention_bwd": 0, "wkv6_bwd": 0,
+                        "rglru_scan_bwd": 0}
     for c, g in [(c_logits, g_logits)] + list(zip(c_steps, g_steps)) + \
             [(c_cache[k], g_cache[k]) for k in c_cache]:
         np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), atol=3e-4, rtol=3e-4)
@@ -457,14 +462,12 @@ def test_flash_bwd_kernel_gives_the_same_bits_twice(cuda, dtype, case):
 def _guarded_calls(cuda):
     q, k, v, valid = cases.decode_inputs(cases.DECODE_SWEEP[0], torch.float32, cuda)
     return {"decode_attention": (ops.decode_attention, [q, k, v, valid], 0),
-            "wkv6": (ops.wkv6, cases.wkv6_inputs(cases.WKV6_SWEEP[0], cuda), 3),
-            "rglru_scan": (ops.rglru_scan, cases.rglru_inputs(cases.RGLRU_SWEEP[0], cuda), 1),
             "rglru_step": (ops.rglru_step, cases.rglru_step_inputs(cases.RGLRU_STEP[3], cuda),
                            5)}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["decode_attention", "wkv6", "rglru_scan", "rglru_step"])
+@pytest.mark.parametrize("name", ["decode_attention", "rglru_step"])
 def test_kernel_without_backward_refuses_grad_on_card(cuda, name):
     """An input that requires grad, with grad enabled, raises (naming the
     backward's state) and launches nothing; under no_grad it launches."""
@@ -478,6 +481,80 @@ def test_kernel_without_backward_refuses_grad_on_card(cuda, name):
         fn(*inputs)
     torch.cuda.synchronize()
     assert getattr(ops, name).launches == n + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", cases.WKV6_BWD + list(cases.WKV6_BWD_TRAIN.values()))
+def test_wkv6_bwd_kernel_matches_plain_and_repeats(cuda, case):
+    """dr, dk, dv, dw, du and ds0 through autograd of ops.wkv6 (the training
+    entry, then the backward kernel) against ref.wkv6_bwd_ref, fp32 ones
+    within WKV6_TOL and bf16 ones within TOL[bf16]; two backward calls on
+    the same inputs give the same bits (no atomics)."""
+    n = ops.wkv6_bwd.launches
+    cases.check_wkv6_bwd(case, cuda)
+    cases.check_wkv6_bwd_repeat(case, cuda)
+    torch.cuda.synchronize()
+    assert ops.wkv6_bwd.launches == n + (3 if case[0] * case[1] else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WKV6_CASES + list(cases.WKV6_BWD_TRAIN.values()))
+def test_wkv6_train_entry_matches_serving_entry_and_plain_checkpoints(cuda, case):
+    """The training entry's y and s_n are the serving entry's bit for bit;
+    its checkpoints are ref.wkv6_train_ref's within WKV6_TOL."""
+    cases.check_wkv6_train(case, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", cases.RGLRU_BWD + list(cases.RGLRU_BWD_TRAIN.values()))
+def test_rglru_bwd_kernel_matches_plain_and_repeats(cuda, case):
+    """da, db and dh0 through autograd of ops.rglru_scan against
+    ref.rglru_scan_bwd_ref within RGLRU_TOL; two calls the same bits."""
+    n = ops.rglru_scan_bwd.launches
+    cases.check_rglru_bwd(case, cuda)
+    cases.check_rglru_bwd_repeat(case, cuda)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan_bwd.launches == n + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers", [("rwkv6-1.6b", 2), ("recurrentgemma-2b", 4)])
+def test_reduced_recurrent_train_step_on_card_matches_cpu(cuda, arch, layers):
+    """loss_fn's loss and every gradient of a reduced fp32 rwkv6-1.6b (2
+    layers) and recurrentgemma-2b (4: one unit and a tail layer) on the card
+    against the CPU's from the same weights, within 3e-4 of each gradient's
+    largest entry (the port's fp32 model tolerance); per step two launches
+    of each recurrent and attention forward (the forward and remat's
+    recompute) and one backward per call."""
+    cfg = get_config(arch).reduced(num_layers=layers, d_model=64)
+    params = init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    batch = next(batch_iterator(cfg, 2, 72, seed=0))
+    out = {}
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        p = tree.map_leaves(p, lambda t: t.detach().clone().requires_grad_(True))
+        leaves = tree.leaves(p)
+        before = {n: getattr(ops, n).launches for n in ops.__all__}
+        loss, _ = loss_fn(p, cfg, batch_to(batch, device))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        launched = {n: getattr(ops, n).launches - before[n] for n in ops.__all__}
+        out[str(device)] = (loss.detach().cpu(), [None if g is None else g.cpu()
+                                                  for g in grads], launched)
+    (lc, gc, _), (lg, gg, launched) = out["cpu"], out[str(cuda)]
+    if cfg.family == "ssm":
+        want = {"wkv6": 2 * cfg.num_layers, "wkv6_bwd": cfg.num_layers}
+    else:
+        units, tail = griffin_layout(cfg)
+        want = {"rglru_scan": 2 * (2 * units + tail), "rglru_scan_bwd": 2 * units + tail,
+                "flash_attention": 2 * units, "flash_attention_bwd": units}
+    assert launched == dict({n: 0 for n in ops.__all__}, **want)
+    np.testing.assert_allclose(float(lg), float(lc), rtol=3e-4)
+    names = [k for k, _ in tree.items(params)]
+    for name, c, g in zip(names, gc, gg):
+        assert (c is None) == (g is None), name
+        if c is not None:
+            scale = max(float(c.abs().max()), 1e-30)
+            np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=3e-4, atol=3e-4 * scale,
+                                       err_msg=name)
 
 
 @pytest.mark.gpu
@@ -505,7 +582,8 @@ def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
     # the encoder is not rematerialised: its layers' flash runs once
     assert launched == {"flash_attention": 2 * calls - cfg.encoder_layers,
                         "flash_attention_bwd": calls, "decode_attention": 0,
-                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0}
+                        "rglru_scan": 0, "rglru_step": 0, "wkv6": 0, "wkv6_bwd": 0,
+                        "rglru_scan_bwd": 0}
     for k in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=3e-4)
 
