@@ -5,8 +5,9 @@
 1. Setup: card name and power limit, torch and nvcc versions; builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
    all started together) and times the build; ptxas's registers and
-   spills per entry function, and no flash instantiation and no
-   tensor-core backward kernel may spill. TF32 is off for matmuls and
+   spills per entry function, and no flash instantiation, no tensor-core
+   flash backward kernel and no kernel of the wkv6 backward's and the
+   RG-LRU's libraries may spill. TF32 is off for matmuls and
    cuDNN.
 2. Attention kernels: each against its plain PyTorch version, fp32 and
    bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
@@ -242,25 +243,33 @@
    the same bits. At the training shape: the backward entry's time alone,
    the plain version's, the device time per call with the inputs cold, and
    the bound (14·hd² fp32 operations per (b, h, t) at 67 TFLOP/s, or the
-   bytes at 3.35 TB/s); the training entry's time beside the serving
-   entry's. No PyTorch call computes this gradient: no library time.
+   bytes at 3.35 TB/s); the training entry's time and bound (the serving
+   entry's bytes and the checkpoints, or 6·hd² operations per (b, h, t))
+   beside the serving entry's time. No PyTorch call computes this
+   gradient: no library time. The device time is split by kernel
+   (``wkv6.bwd_plan`` launches a call: ``wkv6_bwd_kernel``, slices
+   of rows, then ``wkv6_bwd_dv_kernel``, the sum of dv's partials).
 21. rglru backward (after step 20): ``ops.rglru_scan_bwd`` through
    autograd of ``ops.rglru_scan`` against ``ref.rglru_scan_bwd_ref`` at
    every ``cases.RGLRU_BWD`` case and at ``RGLRU_BWD_TRAIN`` (1,8192,2560),
    within ``RGLRU_TOL``, two calls the same bits; at the training shape the
-   same times and bound (bytes 4·(5·BSD + 2·BD) at 3.35 TB/s).
+   same times and bound (bytes 4·(5·BSD + 2·BD) at 3.35 TB/s), the device
+   time split by kernel (``rglru.bwd_plan`` launches a call: the
+   carry pass ``rglru_bwd_carry_kernel`` past one chunk, then
+   ``rglru_bwd_kernel``), and the scan's time and bound at that shape.
 22. rwkv6-1.6b training at every published width and full depth (after
    step 19), as step 18: bf16 weights from ``init_train_state`` (seed 0),
    batch 1 x 4,096 tokens, three steps; finite loss and grad norm, the
    weights moved, exactly 48 wkv6 training-entry launches (the forward and
    remat's recompute) and 24 ``wkv6_bwd`` calls per step, peak memory
-   under 80 GB; step 1 profiled, with the ``wkv6 backward`` and ``wkv6
-   forward`` classes.
+   under 80 GB; step 1 profiled, with the ``wkv6 backward`` (both of its
+   kernels, two device launches a call) and ``wkv6 forward`` classes.
 23. recurrentgemma-2b training, the same at 1 x 8,192 tokens (its 2,048
    window binds): exactly 36 rglru scans, 18 ``rglru_scan_bwd``, 16 flash
    and 8 flash backward calls per step (at hd 256 the backward runs on the
    CUDA cores: ``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``); the
-   ``rglru backward`` and ``rglru scan`` classes in the profile.
+   ``rglru backward`` class (both of its kernels, two device launches a
+   call) and the ``rglru scan`` class in the profile.
 24. One layer's gradients through the kernels against the plain versions,
    fp32, as step 19: an rwkv6-1.6b time-mix at 4,096 tokens
    (``ops.wkv6`` swapped for ``ref.wkv6_ref``) and a Griffin recurrent
@@ -330,13 +339,14 @@ PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
                 "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkdv_mma_kernel", "wkv6_bwd_kernel",
-                "rglru_bwd_kernel")   # device names
+                "wkv6_bwd_dv_kernel", "rglru_bwd_kernel",
+                "rglru_bwd_carry_kernel")   # device names
 # the classes of a training step's device time, by kernel name (first match)
 STEP_CLASSES = (("flash backward", re.compile(r"flash_bwd_")),
                 ("flash forward", re.compile(r"flash_mma_kernel|flash_kernel")),
-                ("wkv6 backward", re.compile(r"wkv6_bwd_kernel")),
+                ("wkv6 backward", re.compile(r"wkv6_bwd_")),
                 ("wkv6 forward", re.compile(r"wkv6_kernel|wkv6_step_kernel")),
-                ("rglru backward", re.compile(r"rglru_bwd_kernel")),
+                ("rglru backward", re.compile(r"rglru_bwd_")),
                 ("rglru scan", re.compile(r"rglru_kernel")),
                 ("GEMMs", re.compile(r"gemm|xmma|nvjet|cutlass", re.I)))
 DECODE_BF16_OLD = "decode_partial_kernel<__nv_bfloat16"   # bf16 decode must not run it
@@ -399,19 +409,23 @@ def copies(tensors, limit: int = 16):
     return [tensors] + [[t.clone() for t in tensors] for _ in range(n - 1)]
 
 
-def cold_device_ms(fn, inputs, want=None, iters: int = 20) -> float:
+def cold_device_ms(fn, inputs, want=None, iters: int = 20, kernels: int = 1,
+                   split=None) -> float:
     """Device ms per call of ``fn`` on ``inputs`` with its inputs cold: a
     ``device_ms`` window of ``iters`` calls, each on a copy that no call of
     the window touched before, out of copies that exceed twice the L2 cache
     (up to 2,048 of them: the floor rows' copies stay in L2). The window is
     short enough for the host to queue every call behind the spin kernel.
-    With ``want``, the window must hold one launch per call, all of kernels
-    whose name holds it."""
+    With ``want``, the window must hold ``kernels`` launches per call, all
+    of kernels whose name holds it; ``split``, a dict, receives each
+    kernel's (launches, ms per call)."""
     sets = copies(inputs, limit=2048)
     dev, calls = device_ms(fn, sets, iters)
-    if want is not None and (sum(c for c, _ in calls.values()) != iters
+    if want is not None and (sum(c for c, _ in calls.values()) != kernels * iters
                              or not all(want in n for n in calls)):
-        raise AssertionError(f"device launches {calls}, want {iters} of {want}")
+        raise AssertionError(f"device launches {calls}, want {kernels * iters} of {want}")
+    if split is not None:
+        split.update(calls)
     return dev
 
 
@@ -1374,12 +1388,19 @@ def rglru_phase(ops, ref, cases, cfg):
     return rows, step_rows
 
 
+def kernel_split(split) -> str:
+    """'name ms, ...' of a call's device time by kernel, the names cut to the
+    kernel's own."""
+    named = {re.search(r"(\w+_kernel)", n).group(1): t for n, t in split.items()}
+    return ", ".join(f"{n} {t:.6f}" for n, t in sorted(named.items()))
+
+
 def wkv6_bwd_row(ops, ref, cases, case):
     """The wkv6 backward at a training shape: held and repeated, then timed
     by events (the backward entry alone, on the training entry's
     checkpoints; the plain version, once), its device time per call with
-    the inputs cold, and its bound; the training entry's time beside the
-    serving entry's."""
+    the inputs cold, and its bound; the training entry's time and bound
+    beside the serving entry's time."""
     err, (inputs, dy, dsn) = cases.check_wkv6_bwd(case, "cuda")
     cases.check_wkv6_bwd_repeat(case, "cuda")
     B, H, S, hd = case[:4]
@@ -1389,7 +1410,10 @@ def wkv6_bwd_row(ops, ref, cases, case):
     sets = copies(args, limit=4)
     ms = rotated_ms(fn, sets, 5)
     plain = rotated_ms(lambda *t: ref.wkv6_bwd_ref(*t, dsn), sets[:1], 1)
-    dev = cold_device_ms(fn, args, "wkv6_bwd_kernel", iters=5)
+    from repro_torch.kernels import wkv6
+    split = {}
+    dev = cold_device_ms(fn, args, "wkv6_bwd_", iters=5, kernels=wkv6.bwd_plan(B, H, S, hd)[0],
+                         split=split)
     fwd_sets = [s[:6] for s in sets]
     train_ms = rotated_ms(ops.wkv6_train, fwd_sets, 5)
     serve_ms = rotated_ms(ops.wkv6, fwd_sets, 5)
@@ -1400,8 +1424,15 @@ def wkv6_bwd_row(ops, ref, cases, case):
     n = B * H * S * hd
     nbytes = (2 * 3 * elt * n + 4 * 3 * n + 4 * (ckpt.numel() + 2 * H * hd + B * H * hd * hd)
               + (0 if dsn is None else 4 * dsn.numel()))
+    # the training entry: the serving entry's bytes (csrc/wkv6.cu) and the
+    # checkpoints written, 6·hd² operations per (b, h, t)
+    fwd_bytes = (3 * elt * n + 4 * (2 * n + 2 * B * H * hd * hd + H * hd)
+                 + 4 * ckpt.numel())
+    fwd_bound = bound(6 * B * H * S * hd * hd, fwd_bytes, torch.float32)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, device_ms=dev,
+                device_split={n: t for n, (_, t) in split.items()},
                 train_fwd_ms=train_ms, serving_fwd_ms=serve_ms,
+                train_fwd_bound_ms=fwd_bound[0], train_fwd_bound_by=fwd_bound[1],
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(14 * B * H * S * hd * hd, nbytes, torch.float32))))
 
@@ -1426,15 +1457,19 @@ def wkv6_bwd_phase(ops, ref, cases):
         log(f"wkv6_bwd {label} {case}: max |err| {r['max_abs_err']:.3e}, kernel "
             f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library none, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}); device per call {r['device_ms']:.6f} "
-            f"ms; training forward {r['train_fwd_ms']:.5f} ms, serving forward "
+            f"ms ({kernel_split(r['device_split'])}); training forward "
+            f"{r['train_fwd_ms']:.5f} ms, bound "
+            f"{r['train_fwd_bound_ms']:.6f} ms ({r['train_fwd_bound_by']}), serving forward "
             f"{r['serving_fwd_ms']:.5f} ms")
     return rows
 
 
 def rglru_bwd_row(ops, ref, cases, case):
     """The scan's backward at a training shape: held and repeated, timed
-    (events; the plain version; device time with the inputs cold) beside
-    its bound."""
+    (events; the plain version; device time with the inputs cold, by
+    kernel: ``rglru.bwd_plan`` launches a call) beside its bound; the
+    scan's time and bound at the same shape."""
+    from repro_torch.kernels import rglru
     err, ((a, b, h0), dy, dh) = cases.check_rglru_bwd(case, "cuda")
     cases.check_rglru_bwd_repeat(case, "cuda")
     B, S, D = case[:3]
@@ -1444,10 +1479,17 @@ def rglru_bwd_row(ops, ref, cases, case):
     sets = copies(args, limit=4)
     ms = rotated_ms(fn, sets, 10)
     plain = rotated_ms(lambda *t: ref.rglru_scan_bwd_ref(*t, dh), sets[:1], 1)
-    dev = cold_device_ms(fn, args, "rglru_bwd_kernel", iters=10)
-    # a, y, dy in and da, db out (B,S,D); h0 in, dh0 out (and dh_S in)
+    split = {}
+    dev = cold_device_ms(fn, args, "rglru_bwd_", iters=10, kernels=rglru.bwd_plan(B, S, D)[0],
+                         split=split)
+    scan_ms = rotated_ms(ops.rglru_scan, [[s[0], b, s[1]] for s in sets], 10)
+    # a, y, dy in and da, db out (B,S,D); h0 in, dh0 out (and dh_S in); the
+    # scan: a, b in and y out, h0 in and h_S out
     nbytes = 4 * (5 * B * S * D + (2 if dh is None else 3) * B * D)
+    scan_bound = bound(2 * B * S * D, 4 * (3 * B * S * D + 2 * B * D), torch.float32)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, device_ms=dev,
+                device_split={n: ms for n, (_, ms) in split.items()},
+                scan_ms=scan_ms, scan_bound_ms=scan_bound[0], scan_bound_by=scan_bound[1],
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(3 * B * S * D, nbytes, torch.float32))))
 
@@ -1465,7 +1507,9 @@ def rglru_bwd_phase(ops, ref, cases):
         log(f"rglru_scan_bwd {label} {case}: max |err| {r['max_abs_err']:.3e}, kernel "
             f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library none, bound "
             f"{r['bound_ms']:.7f} ms ({r['bound_by']}); device per call {r['device_ms']:.6f} "
-            "ms")
+            f"ms ({kernel_split(r['device_split'])}); the scan {r['scan_ms']:.5f} ms, bound "
+            f"{r['scan_bound_ms']:.6f} ms "
+            f"({r['scan_bound_by']})")
     return rows
 
 
@@ -1540,6 +1584,7 @@ def train_spec(cfg):
     weights to watch move}) of a training phase at full width and depth. A
     few small slices of matrices: a norm's scale of 1 keeps its bf16 value
     under updates below half its ulp."""
+    from repro_torch.kernels import rglru, wkv6
     from repro_torch.models.transformer import griffin_layout
     L = cfg.num_layers
     probes = {"embed": lambda p: p["embed"][:64], "unembed": lambda p: p["unembed"][:, :64]}
@@ -1547,8 +1592,9 @@ def train_spec(cfg):
         probes.update({"layers/tmix/wr": lambda p: p["layers"]["tmix"]["wr"][0, :64],
                        "layers/cmix/wv": lambda p: p["layers"]["cmix"]["wv"][-1, :64]})
         return (RWKV_TRAIN_TOKENS, dict(wkv6=2 * L, wkv6_bwd=L),
-                {"wkv6 forward": 2 * L, "wkv6 backward": L},
-                ("wkv6_kernel", "wkv6_bwd_kernel"), probes)
+                {"wkv6 forward": 2 * L, "wkv6 backward": L * wkv6.bwd_plan(
+                    1, cfg.num_rwkv_heads, RWKV_TRAIN_TOKENS, cfg.rwkv_head_dim)[0]},
+                ("wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_dv_kernel"), probes)
     if cfg.family == "hybrid":       # per unit: two scans and one attention, remat per unit
         units, tail = griffin_layout(cfg)
         rec = 2 * units + tail
@@ -1558,9 +1604,12 @@ def train_spec(cfg):
         return (GRIFFIN_TRAIN_TOKENS,
                 dict(rglru_scan=2 * rec, rglru_scan_bwd=rec, flash_attention=2 * units,
                      flash_attention_bwd=units),
-                {"rglru scan": 2 * rec, "rglru backward": rec, "flash forward": 2 * units,
-                 "flash backward": 2 * units},
-                ("rglru_bwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"), probes)
+                {"rglru scan": 2 * rec,
+                 "rglru backward": rec * rglru.bwd_plan(
+                     1, GRIFFIN_TRAIN_TOKENS, cfg.rnn_width)[0],
+                 "flash forward": 2 * units, "flash backward": 2 * units},
+                ("rglru_bwd_kernel", "rglru_bwd_carry_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkdv_kernel"), probes)
     probes.update({"layers/attn/wq": lambda p: p["layers"]["attn"]["wq"][0, :64],
                    "layers/mlp/w_down": lambda p: p["layers"]["mlp"]["w_down"][-1, :64]})
     return (TRAIN_TOKENS, dict(flash_attention=2 * L, flash_attention_bwd=L),
@@ -1856,11 +1905,12 @@ def main():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    spills = {f: n for lib in ("flash_attention", "flash_attention_bwd")
+    spills = {f: n for lib in ("flash_attention", "flash_attention_bwd", "wkv6_bwd",
+                               "rglru_scan")
               for f, n in entry_spills(build.build_logs.get(lib, "")).items()
-              if lib == "flash_attention" or "_mma_kernel" in f}
+              if lib != "flash_attention_bwd" or "_mma_kernel" in f}
     if any(n != (0, 0) for n in spills.values()):
-        raise AssertionError(f"flash kernels spill: {spills}")
+        raise AssertionError(f"kernels spill: {spills}")
 
     flash_main, decode_main = shapes.main_path_shapes(get_config("yi-6b"))
     decode_main["griffin turn 2"] = shapes.griffin_decode_shape(get_config(GRIFFIN))

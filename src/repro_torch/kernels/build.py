@@ -65,7 +65,8 @@ _SIGNATURES = {
     "rglru_scan": {
         "rglru_scan_launch": (_I, [_P] * 5 + [_I] * 3 + [_L] * 7 + [_P]),
         "rglru_step_launch": (_I, [_P] * 9 + [_I] * 3 + [_L] * 4 + [_P]),
-        "rglru_scan_bwd_launch": (_I, [_P] * 8 + [_I] * 3 + [_L] * 11 + [_P]),
+        "rglru_scan_bwd_launch": (_I, [_P] * 9 + [_I] * 3 + [_L] * 11 + [_P]),
+        "rglru_scan_bwd_plan": (_I, [_I] * 3 + [_P]),
     },
     "wkv6": {
         "wkv6_launch": (_I, [_P] * 8 + [_I] * 5 + [_L] * 19 + [_P]),
@@ -73,6 +74,7 @@ _SIGNATURES = {
     },
     "wkv6_bwd": {
         "wkv6_bwd_launch": (_I, [_P] * 15 + [_L] + [_I] * 6 + [_L] * 28 + [_P]),
+        "wkv6_bwd_plan": (_I, [_I] * 4 + [_P]),
     },
 }
 

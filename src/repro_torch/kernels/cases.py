@@ -103,7 +103,10 @@ is rwkv6-1.6b's layer at 4,096 tokens. ``RGLRU_BWD`` cases are the scan's
 with a fifth entry, ``dh_S`` "random" or "zero" (None); ``check_rglru_bwd``
 holds da, db and dh0 through autograd of ``ops.rglru_scan`` against
 ``ref.rglru_scan_bwd_ref`` at ``RGLRU_TOL`` (the kernel rounds every
-product and sum as the plain version does), ``check_rglru_bwd_repeat``
+product and sum of a step as the plain version does, but past one chunk of
+128 steps the carry into a chunk is composed from the later chunks' carries
+and products, so the result is not the plain version's bit for bit),
+``check_rglru_bwd_repeat``
 two calls to the same bits; ``RGLRU_BWD_TRAIN`` is recurrentgemma-2b's
 recurrent layer at 8,192 tokens.
 
@@ -320,12 +323,17 @@ RGLRU_NO_TOKEN = [(1, 0, 64, "bsd")]
 # the fixed cost of a scan call: one step of 32 channels
 RGLRU_FLOOR = [(1, 1, 32, "bsd")]
 # the scan's backward: every scan case above with a random dh_S, and a few
-# with none (dh_S zero, as the model's training passes it)
+# with none (dh_S zero, as the model's training passes it); then the edges
+# of the backward's 128-step chunks (csrc/rglru_scan.cu): one whole chunk, one
+# step into a second, and a partial last chunk
 RGLRU_BWD = [c + ("random",) for c in RGLRU_SWEEP + RGLRU_EDGE + RGLRU_NO_TOKEN
              + RGLRU_FLOOR] + [
     (2, 33, 128, "bsd", "zero"),
     (2, 19, 200, "wide", "zero"),
     (1, 0, 64, "bsd", "zero"),            # no token: dh0 = 0
+    (1, 128, 64, "bsd", "random"),
+    (2, 129, 96, "wide", "zero"),
+    (3, 300, 77, "bsd", "random"),
 ]
 # recurrentgemma-2b's recurrent layer at 8,192 tokens
 RGLRU_BWD_TRAIN = {"recurrentgemma-2b": (1, 8192, 2560, "bsd", "zero")}

@@ -31,26 +31,37 @@
 //   version sits far above the bound; a chunked two-pass scan (per-chunk
 //   products and carries, then a fix-up) is later work.
 //
-// rglru_scan_bwd_launch -> rglru_bwd_kernel, the scan's gradient, which the
-// reference takes by autodiff of its associative_scan
-// (repro/models/griffin.py::rglru_scan, repro/kernels/ref.py::rglru_scan_ref).
-// Per (batch, channel), from the scan's output y and the output gradients
-// dy and dh_S (zero if none):
+// rglru_scan_bwd_launch -> rglru_bwd_carry_kernel, rglru_bwd_kernel: the
+// scan's gradient, which the reference takes by autodiff of its
+// associative_scan (repro/models/griffin.py::rglru_scan,
+// repro/kernels/ref.py::rglru_scan_ref); no Pallas kernel. Per (batch,
+// channel), from the scan's output y and the output gradients dy and dh_S
+// (zero if none):
 //
 //   carry = dh_S;  for t = S-1 down to 0:  g = dy[t] + carry;
 //   db[t] = g;  da[t] = g * y[t-1] (h0 at t = 0);  carry = a[t] * g
 //   dh0 = carry
 //
 //   a, y, dy, da, db (B,S,D) by strides, the channel dimension contiguous;
-//   h0 by a batch stride; dh_S and dh0 (B,D) contiguous; fp32. The products
-//   and sums round separately, as the plain version's (ref.rglru_scan_bwd_ref)
-//   do. Design as the scan's, walking back: one thread per channel, blocks
-//   of kThreads channels over (d-block, batch), a_t, y_{t-1} and dy_t loaded
-//   kAhead steps ahead. Bound: bytes, 4·(5·B·S·D + 3·B·D) (a, y, dy in; da,
-//   db out; h0, dh_S, dh0) at 3.35 TB/s, 0.125 ms at recurrentgemma-2b's
-//   training shape (1,8192,2560); at batch 1 its 10 blocks for 132 SMs each
-//   walk an 8,192-step chain, far above it (a chunked two-pass form is later
-//   work).
+//   h0 by a batch stride; dh_S and dh0 (B,D) contiguous; fp32. Bound: bytes,
+//   4·(5·B·S·D + 3·B·D) (a, y, dy in; da, db out; h0, dh_S, dh0) at 3.35
+//   TB/s, 0.125 ms at recurrentgemma-2b's training shape (1,8192,2560).
+//
+//   Design. The reverse recurrence is cut along time into chunks of
+//   kBwdChunk = 128 steps, so at batch 1 the 20 channel blocks of 128 become
+//   20 x 64 blocks instead of a 10-block, 8,192-step chain. The carry out of
+//   a chunk is affine in the carry into it: L + M·c, with L its reverse scan
+//   from a zero carry (times a_{t0}) and M the product of its a's. Pass 1
+//   (rglru_bwd_carry_kernel, chunks 1..K-1) writes (L, M), 2·B·K·D fp32
+//   (1.3 MB at the training shape, in L2); pass 2 (rglru_bwd_kernel, every
+//   chunk) folds dh_S through the (L, M) of the chunks after its own, last
+//   first, then walks its steps with that carry, rounding each product and
+//   sum separately (__fmul_rn, __fadd_rn) as the plain version does; chunk
+//   0 writes dh0. The composed carries round differently from one long
+//   chain, so the result is not the plain version's bit for bit; it is the
+//   same bits from call to call (no atomics, a fixed order). At S <= 128 one
+//   chunk, pass 2 alone. Bytes moved: pass 1 reads a and dy, pass 2 a, y and
+//   dy and writes da and db, about 7·B·S·D·4, 1.4× the bound's.
 //
 // rglru_step_launch -> rglru_step_kernel<T, VEC>, one decode step with its
 // whole elementwise chain, from the two fp32 GEMV outputs gx_a = x·wa and
@@ -85,6 +96,11 @@ namespace {
 constexpr int kThreads = 256;   // channels per block (scan)
 constexpr int kAhead = 8;       // time steps loaded ahead of the chain
 constexpr int kStepThreads = 128;   // threads per block (step), 4 channels each
+constexpr int kBwdChunk = 128;      // steps per chunk (backward)
+constexpr int kBwdThreads = 128;    // channels per block (backward)
+
+// the backward's chunks at length S: ceil(S / kBwdChunk), one at S <= kBwdChunk
+inline int bwd_chunks(int S) { return S > kBwdChunk ? (S + kBwdChunk - 1) / kBwdChunk : 1; }
 
 struct Params {
   const float* __restrict__ a;
@@ -143,50 +159,102 @@ struct BwdParams {
   float* __restrict__ da;
   float* __restrict__ db;
   float* __restrict__ dh0;
-  int S, D;
+  float* __restrict__ lm;          // (L, M) of each chunk: [2][B][K][D]
+  int S, D, K;
   long long a_sb, a_ss, y_sb, y_ss, dy_sb, dy_ss, da_sb, da_ss, db_sb, db_ss, h_sb;
 };
 
-// a_t, y_{t-1} (h0 at t = 0) and dy_t for the kAhead steps t0, t0 - 1, ...
-// walking back; steps before 0 read as 0.
+// a_t, dy_t and (with Y) y_{t-1} (h0 at t = 0) for the kAhead steps t0,
+// t0 - 1, ... walking back; steps before lo read as 0.
+template <bool Y>
 __device__ __forceinline__ void load_back(const BwdParams& p, const float* a, const float* y,
-                                          const float* dy, float h0, int t0,
+                                          const float* dy, float h0, int t0, int lo,
                                           float (&at)[kAhead], float (&yt)[kAhead],
                                           float (&gt)[kAhead]) {
 #pragma unroll
   for (int c = 0; c < kAhead; ++c) {
     const int t = t0 - c;
-    at[c] = t >= 0 ? __ldg(a + t * p.a_ss) : 0.f;
-    yt[c] = t > 0 ? __ldg(y + (t - 1) * p.y_ss) : h0;
-    gt[c] = t >= 0 ? __ldg(dy + t * p.dy_ss) : 0.f;
+    at[c] = t >= lo ? __ldg(a + t * p.a_ss) : 0.f;
+    if constexpr (Y) yt[c] = t >= lo ? (t > 0 ? __ldg(y + (t - 1) * p.y_ss) : h0) : 0.f;
+    gt[c] = t >= lo ? __ldg(dy + t * p.dy_ss) : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) rglru_bwd_kernel(const BwdParams p) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const int bi = blockIdx.y;
+// Pass 1, chunks 1 .. K-1: the chunk's reverse scan from a zero carry gives
+// L = a_{t0} g'_{t0}, the carry it sends down, and M = Π a_t over the chunk;
+// the true carry out of the chunk is L + M · (the carry into it).
+__global__ void __launch_bounds__(kBwdThreads) rglru_bwd_carry_kernel(const BwdParams p) {
+  const int d = blockIdx.x * kBwdThreads + threadIdx.x;
+  const int kc = blockIdx.y + 1, bi = blockIdx.z;
   if (d >= p.D) return;
+  const int lo = kc * kBwdChunk, hi = min(p.S, lo + kBwdChunk);
+  const float* a = p.a + bi * p.a_sb + d;
+  const float* dy = p.dy + bi * p.dy_sb + d;
+  float carry = 0.f, m = 1.f;
+  float an[kAhead], gn[kAhead], unused[kAhead];
+  load_back<false>(p, a, nullptr, dy, 0.f, hi - 1, lo, an, unused, gn);
+  for (int t0 = hi - 1; t0 >= lo; t0 -= kAhead) {
+    float at[kAhead], gt[kAhead];
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) { at[c] = an[c]; gt[c] = gn[c]; }
+    if (t0 - kAhead >= lo)
+      load_back<false>(p, a, nullptr, dy, 0.f, t0 - kAhead, lo, an, unused, gn);
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) {
+      if (t0 - c >= lo) {
+        carry = __fmul_rn(at[c], __fadd_rn(gt[c], carry));
+        m = __fmul_rn(m, at[c]);
+      }
+    }
+  }
+  const long long o = ((long long)bi * p.K + kc) * p.D + d;
+  p.lm[o] = carry;
+  p.lm[(long long)gridDim.z * p.K * p.D + o] = m;
+}
+
+// Pass 2, every chunk: the carry into the chunk, folded from dh_S through
+// the (L, M) of the chunks after it, last first (the same order in every
+// block, so a chunk's carry is the one its successor sends), then the
+// chunk's steps with the scan's rounding.
+__global__ void __launch_bounds__(kBwdThreads) rglru_bwd_kernel(const BwdParams p) {
+  const int d = blockIdx.x * kBwdThreads + threadIdx.x;
+  const int kc = blockIdx.y, bi = blockIdx.z;
+  if (d >= p.D) return;
+  const int lo = kc * kBwdChunk, hi = min(p.S, lo + kBwdChunk);
   const float* a = p.a + bi * p.a_sb + d;
   const float* y = p.y + bi * p.y_sb + d;
   const float* dy = p.dy + bi * p.dy_sb + d;
   float* da = p.da + bi * p.da_sb + d;
   float* db = p.db + bi * p.db_sb + d;
   const float h0 = __ldg(p.h0 + bi * p.h_sb + d);
+  float an[kAhead], yn[kAhead], gn[kAhead];
+  if (lo < hi) load_back<true>(p, a, y, dy, h0, hi - 1, lo, an, yn, gn);
   // carry = a_{t+1} g_{t+1}, the gradient that reaches h_t from the later
   // steps; dh_S at t = S - 1
   float carry = p.dhn != nullptr ? __ldg(p.dhn + (long long)bi * p.D + d) : 0.f;
-
-  float an[kAhead], yn[kAhead], gn[kAhead];
-  load_back(p, a, y, dy, h0, p.S - 1, an, yn, gn);
-  for (int t0 = p.S - 1; t0 >= 0; t0 -= kAhead) {
+  for (int j0 = p.K - 1; j0 > kc; j0 -= kAhead) {
+    const float* L = p.lm + (long long)bi * p.K * p.D + d;
+    const float* M = L + (long long)gridDim.z * p.K * p.D;
+    float lj[kAhead], mj[kAhead];
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) {
+      const int j = j0 - c;
+      lj[c] = j > kc ? __ldg(L + (long long)j * p.D) : 0.f;
+      mj[c] = j > kc ? __ldg(M + (long long)j * p.D) : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c)
+      if (j0 - c > kc) carry = fmaf(mj[c], carry, lj[c]);
+  }
+  for (int t0 = hi - 1; t0 >= lo; t0 -= kAhead) {
     float at[kAhead], yt[kAhead], gt[kAhead];
 #pragma unroll
     for (int c = 0; c < kAhead; ++c) { at[c] = an[c]; yt[c] = yn[c]; gt[c] = gn[c]; }
-    if (t0 - kAhead >= 0) load_back(p, a, y, dy, h0, t0 - kAhead, an, yn, gn);
+    if (t0 - kAhead >= lo) load_back<true>(p, a, y, dy, h0, t0 - kAhead, lo, an, yn, gn);
 #pragma unroll
     for (int c = 0; c < kAhead; ++c) {
       const int t = t0 - c;
-      if (t >= 0) {
+      if (t >= lo) {
         const float g = __fadd_rn(gt[c], carry);       // g_t = dy_t + a_{t+1} g_{t+1}
         db[(long long)t * p.db_ss] = g;
         da[(long long)t * p.da_ss] = __fmul_rn(g, yt[c]);
@@ -194,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) rglru_bwd_kernel(const BwdParams p) 
       }
     }
   }
-  p.dh0[(long long)bi * p.D + d] = carry;             // a_0 g_0, or dh_S at S = 0
+  if (kc == 0) p.dh0[(long long)bi * p.D + d] = carry;   // a_0 g_0, or dh_S at S = 0
 }
 
 struct StepParams {
@@ -347,26 +415,49 @@ int rglru_scan_launch(const float* a, const float* b, const float* h0, float* y,
   return (int)cudaGetLastError();
 }
 
+// The backward's plan at (B, S, D): returns the device kernels one call of
+// rglru_scan_bwd_launch launches (rglru_bwd_carry_kernel past one chunk of
+// kBwdChunk steps, then rglru_bwd_kernel) and writes to *lm_floats the fp32
+// scratch it takes as lm, 2·B·K·D for K = ceil(S / kBwdChunk) chunks (0 at
+// one chunk); -1 for a shape the launch refuses (B outside 1..65535, S < 0,
+// D <= 0, K above 65535).
+int rglru_scan_bwd_plan(int B, int S, int D, long long* lm_floats) {
+  const int K = bwd_chunks(S);
+  if (B <= 0 || B > 65535 || S < 0 || D <= 0 || K > 65535) return -1;
+  *lm_floats = K > 1 ? 2LL * B * K * D : 0;
+  return K > 1 ? 2 : 1;
+}
+
 // The scan's backward. a, y (the scan's output), dy, da, db: strides of
 // (batch, step); h0: of batch; the channel dimension of each is contiguous.
-// dh_S (null: zero) and dh0 are contiguous (B,D). Returns a cudaError_t
-// (0 = launched; cudaErrorInvalidValue for B outside 1..65535, S < 0 or
-// D <= 0).
+// dh_S (null: zero) and dh0 are contiguous (B,D). lm holds the fp32 scratch
+// that rglru_scan_bwd_plan gives (null at one chunk). Returns a cudaError_t
+// (0 = launched; cudaErrorInvalidValue for a shape the plan refuses or no
+// lm past one chunk).
 int rglru_scan_bwd_launch(const float* a, const float* h0, const float* y, const float* dy,
-                          const float* dhn, float* da, float* db, float* dh0,
+                          const float* dhn, float* da, float* db, float* dh0, float* lm,
                           int B, int S, int D,
                           long long a_sb, long long a_ss, long long y_sb, long long y_ss,
                           long long dy_sb, long long dy_ss, long long da_sb, long long da_ss,
                           long long db_sb, long long db_ss, long long h_sb, void* stream) {
-  if (B <= 0 || B > 65535 || S < 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const int K = bwd_chunks(S);
+  if (B <= 0 || B > 65535 || S < 0 || D <= 0 || K > 65535 || (K > 1 && lm == nullptr))
+    return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.a = a; p.h0 = h0; p.y = y; p.dy = dy; p.dhn = dhn; p.da = da; p.db = db; p.dh0 = dh0;
-  p.S = S; p.D = D;
+  p.lm = lm; p.S = S; p.D = D; p.K = K;
   p.a_sb = a_sb; p.a_ss = a_ss; p.y_sb = y_sb; p.y_ss = y_ss; p.dy_sb = dy_sb;
   p.dy_ss = dy_ss; p.da_sb = da_sb; p.da_ss = da_ss; p.db_sb = db_sb; p.db_ss = db_ss;
   p.h_sb = h_sb;
-  const dim3 grid((unsigned)((D + kThreads - 1) / kThreads), (unsigned)B);
-  rglru_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned dblocks = (unsigned)((D + kBwdThreads - 1) / kBwdThreads);
+  if (K > 1) {
+    rglru_bwd_carry_kernel<<<dim3(dblocks, (unsigned)(K - 1), (unsigned)B), kBwdThreads, 0,
+                             st>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  rglru_bwd_kernel<<<dim3(dblocks, (unsigned)K, (unsigned)B), kBwdThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 

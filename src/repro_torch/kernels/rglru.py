@@ -36,25 +36,44 @@ launches the kernel or raises. ``rglru_scan.launches`` and
 The scan's gradient on the card. Where grad is enabled and an input
 requires it, ``rglru_scan`` runs through ``RglruScanFn``: the same launch,
 saving ``a``, ``h0`` and the output ``y``; its backward is
-``rglru_scan_bwd`` (``rglru_bwd_kernel``, a gradient the reference takes by
-autodiff of its ``associative_scan``): per channel a reverse scan from
-``g_{S-1} = dy_{S-1} + dh_S`` with ``g_t = dy_t + a_{t+1} g_{t+1}``, giving
-``db_t = g_t``, ``da_t = g_t y_{t-1}`` and ``dh0 = a_0 g_0``, in the scan's
-layout (one thread per channel, ``a``, ``y`` and ``dy`` loaded ahead),
-bound by bytes, ``4·(5·B·S·D + 3·B·D)`` at 3.35 TB/s (0.125 ms at the
-training shape (1,8192,2560)); at batch 1 its 10 blocks sit far above it.
-``rglru_scan_bwd.launches`` counts its calls. The decode step has no
-backward: decoding does not train, and a CUDA input of ``rglru_step`` that
-requires grad, with grad enabled, raises (``build.refuse_grad``) rather
-than return an output that cuts the graph.
+``rglru_scan_bwd`` (a gradient the reference takes by autodiff of its
+``associative_scan``): per channel a reverse scan from ``g_{S-1} = dy_{S-1}
++ dh_S`` with ``g_t = dy_t + a_{t+1} g_{t+1}``, giving ``db_t = g_t``,
+``da_t = g_t y_{t-1}`` and ``dh0 = a_0 g_0``, in the scan's layout, bound by
+bytes, ``4·(5·B·S·D + 3·B·D)`` at 3.35 TB/s (0.125 ms at the training shape
+(1,8192,2560)). The sequence is cut into chunks of 128 steps:
+``rglru_bwd_carry_kernel`` writes each chunk's carry from a zero carry and
+the product of its a's (a scratch of 2·B·K·D fp32), and ``rglru_bwd_kernel``
+folds dh_S through the later chunks' pairs into each chunk's carry and
+walks the chunk's steps with it (``bwd_plan`` gives the launches a call and
+the scratch, from the C side, which owns the chunk length). The composed carries round differently from one long
+chain: the result holds ``RGLRU_TOL`` against the plain version, not its
+bits, and two calls give the same bits. ``rglru_scan_bwd.launches`` counts
+its calls. The decode step has no backward: decoding does not train, and a
+CUDA input of ``rglru_step`` that requires grad, with grad enabled, raises
+(``build.refuse_grad``) rather than return an output that cuts the graph.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-MAX_BATCH = 65535          # the grid's y dimension
+MAX_BATCH = 65535          # the grid's y dimension (z for the backward)
+
+
+def bwd_plan(B: int, S: int, D: int):
+    """(device kernels, fp32 scratch) of one backward call at (B, S, D), as
+    ``csrc/rglru_scan.cu`` plans them (``rglru_scan_bwd_plan``; its chunk
+    length is the source's): the carry pass and the steps' pass, or the
+    steps' pass alone for one chunk. Builds the library: on the card only."""
+    n = ctypes.c_longlong()
+    kernels = build.load("rglru_scan").rglru_scan_bwd_plan(B, S, D, ctypes.addressof(n))
+    if kernels < 0:
+        raise ValueError(f"the rglru backward kernel takes no (B, S, D) = {(B, S, D)}")
+    return kernels, n.value
 
 
 def _check(a, b, h0):
@@ -121,12 +140,17 @@ def _launch_bwd(a, h0, y, dy, dh_S):
     dh0 = torch.empty((B, D), dtype=torch.float32, device=a.device)
     if B * D == 0:
         return da, db, dh0
+    # each chunk's (L, M): the carry it sends down from a zero carry, and the
+    # product of its a's (none at one chunk)
+    _, floats = bwd_plan(B, S, D)
+    lm = torch.empty(floats, dtype=torch.float32, device=a.device) if floats else None
     lib = build.load("rglru_scan")
     err = build.on_device(a.device, lambda stream: lib.rglru_scan_bwd_launch(
         a.data_ptr(), h0.data_ptr(), y.data_ptr(), dy.data_ptr(),
         None if dh_S is None else dh_S.data_ptr(), da.data_ptr(), db.data_ptr(),
-        dh0.data_ptr(), B, S, D, *a.stride()[:2], *y.stride()[:2], *dy.stride()[:2],
-        *da.stride()[:2], *db.stride()[:2], h0.stride(0), stream))
+        dh0.data_ptr(), None if lm is None else lm.data_ptr(), B, S, D,
+        *a.stride()[:2], *y.stride()[:2], *dy.stride()[:2], *da.stride()[:2],
+        *db.stride()[:2], h0.stride(0), stream))
     if err != 0:
         raise RuntimeError(f"rglru backward kernel launch failed: CUDA error {err}")
     rglru_scan_bwd.launches += 1

@@ -47,19 +47,27 @@ writes the state before every ``ref.WKV6_EVERY``-th step (16:
 remat only one layer's are live in the backward); its y and s_n are the
 serving entry's bit for bit. Its backward is ``wkv6_bwd``, the C entry of
 ``csrc/wkv6_bwd.cu``, a gradient the reference takes by autodiff of its
-scans (``repro/models/rwkv6.py::wkv_scan``): one block per (b, h) walks the
-chunks from the last, recomputes each chunk's 16 states from its
-checkpoint into an L2-resident scratch and sweeps back through them with
-the state's gradient G in registers, fp32 on the CUDA cores (TF32 would
-miss the 1e-4 tolerance); dr, dk, dv come back in r's dtype, rounded once,
-in the inputs' layouts. It is bound by the CUDA cores' fp32 rate and the
-bytes alike (0.11 ms at the training shape); with 32 blocks for 132 SMs
-and a dependent chain of S steps it sits far above that (see ``PERF.md``).
-``wkv6_bwd.launches`` counts its calls. Everywhere else, the serving
-engine's ``inference_mode`` included, the call is the serving launch,
-which saves nothing.
+scans (``repro/models/rwkv6.py::wkv_scan``): each (b, h) is cut into
+slices of 16 rows (8 at the 128-wide kernel), one block each (128 blocks at
+rwkv6-1.6b's shape), which never wait for each
+other; a block walks the chunks from the last, recomputes its rows of each
+chunk's 16 states from the checkpoint into registers and sweeps back
+through them with its rows of the state's gradient G in registers, fp32 on
+the CUDA cores (TF32 would miss the 1e-4 tolerance), while helper warps
+load the next chunk, take the per-step scalars and write the last chunk
+out. dr, dk, dw are whole in a block; dv leaves each as a partial sum in a
+scratch (B·H·P·S·hd fp32), and a second launch adds the partials in order
+(``bwd_plan`` gives the launches a call and the scratch, from the C side,
+which owns the layout). dr, dk, dv come back in r's
+dtype, rounded once, in the inputs' layouts. It is bound by the CUDA
+cores' fp32 rate and the bytes alike (0.11 ms at the training shape); its
+time is in ``PERF.md``. ``wkv6_bwd.launches`` counts its calls.
+Everywhere else, the serving engine's ``inference_mode`` included, the call
+is the serving launch, which saves nothing.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -129,6 +137,19 @@ def _launch(r, k, v, w, u, s0, train=False):
     return (y, sn, ckpt) if train else (y, sn)
 
 
+def bwd_plan(B: int, H: int, S: int, hd: int):
+    """(device kernels, fp32 scratch) of one backward call at (B, H, S, hd),
+    as ``csrc/wkv6_bwd.cu`` plans them (``wkv6_bwd_plan``; its blocks a
+    head are the source's): the sweep and, at S > 0, the sum of dv's
+    partials, which the scratch holds. Builds the library: on the card
+    only."""
+    n = ctypes.c_longlong()
+    kernels = build.load("wkv6_bwd").wkv6_bwd_plan(B, H, S, hd, ctypes.addressof(n))
+    if kernels < 0:
+        raise ValueError(f"the wkv6 backward kernel takes no (B, H, S, hd) = {(B, H, S, hd)}")
+    return kernels, n.value
+
+
 def _launch_bwd(r, k, v, w, u, ckpt, dy, ds_n):
     B, H, S, hd = r.shape
     every = ref.WKV6_EVERY
@@ -151,19 +172,16 @@ def _launch_bwd(r, k, v, w, u, ckpt, dy, ds_n):
     ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if B * H == 0:
         return dr, dk, dv, dw, du.sum(0), ds0
-    # the recomputed states, 16 steps of W x W per (b, h) for the kernel's
-    # width W (the C entry refuses a smaller scratch)
-    width = 32 if hd <= 32 else 64 if hd <= 64 else MAX_HEAD_DIM
-    scratch = torch.empty(B * H * every * width * width, dtype=torch.float32,
-                          device=r.device)
+    # dv's partial sums, one per block of rows
+    dvp = torch.empty(bwd_plan(B, H, S, hd)[1], dtype=torch.float32, device=r.device)
     lib = build.load("wkv6_bwd")
     err = build.on_device(r.device, lambda stream: lib.wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         ckpt.data_ptr(), dy.data_ptr(), None if ds_n is None else ds_n.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        ds0.data_ptr(), scratch.data_ptr(), scratch.numel(), every, B, H, S, hd,
-        int(r.dtype == torch.bfloat16), *_strides(r, k, v, w, dy, dr, dk, dv, dw),
-        u.stride(0), stream))
+        ds0.data_ptr(), dvp.data_ptr(), dvp.numel(), every, B, H, S, hd,
+        int(r.dtype == torch.bfloat16),
+        *_strides(r, k, v, w, dy, dr, dk, dv, dw), u.stride(0), stream))
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error {err}")
     wkv6_bwd.launches += 1

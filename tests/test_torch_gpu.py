@@ -498,6 +498,28 @@ def test_wkv6_bwd_kernel_matches_plain_and_repeats(cuda, case):
 
 
 @pytest.mark.gpu
+def test_recurrent_bwd_plans(cuda):
+    """The C side's plans of the two backwards: wkv6 at rwkv6-1.6b's training
+    shape runs 4 blocks a head and two launches (the sweep, then the sum of
+    dv's partials, which the scratch holds), one launch and no scratch at
+    S = 0; the RG-LRU backward one launch and no scratch up to one chunk of
+    128 steps, past it two and a (carry, product) pair per chunk and
+    channel; both refuse a shape their launch refuses."""
+    from repro_torch.kernels import rglru, wkv6
+    assert wkv6.bwd_plan(1, 32, 4096, 64) == (2, 32 * 4 * 4096 * 64)
+    assert wkv6.bwd_plan(2, 3, 50, 80) == (2, 6 * 16 * 50 * 80)
+    assert wkv6.bwd_plan(1, 2, 0, 32) == (1, 0)
+    assert rglru.bwd_plan(1, 8192, 2560) == (2, 2 * 64 * 2560)
+    assert rglru.bwd_plan(2, 128, 64) == (1, 0)
+    assert rglru.bwd_plan(2, 129, 96) == (2, 2 * 2 * 2 * 96)
+    for bad in ((1, 2, 16, 129), (0, 2, 16, 64)):
+        with pytest.raises(ValueError):
+            wkv6.bwd_plan(*bad)
+    with pytest.raises(ValueError):
+        rglru.bwd_plan(1, 16, 0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", WKV6_CASES + list(cases.WKV6_BWD_TRAIN.values()))
 def test_wkv6_train_entry_matches_serving_entry_and_plain_checkpoints(cuda, case):
     """The training entry's y and s_n are the serving entry's bit for bit;
