@@ -64,6 +64,11 @@
    which must show 32 launches of ``flash_mma_kernel`` (one per layer) and
    none of the CUDA-core ``flash_kernel``, and 256 of ``decode_mma_kernel``
    (8 tokens x 32 layers) and none of ``decode_partial_kernel<bf16>``.
+   Every profiled replay (here and in steps 6, 9 and 10) opens its
+   session with small kernels and a spin and is read between that spin and
+   one after it; a window short of the launches it must show lost device
+   events and is discarded, up to ``REPLAY_TRIES`` replays (each from a
+   freshly stored prefix or state), and the last is judged.
 4. wkv6 kernel: against ``wkv6_ref`` at every ``WKV6_*`` case (the step
    kernel's ``WKV6_STEP``, ``WKV6_FLOOR``, bf16 and fp32 r/k/v) and at the
    rwkv6-1.6b path's two shapes, (1,32,1,64) per engine step and
@@ -208,9 +213,15 @@
    empty-band row) at the dtype's peak, or q, k, v, out and dout read and
    dq, dk, dv written once at 3.35 TB/s; and the training entry's time
    beside its own bound (two products; q, k, v read, the output and lse
-   written). On the tensor-core route the
-   dK/dV block that ``bwd_keys`` did not choose for the mask is held against
-   the plain version and timed too, beside the chosen one.
+   written) and SDPA's forward (``enable_gqa``, the mask explicit, no
+   grad; a yardstick only: ``train_fwd_library_ms``). bf16 runs on the
+   tensor cores at every hd: ``flash_bwd_dq_mma_kernel`` and
+   ``flash_bwd_dkdv_mma_kernel`` up to hd 128, ``flash_bwd_dq_wide_kernel``
+   and ``flash_bwd_dkdv_wide_kernel`` above (recurrentgemma-2b's hd 256,
+   the 100M twin's 192); fp32 on the CUDA cores. Where ``bwd_blocks`` has
+   a dK/dV block that ``bwd_keys`` did not choose for the mask (hd <= 128),
+   it is held against the plain version and timed too, beside the chosen
+   one.
 17. The 100M twin (``repro_torch.launch.train_100m``, after step 15): yi-6b
    reduced to 12 layers of d_model 768, batch 4 x 256, fp32, 300 steps; the
    mean of the last 10 losses must be below that of the first 10, with
@@ -266,10 +277,12 @@
    kernels, two device launches a call) and ``wkv6 forward`` classes.
 23. recurrentgemma-2b training, the same at 1 x 8,192 tokens (its 2,048
    window binds): exactly 36 rglru scans, 18 ``rglru_scan_bwd``, 16 flash
-   and 8 flash backward calls per step (at hd 256 the backward runs on the
-   CUDA cores: ``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``); the
-   ``rglru backward`` class (both of its kernels, two device launches a
-   call) and the ``rglru scan`` class in the profile.
+   and 8 flash backward calls per step (at hd 256 the backward runs the
+   wide tensor-core kernels ``flash_bwd_dq_wide_kernel`` and
+   ``flash_bwd_dkdv_wide_kernel``); the ``rglru backward`` class (both of
+   its kernels, two device launches a call) and the ``rglru scan`` class in
+   the profile. No bf16 step may show a CUDA-core backward kernel
+   (``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``).
 24. One layer's gradients through the kernels against the plain versions,
    fp32, as step 19: an rwkv6-1.6b time-mix at 4,096 tokens
    (``ops.wkv6`` swapped for ``ref.wkv6_ref``) and a Griffin recurrent
@@ -338,9 +351,17 @@ PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
                 "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
                 "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_mma_kernel",
-                "flash_bwd_dkdv_mma_kernel", "wkv6_bwd_kernel",
+                "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_wide_kernel",
+                "flash_bwd_dkdv_wide_kernel", "wkv6_bwd_kernel",
                 "wkv6_bwd_dv_kernel", "rglru_bwd_kernel",
                 "rglru_bwd_carry_kernel")   # device names
+REPLAY_TRIES = 3                          # profiled replays, the first whole window read
+# the flash backward's device kernels by route; a bf16 call never runs the
+# CUDA cores' (the C entry refuses it)
+BWD_KERNELS = {"bf16, hd <= 128": ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel"),
+               "bf16, hd 129-256": ("flash_bwd_dq_wide_kernel", "flash_bwd_dkdv_wide_kernel"),
+               "fp32": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")}
+BF16_NEVER = BWD_KERNELS["fp32"]
 # the classes of a training step's device time, by kernel name (first match)
 STEP_CLASSES = (("flash backward", re.compile(r"flash_bwd_")),
                 ("flash forward", re.compile(r"flash_mma_kernel|flash_kernel")),
@@ -636,8 +657,10 @@ def flash_bwd_row(ops, ref, cases, case, dtype):
     calls the same bits (``check_flash_bwd_repeat``), then timed by events
     on the training entry's output and lse: the backward entry alone, the
     plain version, SDPA's backward; on the tensor-core route also the entry
-    with the dK/dV block that ``bwd_keys`` did not choose, held and timed."""
-    from repro_torch.kernels.flash_attention import bwd_keys, bwd_route
+    with the dK/dV block of ``bwd_blocks`` that ``bwd_keys`` did not
+    choose, where there is one, held and timed; the training entry and
+    SDPA's forward."""
+    from repro_torch.kernels.flash_attention import bwd_blocks, bwd_keys, bwd_route
     err, (q, k, v, _, dout) = cases.check_flash_bwd(case, dtype, "cuda")
     cases.check_flash_bwd_repeat(case, dtype, "cuda")
     B, H, KV, Sq, Sk, hd, off, win, causal = case
@@ -653,8 +676,9 @@ def flash_bwd_row(ops, ref, cases, case, dtype):
                      [[dout]], 5)
     del o, leaves
     other = {}
-    if bwd_route(dtype, hd) == "tensor cores":   # the dK/dV block bwd_keys did not choose
-        keys = 192 - bwd_keys(causal, win)
+    others = [n for n in bwd_blocks(hd) if n != bwd_keys(causal, win, hd)]
+    if bwd_route(dtype, hd) == "tensor cores" and others:   # the block bwd_keys did not choose
+        keys = others[0]
         other = dict(other_keys=keys, other_err=cases.check_flash_bwd_keys(case, keys, "cuda"),
                      other_ms=rotated_ms(lambda *t: ops.flash_attention_bwd(
                          *t, lse=lse, keys=keys, **kw), sets, 5))
@@ -664,11 +688,16 @@ def flash_bwd_row(ops, ref, cases, case, dtype):
     # the training entry (the forward that saves lse) at the same shape: two
     # products, q, k, v read and the output and lse written once
     fwd_ms = rotated_ms(lambda q, k, v, *_: ops.flash_attention_train(q, k, v, **kw), sets, 5)
+    mask = flash_mask(case)
+    with torch.no_grad():
+        fwd_lib = rotated_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), sets, 5)
     fwd_bound = bound(B * H * (4 * hd * pairs + 2 * hd * Sk * empty),
                       q.element_size() * (2 * q.numel() + k.numel() + v.numel())
                       + 4 * B * H * Sq, dtype)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **other,
-                train_fwd_ms=fwd_ms, train_fwd_bound_ms=fwd_bound[0],
+                train_fwd_ms=fwd_ms, train_fwd_library_ms=fwd_lib,
+                train_fwd_bound_ms=fwd_bound[0],
                 train_fwd_bound_by=fwd_bound[1],
                 **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
 
@@ -696,7 +725,8 @@ def flash_bwd_phase(ops, ref, cases):
             log(f"flash_attention_bwd {str(dtype)[6:]} {label} {case}: max |err| "
                 f"{r['max_abs_err']:.3e}, kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
                 f"ms, sdpa backward {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-                f"({r['bound_by']}); training forward {r['train_fwd_ms']:.5f} ms, bound "
+                f"({r['bound_by']}); training forward {r['train_fwd_ms']:.5f} ms, sdpa "
+                f"forward {r['train_fwd_library_ms']:.5f} ms, bound "
                 f"{r['train_fwd_bound_ms']:.6f} ms ({r['train_fwd_bound_by']})"
                 + (f"; {r['other_keys']}-key dK/dV blocks (not chosen): "
                                         f"{r['other_ms']:.5f} ms, max |err| "
@@ -918,9 +948,10 @@ def profile_turn2(serve, arch, params, ctx2):
     r = eng.generate("replay", ctx2, num_new=num_new)
     log(f"{arch} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(prefill {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
-    eng.generate("prof", ctx2[:ctx_len], num_new=num_new)
-    r, calls = profiled(f"{arch} turn 2",
-                        lambda: eng.generate("prof", ctx2, num_new=num_new))
+    r, calls = whole_replay(
+        f"{arch} turn 2", lambda i: eng.generate(f"prof{i}", ctx2[:ctx_len], num_new=num_new),
+        lambda i: eng.generate(f"prof{i}", ctx2, num_new=num_new),
+        {"flash_mma_kernel": cfg.num_layers, "decode_mma_kernel": num_new * cfg.num_layers})
     if r.reused_tokens != ctx_len:
         raise AssertionError(f"{arch}: profiled replay of turn 2 missed the cache")
     # the suffix prefill: one tensor-core flash launch per layer, no CUDA-core one
@@ -1100,22 +1131,49 @@ def check_decode_calls(label, calls, want):
                              f"older decode launches, want {want} and 0")
 
 
+def whole_replay(label, prepare, replay, want):
+    """``profiled(label, lambda: replay(i))`` after an unprofiled
+    ``prepare(i)``, for i = 0, 1, ... until a window holds at least
+    ``want``'s launches ({device name fragment: launches}, counted over the
+    names that hold the fragment). A window short of them lost device events
+    (``launch/device_time.py``: a session can lose its start) and is logged
+    and discarded, as ``device_ms`` discards a window that is not whole;
+    the last of ``REPLAY_TRIES`` windows is returned whatever it holds, and
+    the caller's checks judge it. Returns (replay's result, calls)."""
+    for i in range(REPLAY_TRIES):
+        prepare(i)
+        r, calls = profiled(label, lambda: replay(i))
+        got = {k: sum(c for n, c in calls.items() if k in n) for k in want}
+        if all(got[k] >= n for k, n in want.items()):
+            break
+        log(f"profile of {label}: window discarded ({got}, want {want})")
+    return r, calls
+
+
 def profiled(label, fn):
     """Run ``fn()`` under the profiler; log the window, the device's busy
     time and idle share, and device time by kernel. Returns fn's result and
-    the device calls by kernel name."""
-    from torch.autograd import DeviceType
+    the device calls by kernel name. A session can lose its first device
+    operations (``launch/device_time.py``), so it opens with a few small
+    kernels and a short spin, and fn's device work is read between that spin
+    and one after fn, as ``device_ms`` reads its windows."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.device_time import LEAD_CALLS, SPIN_CYCLES, _device_events
 
+    lead = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_CALLS):
+            lead.add_(1)
+        torch.cuda._sleep(SPIN_CYCLES // 100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = fn()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, calls = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            calls[e.name] = calls.get(e.name, 0) + 1
+        torch.cuda._sleep(SPIN_CYCLES // 100)
+        torch.cuda.synchronize()
+    _, us = _device_events(prof)
+    by_name = {n: sum(t) for n, t in us.items()}
+    calls = {n: len(t) for n, t in us.items()}
     busy = sum(by_name.values())
     if not busy:
         log(f"profile of {label}: the profiler saw no device time (not measured)")
@@ -1608,8 +1666,8 @@ def train_spec(cfg):
                  "rglru backward": rec * rglru.bwd_plan(
                      1, GRIFFIN_TRAIN_TOKENS, cfg.rnn_width)[0],
                  "flash forward": 2 * units, "flash backward": 2 * units},
-                ("rglru_bwd_kernel", "rglru_bwd_carry_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkdv_kernel"), probes)
+                ("rglru_bwd_kernel", "rglru_bwd_carry_kernel", "flash_bwd_dq_wide_kernel",
+                 "flash_bwd_dkdv_wide_kernel"), probes)
     probes.update({"layers/attn/wq": lambda p: p["layers"]["attn"]["wq"][0, :64],
                    "layers/mlp/w_down": lambda p: p["layers"]["mlp"]["w_down"][-1, :64]})
     return (TRAIN_TOKENS, dict(flash_attention=2 * L, flash_attention_bwd=L),
@@ -1680,6 +1738,9 @@ def train_phase(ops, cfg):
     missing = [n for n in must_run if not any(n in name for name in split["names"])]
     if missing:
         raise AssertionError(f"{cfg.name} training: the profiled step ran no {missing}")
+    cuda_cores = [name for name in split["names"] if any(n in name for n in BF16_NEVER)]
+    if cuda_cores:
+        raise AssertionError(f"{cfg.name} training: a bf16 step ran {cuda_cores}")
     return total
 
 
@@ -1843,18 +1904,23 @@ def snapshot_engine_phase(serve, ops, cases, arch):
 
     # replays of turn 2 from turn 1's stored state, unprofiled then profiled
     _, rep = serve.build_engine(arch, device="cuda", params=eng.params)
-    for key in ("replay", "prof"):
-        rep.store.insert(key, len(ctx), time.time(), payload=snap1)
+    rep.store.insert("replay", len(ctx), time.time(), payload=snap1)
     t0 = time.perf_counter()
     r = rep.generate("replay", ctx2, num_new=num_new)
     log(f"{arch} unprofiled replay of turn 2: {(time.perf_counter() - t0) * 1e3:.3f} ms "
         f"(feed {r.prefill_time_s * 1e3:.3f}, decode {r.decode_time_s * 1e3:.3f})")
-    r, calls = profiled(f"{arch} turn 2", lambda: rep.generate("prof", ctx2, num_new=num_new))
-    if r.reused_tokens != len(ctx) or r.tokens != r2.tokens:
-        raise AssertionError("replay of turn 2 differs from turn 2")
     # every fed and decoded token of turn 2: one decode launch per unit, one
     # step kernel per recurrent layer
     steps2 = len(ctx2) - len(ctx) + num_new
+    r, calls = whole_replay(
+        f"{arch} turn 2",
+        lambda i: rep.store.insert(f"prof{i}", len(ctx), time.time(), payload=snap1),
+        lambda i: rep.generate(f"prof{i}", ctx2, num_new=num_new),
+        {"decode_mma_kernel": steps2 * per_token(cfg)["decode_attention"],
+         "wkv6_step_kernel" if cfg.family == "ssm" else "rglru_step_kernel":
+             steps2 * (per_token(cfg)["wkv6"] + per_token(cfg)["rglru_step"])})
+    if r.reused_tokens != len(ctx) or r.tokens != r2.tokens:
+        raise AssertionError("replay of turn 2 differs from turn 2")
     check_decode_calls(arch, calls, steps2 * per_token(cfg)["decode_attention"])
     check_recurrence_calls(arch, cfg, calls, steps2)
     return launches
@@ -1908,7 +1974,7 @@ def main():
     spills = {f: n for lib in ("flash_attention", "flash_attention_bwd", "wkv6_bwd",
                                "rglru_scan")
               for f, n in entry_spills(build.build_logs.get(lib, "")).items()
-              if lib != "flash_attention_bwd" or "_mma_kernel" in f}
+              if lib != "flash_attention_bwd" or "_mma_kernel" in f or "_wide_kernel" in f}
     if any(n != (0, 0) for n in spills.values()):
         raise AssertionError(f"kernels spill: {spills}")
 
@@ -2044,6 +2110,14 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{key: r[key] for key in ("device_ms", "plain_device_ms", "library_device_ms",
                                        "library_premasked_device_ms") if key in r}})
+    # the flash backward's device kernels, and its bf16 rows at every training
+    # shape (the forward's training entry and SDPA's forward beside them)
+    kernels[list(SOURCES).index("flash_attention_bwd")].update(
+        device_kernels=BWD_KERNELS,
+        training_shapes={label: {key: r[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "train_fwd_ms",
+            "train_fwd_library_ms", "train_fwd_bound_ms")}
+            for (dtype, label), r in bwd_rows.items() if dtype == torch.bfloat16})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

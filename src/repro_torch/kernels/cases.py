@@ -46,7 +46,7 @@ tokens (its window binds), yi-6b's at 4,096, the 100M twin's
 (``repro_torch.launch.train_100m``: yi-6b reduced to 12 layers of d_model
 768, 4 heads of 192, batch 4 of 256 tokens), an enc-dec cross-attention
 (not causal, Sq != Sk) and recurrentgemma-2b's local attention at 8,192
-tokens (hd 256: the CUDA-core route in bf16 too). The output gradient is
+tokens (hd 256: in bf16 the wide tensor-core kernels). The output gradient is
 normal, drawn from ``seed + 1``. dq, dk and dv are each held to ``TOL`` in the form above (2e-5
 fp32, 2e-2 bf16, the sweep of tests/test_kernels.py) against
 ``ref.flash_attention_bwd_ref``, autograd of the plain forward. Both sides
@@ -183,11 +183,12 @@ FLASH_IDENTITY = [
 # window 2048; the model phase's prefill of 2,560 tokens, where the window
 # masks keys
 FLASH_GRIFFIN = [(1, 10, 1, 2560, 2560, 256, 0, 2048, True)]
-# either side of the backward's tensor-core tiles: 128 packed query rows a
-# dQ block (G heads x 128/G positions) over 64-key K/V tiles; a dK/dV block
-# of 64 keys (causal without a window) or 128 keys (64 a warpgroup: a window,
-# or no causal mask) over 64-row Q/dO tiles; hd 64, 80 and 128, and hd 136,
-# the first that bf16 takes on the CUDA cores
+# either side of the backward's tensor-core tiles. Up to hd 128: 128 packed
+# query rows a dQ block (G heads x 128/G positions) over 64-key K/V tiles; a
+# dK/dV block of 64 keys (causal without a window) or 128 keys (64 a
+# warpgroup: a window, or no causal mask) over 64-row Q/dO tiles; hd 64, 80
+# and 128. Past it the wide kernels at 256 columns: 64 packed rows a dQ
+# block (G = 10: 6 positions), 64-key dK/dV blocks; hd 136, 192 and 256
 FLASH_BWD_TILES = [
     (1, 4, 4, 127, 129, 64, 2, None, True),       # G = 1: rows one below a dQ block, keys one above a dK/dV block
     (1, 4, 4, 129, 127, 128, 0, None, True),      # G = 1: the other way round
@@ -198,10 +199,16 @@ FLASH_BWD_TILES = [
     (1, 8, 2, 63, 129, 80, 66, None, False),      # not causal: rows one below a Q/dO tile
     (1, 4, 1, 40, 100, 64, 100, 20, True),        # rows 19-39 see no key: a dQ block of both kinds, one of empty rows
     (1, 4, 2, 65, 129, 128, 0, None, True),       # hd 128, the tensor cores' widest ...
-    (1, 4, 2, 65, 129, 136, 0, None, True),       # ... and hd 136, the CUDA cores in bf16
+    (1, 4, 2, 65, 129, 136, 0, None, True),       # ... and hd 136, the wide kernels' narrowest: a column block zeroed
     (1, 8, 2, 127, 127, 80, 0, 64, True),         # window: keys one below a 128-key dK/dV block
     (1, 4, 4, 129, 129, 128, 0, 96, True),        # window: keys one above it, rows one above a dQ block
     (1, 16, 4, 50, 65, 64, 15, None, False),      # not causal: one key in the second warpgroup's 64
+    (1, 10, 1, 5, 65, 256, 60, None, True),       # G = 10: rows one below a wide dQ block (6 positions), keys one above a dK/dV block
+    (1, 10, 1, 7, 63, 256, 56, None, True),       # rows one above it, keys one below
+    (1, 10, 1, 70, 200, 256, 130, 37, True),      # the window edge inside a tile
+    (1, 2, 1, 65, 129, 256, 64, None, False),     # not causal: rows one above a Q/dO tile, keys one above two blocks
+    (1, 10, 1, 40, 100, 192, 60, 50, True),       # hd 192: the fourth column block zero; window 50
+    (1, 10, 1, 13, 64, 136, 50, 20, True),        # hd 136 at G = 10: 13 positions, two dQ blocks and one of a third
 ]
 # the backward at the forward's cases, its own tiles' edges, and at the
 # training shapes
@@ -212,7 +219,7 @@ FLASH_BWD_TRAIN = {
     "yi-6b": (1, 32, 4, 4096, 4096, 128, 0, None, True),
     "100M twin": (4, 4, 4, 256, 256, 192, 0, None, True),
     "enc-dec cross": (1, 16, 16, 512, 1024, 64, 0, None, False),
-    # its 8 local-attention layers at 8,192 tokens, hd 256: the CUDA cores
+    # its 8 local-attention layers at 8,192 tokens, hd 256: the wide kernels
     "recurrentgemma-2b": (1, 10, 1, 8192, 8192, 256, 0, 2048, True),
 }
 DECODE_SWEEP = [                          # the sweep of tests/test_kernels.py:42-46

@@ -32,10 +32,11 @@
 // Bound on the H100: five products of 2 hd flops per visible (query, key)
 // pair (Q K^T, dO V^T, P^T dO, dS^T Q, dS K); at the training shapes
 // (h2o-danube-1.8b: 32 heads of 80 on 8 kv heads, 8,192 tokens, window
-// 4,096; yi-6b: 32 heads of 128 on 4, 4,096 tokens) that is about 3,000
-// and 2,300 flops per byte that must move (q, k, v, o, dO in; dq, dk, dv
-// out), far above the card's 295, so operations bound it: 989 TFLOP/s for
-// bf16 on the tensor cores, 67 TFLOP/s of fp32 FMA.
+// 4,096; yi-6b: 32 heads of 128 on 4, 4,096 tokens; recurrentgemma-2b: 10
+// heads of 256 on 1, 8,192 tokens, window 2,048) that is about 3,000,
+// 2,300 and 2,000 flops per byte that must move (q, k, v, o, dO in; dq, dk,
+// dv out), far above the card's 295, so operations bound it: 989 TFLOP/s
+// for bf16 on the tensor cores, 67 TFLOP/s of fp32 FMA.
 // Two kernels without atomics recompute S and dP in both, seven products;
 // the single kernel that adds dQ by atomics does five but gives other bits
 // from run to run.
@@ -43,10 +44,11 @@
 // Routes, chosen from (dtype, hd) alone by the caller (flash_attention.
 // bwd_route), which passes the route to the entry:
 //
-//  * bf16, hd <= 128 (every training shape: danube hd 80, yi-6b and
-//    qwen2-vl-2b 128, the enc-dec 64): the tensor cores, wgmma with fp32
-//    accumulation, two warpgroups a block, the forward's 128-byte swizzle
-//    and descriptors (hopper.cuh).
+//  * bf16, any hd: the tensor cores, wgmma with fp32 accumulation, two
+//    warpgroups a block, the forward's 128-byte swizzle and descriptors
+//    (hopper.cuh). P and dS are rounded to bf16 before the products that
+//    take them, as FlashAttention-2 and -3 round them.
+//  . hd <= 128 (danube hd 80, yi-6b and qwen2-vl-2b 128, the enc-dec 64):
 //    - flash_bwd_dq_mma_kernel: 128 packed query rows (the G heads times
 //      128/G positions, as the forward packs them), Q and dO resident (by
 //      cp.async), 64-key K/V tiles by TMA through a ring of 3 mbarrier
@@ -61,12 +63,12 @@
 //      the G query heads whose band reaches those keys, by TMA through a
 //      ring of mbarrier slots, issued by one thread ahead of the round that
 //      needs them. Per tile S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T
-//      in registers, each rounded to bf16 (as FlashAttention-2 and -3 round
-//      them) as the A operand of dV += P^T dO and dK += dS^T Q, Q and dO
-//      through the MN-major descriptor. lse and D of the next round's rows
-//      go to shared memory during the current one. Blocks of the first keys
-//      run first. The block's keys follow the mask (the caller's rule,
-//      flash_attention.bwd_keys, passes them to the entry):
+//      in registers, each rounded to bf16 as the A operand of dV += P^T dO
+//      and dK += dS^T Q, Q and dO through the MN-major descriptor. lse and D
+//      of the next round's rows go to shared memory during the current one.
+//      Blocks of the first keys run first. The block's keys follow the mask
+//      (the caller's rule, flash_attention.bwd_keys, passes them to the
+//      entry):
 //      . a window, or no causal mask: 128 keys, 64 a warpgroup, both on
 //        every tile, so each tile is loaded once for 128 keys. Every block
 //        sees about the same rows (at most window + 64 of each head).
@@ -84,16 +86,45 @@
 //    across the first column block and into the second (N = 80 at danube's
 //    hd 80: 40 accumulator registers a thread instead of 64, and 5/8 of the
 //    padded products' work).
+//  . 128 < hd <= 256 (recurrentgemma-2b's hd 256, the 100M twin's 192):
+//    the wide kernels, tiles at HDP = 256 (32 KB a 64-row tile). The
+//    narrow design does not fit there: fp32 dK and dV of 64 keys x 256
+//    columns in one warpgroup are 2 x 128 registers a thread beside S and
+//    dP (at most 255), and a 128-row dQ block leaves shared memory for one
+//    K/V slot. So each warpgroup owns half of hd's columns of every
+//    accumulator (m64n128, 64 registers), and the two products over hd of a
+//    tile are split by matrix: warpgroup 0 takes the scores, warpgroup 1
+//    dP. Each hands the other, in fp32 through shared memory (16 KB), the
+//    half of its accumulator that the other finishes; each finishes P and
+//    dS for 32 of the tile's 64 columns and stores them as bf16 in the
+//    128-byte swizzle; after a barrier both take the staged tiles as the
+//    shared-memory A operand of their m64n128 products (B through the
+//    MN-major descriptor at their first column block). Two barriers a tile.
+//    - flash_bwd_dq_wide_kernel: 64 packed query rows (the G heads times
+//      64/G positions: at recurrentgemma-2b's G = 10, 6 positions and 60
+//      rows, 4 of 64 idle), Q and dO resident by cp.async (64 KB), 64-key
+//      K/V tiles by TMA through a ring of 2 slots (128 KB), issued by one
+//      thread a tile ahead; dS staged (8 KB); dQ[:, half] += dS K[:, half].
+//      Writes D to dsum. Last rows first.
+//    - flash_bwd_dkdv_wide_kernel: 64 keys of one kv head (recurrentgemma-
+//      2b's 8,192 keys: 128 blocks, one wave on 132 SMs), K and V resident
+//      by TMA (64 KB), the 64-row Q/dO tiles of the G heads whose band
+//      reaches the keys through a ring of 2 slots (128 KB), both warpgroups
+//      on every tile; P^T and dS^T staged (2 x 8 KB); dV[:, half] += P^T
+//      dO[:, half] and dK[:, half] += dS^T Q[:, half]. 225 KB of shared
+//      memory. Empty-band rows, GQA's sum over the G heads inside the block
+//      and the first keys first as flash_bwd_dkdv_mma_kernel.
+//    One instantiation serves hd 129-256: the TMA unit and cp.async zero-
+//    fill columns past hd inside a block they load, the column blocks they
+//    do not load are zeroed once, and every product runs over 256 columns.
 //  * fp32, any hd: the CUDA cores. TF32 products would miss the 2e-5 kernel
 //    tolerance and the fp32 layer-gradient gate, for the reason the
-//    forward's fp32 route keeps fp32 FMA.
-//  * bf16, hd > 128: the CUDA-core kernels with bf16 loads. The fp32 dK and
-//    dV accumulators of 64 keys x hd would not fit a warpgroup's registers
-//    beside S and dP; no training path sends such a shape.
-//  On the CUDA cores each warp owns 8 rows (dq) or 8 keys (dk/dv) of a 64-row
-//  block; a lane owns X keys (dq) or X query rows (dk/dv) of a tile and NJ
-//  32-wide column groups of hd; shared memory is read as warp broadcasts and
-//  conflict-free columns (odd row strides). Both take lse from the forward.
+//    forward's fp32 route keeps fp32 FMA. Each warp owns 8 rows (dq) or 8
+//    keys (dk/dv) of a 64-row block; a lane owns X keys (dq) or X query rows
+//    (dk/dv) of a tile and NJ 32-wide column groups of hd; shared memory is
+//    read as warp broadcasts and conflict-free columns (odd row strides).
+//  Every route takes lse from the forward. The entry refuses the CUDA cores
+//  for bf16, so no bf16 call can take them.
 #include <limits.h>
 #include <math.h>
 
@@ -136,9 +167,7 @@ struct BwdParams {
 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -183,7 +212,7 @@ __device__ __forceinline__ void empty_rows(const BwdParams& p, int& ie0, int& ie
 }
 
 // --------------------------------------------------------------------------
-// CUDA-core route (fp32; bf16 at hd > 128)
+// CUDA-core route (fp32)
 // dQ and D: one block per 64 packed query rows of one kv head's group
 // --------------------------------------------------------------------------
 
@@ -594,7 +623,7 @@ cudaError_t dispatch_f32(const BwdParams& p, int B, cudaStream_t stream) {
 }
 
 // --------------------------------------------------------------------------
-// bf16 route at hd <= 128: wgmma on the tensor cores
+// bf16 route: wgmma on the tensor cores (hd <= 128, then the wide kernels)
 // --------------------------------------------------------------------------
 
 namespace tc {
@@ -637,6 +666,120 @@ __device__ __forceinline__ void tma_rows(const CUtensorMap* map, const int* dim,
                                             c[0], c[1], c[2]);
 }
 
+// The dq kernels' rows: Q and dO rows of the block (the G heads x bq
+// positions packed in ROWS rows) by cp.async into sQ and sO, ROWS x HDP in
+// the 128-byte swizzle, zero past Sq, G and hd (committed, not waited for);
+// then, kThreads / ROWS threads a row, each row's lse (+inf where it sees no
+// key: P = 0) into Ls and D = rowsum(dO * O) into Ds and dsum, and the
+// keys of the live rows' bands into krange, which thread 0 has set.
+template <int ROWS, int HDP>
+__device__ __forceinline__ void stage_rows(const BwdParams& p, int q0, int kvh, int b,
+                                           uint32_t sQ, uint32_t sO, float* Ls, float* Ds,
+                                           int* krange) {
+  constexpr int kPer = kThreads / ROWS;
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb;
+  const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb;
+  for (int idx = tid; idx < ROWS * (HDP / 8); idx += kThreads) {
+    const int r = idx / (HDP / 8), c = idx - r * (HDP / 8);
+    const int g = r / p.bq, i = r - g * p.bq;
+    const bool ok = g < p.G && q0 + i < p.Sq && c * 8 < p.hd;
+    const int bytes = ok ? min(16, 2 * (p.hd - c * 8)) : 0;
+    const long long h = kvh * p.G + g, row = q0 + i;
+    cp_async16(sQ + swz(r, c, ROWS), ok ? q + h * p.q_sh + row * p.q_ss + c * 8 : q, bytes);
+    cp_async16(sO + swz(r, c, ROWS), ok ? dO + h * p.d_sh + row * p.d_ss + c * 8 : dO, bytes);
+  }
+  cp_async_commit();
+  __syncthreads();                     // krange set (and the caller's barriers initialised)
+
+  const int r = tid / kPer, part = tid % kPer;
+  const int g = r / p.bq, i = r - g * p.bq;
+  const bool valid = g < p.G && q0 + i < p.Sq;
+  const long long h = kvh * p.G + g, row = q0 + i;
+  float acc = 0.f;
+  if (valid) {
+    const __nv_bfloat16* orow = static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb +
+                                h * p.o_sh + row * p.o_ss;
+    const __nv_bfloat16* grow = dO + h * p.d_sh + row * p.d_ss;
+    for (int d = part; d < p.hd; d += kPer)
+      acc = fmaf(__bfloat162float(grow[d]), __bfloat162float(orow[d]), acc);
+  }
+#pragma unroll
+  for (int o = 1; o < kPer; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (part == 0) {
+    int lo, hi;
+    band(p, p.q_offset + q0 + i, lo, hi);
+    const bool live = valid && lo <= hi;
+    const long long srow = ((long long)b * p.H + h) * p.Sq + row;
+    Ls[r] = live ? p.lse[srow] : INFINITY;
+    Ds[r] = acc;
+    if (valid) p.dsum[srow] = acc;
+    if (live) {
+      atomicMin(&krange[0], lo);
+      atomicMax(&krange[1], hi);
+    }
+  }
+}
+
+// Row h (0: the thread's first, 1: the one 8 below) of a warpgroup's
+// accumulator, its columns from col0, times `mul` into `row` (hd entries)
+// in bf16.
+template <int N>
+__device__ __forceinline__ void store_row(__nv_bfloat16* row, const float (&acc)[N], int h,
+                                          float mul, int hd, int lane, int col0) {
+  const bool pairs = hd % 2 == 0;
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    const int d = col0 + n * 8 + (lane & 3) * 2;
+    const float x0 = acc[4 * n + 2 * h] * mul, x1 = acc[4 * n + 2 * h + 1] * mul;
+    if (pairs && d + 1 < hd) {
+      *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(x0, x1);
+    } else {
+      if (d < hd) row[d] = __float2bfloat16(x0);
+      if (d + 1 < hd) row[d + 1] = __float2bfloat16(x1);
+    }
+  }
+}
+
+// A dq kernel's accumulator rows (packed rows r0 and r0 + 8 of the block at
+// q0), its columns from col0, times scale into dq (B, H, Sq, hd).
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N], const BwdParams& p, int b,
+                                           int kvh, int q0, int r0, int lane, int col0 = 0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const int g = r / p.bq, qi = r - g * p.bq;
+    if (g < p.G && q0 + qi < p.Sq)
+      store_row(static_cast<__nv_bfloat16*>(p.dq) +
+                    (((long long)b * p.H + kvh * p.G + g) * p.Sq + q0 + qi) * p.hd,
+                acc, h, p.scale, p.hd, lane, col0);
+  }
+}
+
+// The dk/dv kernels' empty-band rows: this thread's share of the sum of dO's
+// column tid % HDP over the G heads' rows [0, ie0) and [ie1, Sq), the rows
+// split among the kThreads / HDP groups of threads; 0 past hd.
+template <int HDP>
+__device__ __forceinline__ float empty_col_sum(const BwdParams& p, int b, int kvh, int ie0,
+                                               int ie1) {
+  constexpr int kParts = kThreads / HDP;
+  const int d = threadIdx.x % HDP, grp = threadIdx.x / HDP;
+  float e = 0.f;
+  if (d < p.hd) {
+    for (int g = 0; g < p.G; ++g) {
+      const __nv_bfloat16* gh = static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb +
+                                (long long)(kvh * p.G + g) * p.d_sh;
+      for (int part = 0; part < 2; ++part) {    // rows [0, ie0), then [ie1, Sq)
+        const int rend = part ? p.Sq : ie0;
+        for (int r = (part ? ie1 : 0) + grp; r < rend; r += kParts)
+          e += __bfloat162float(gh[(long long)r * p.d_ss + d]);
+      }
+    }
+  }
+  return e;
+}
+
 // dQ and D: 128 packed query rows of one kv head's group, the G heads x bq
 // positions. HDK = hd rounded up to 16 (64, 80 or 128): the k-steps of the
 // products over hd and the N of dQ's.
@@ -668,51 +811,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     krange[1] = -1;
   }
 
-  // Q and dO rows of the block by cp.async, zero past Sq, G and hd
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb;
-  const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb;
-  for (int idx = tid; idx < kRows * (HDP / 8); idx += kThreads) {
-    const int r = idx / (HDP / 8), c = idx - r * (HDP / 8);
-    const int g = r / p.bq, i = r - g * p.bq;
-    const bool ok = g < p.G && q0 + i < p.Sq && c * 8 < p.hd;
-    const int bytes = ok ? min(16, 2 * (p.hd - c * 8)) : 0;
-    const long long h = kvh * p.G + g, row = q0 + i;
-    cp_async16(sQ + swz(r, c, kRows), ok ? q + h * p.q_sh + row * p.q_ss + c * 8 : q, bytes);
-    cp_async16(sO + swz(r, c, kRows), ok ? dO + h * p.d_sh + row * p.d_ss + c * 8 : dO, bytes);
-  }
-  cp_async_commit();
-  __syncthreads();                     // barriers initialised, krange set
-
-  // each row's lse (+inf where it sees no key: P = 0) and D = rowsum(dO * O),
-  // two threads a row
-  {
-    const int r = tid >> 1, half = tid & 1;
-    const int g = r / p.bq, i = r - g * p.bq;
-    const bool valid = g < p.G && q0 + i < p.Sq;
-    const long long h = kvh * p.G + g, row = q0 + i;
-    float acc = 0.f;
-    if (valid) {
-      const __nv_bfloat16* orow = static_cast<const __nv_bfloat16*>(p.o) + b * p.o_sb +
-                                  h * p.o_sh + row * p.o_ss;
-      const __nv_bfloat16* grow = dO + h * p.d_sh + row * p.d_ss;
-      for (int d = half; d < p.hd; d += 2)
-        acc = fmaf(__bfloat162float(grow[d]), __bfloat162float(orow[d]), acc);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      int lo, hi;
-      band(p, p.q_offset + q0 + i, lo, hi);
-      const bool live = valid && lo <= hi;
-      const long long srow = ((long long)b * p.H + h) * p.Sq + row;
-      Ls[r] = live ? p.lse[srow] : INFINITY;
-      Ds[r] = acc;
-      if (valid) p.dsum[srow] = acc;
-      if (live) {
-        atomicMin(&krange[0], lo);
-        atomicMax(&krange[1], hi);
-      }
-    }
-  }
+  stage_rows<kRows, HDP>(p, q0, kvh, b, sQ, sO, Ls, Ds, krange);
   cp_async_wait<0>();
   fence_proxy_async();                 // cp.async writes before wgmma reads
   __syncthreads();
@@ -821,28 +920,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(dq);
   }
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.dq);
-  const bool pairs = p.hd % 2 == 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * h;
-    const int g = r / p.bq, qi = r - g * p.bq;
-    if (g < p.G && q0 + qi < p.Sq) {
-      __nv_bfloat16* orow =
-          out + (((long long)b * p.H + kvh * p.G + g) * p.Sq + q0 + qi) * p.hd;
-#pragma unroll
-      for (int n = 0; n < HDK / 8; ++n) {
-        const int d = n * 8 + (lane & 3) * 2;
-        const float x0 = dq[4 * n + 2 * h] * p.scale, x1 = dq[4 * n + 2 * h + 1] * p.scale;
-        if (pairs && d + 1 < p.hd) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(x0, x1);
-        } else {
-          if (d < p.hd) orow[d] = __float2bfloat16(x0);
-          if (d + 1 < p.hd) orow[d + 1] = __float2bfloat16(x1);
-        }
-      }
-    }
-  }
+  store_rows(dq, p, b, kvh, q0, wg * 64 + (warp & 3) * 16 + (lane >> 2), lane);
 }
 
 // lse (+inf for a row past Sq or whose band is empty: P = 0) and D of query
@@ -860,29 +938,18 @@ __device__ __forceinline__ void row_stats(const BwdParams& p, int b, int h, int 
   }
 }
 
-// A warpgroup's accumulator rows (keys key0 and key1 of this thread) times
-// `mul` into out (B, KV, Sk, hd) in bf16.
+// A warpgroup's accumulator rows (keys key0 and key1 of this thread), the
+// columns from col0, times `mul` into out (B, KV, Sk, hd) in bf16.
 template <int N>
 __device__ __forceinline__ void store_keys(__nv_bfloat16* out, const float (&acc)[N], float mul,
                                            const BwdParams& p, int b, int kvh, int key0,
-                                           int key1, int lane) {
-  const bool pairs = p.hd % 2 == 0;
+                                           int key1, int lane, int col0 = 0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = h ? key1 : key0;
-    if (key >= p.Sk) continue;
-    const long long row = (((long long)b * p.KV + kvh) * p.Sk + key) * p.hd;
-#pragma unroll
-    for (int n = 0; n < N / 4; ++n) {
-      const int d = n * 8 + (lane & 3) * 2;
-      const float x0 = acc[4 * n + 2 * h] * mul, x1 = acc[4 * n + 2 * h + 1] * mul;
-      if (pairs && d + 1 < p.hd) {
-        *reinterpret_cast<__nv_bfloat162*>(out + row + d) = __floats2bfloat162_rn(x0, x1);
-      } else {
-        if (d < p.hd) out[row + d] = __float2bfloat16(x0);
-        if (d + 1 < p.hd) out[row + d + 1] = __float2bfloat16(x1);
-      }
-    }
+    if (key < p.Sk)
+      store_row(out + (((long long)b * p.KV + kvh) * p.Sk + key) * p.hd, acc, h, mul, p.hd,
+                lane, col0);
   }
 }
 
@@ -1073,18 +1140,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool empty = ie0 > 0 || ie1 < p.Sq;
   constexpr int kParts = kThreads / HDP;
   const int d = tid % HDP, grp = tid / HDP;
-  float e = 0.f;
-  if (empty && d < p.hd) {
-    for (int g = 0; g < p.G; ++g) {
-      const __nv_bfloat16* gh = static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb +
-                                (long long)(kvh * p.G + g) * p.d_sh;
-      for (int part = 0; part < 2; ++part) {    // rows [0, ie0), then [ie1, Sq)
-        const int rend = part ? p.Sq : ie0;
-        for (int r = (part ? ie1 : 0) + grp; r < rend; r += kParts)
-          e += __bfloat162float(gh[(long long)r * p.d_ss + d]);
-      }
-    }
-  }
+  const float e = empty ? empty_col_sum<HDP>(p, b, kvh, ie0, ie1) : 0.f;
   // KW = 1: warpgroup 0 takes warpgroup 1's dK, warpgroup 1 takes warpgroup
   // 0's dV, through the ring's memory. The empty rows' term goes to the
   // warpgroups that write dV.
@@ -1126,6 +1182,395 @@ __global__ void __launch_bounds__(kThreads, 1)
     store_keys(static_cast<__nv_bfloat16*>(p.dv), dv, 1.f, p, b, kvh, key[0], key[1], lane);
 }
 
+// --------------------------------------------------------------------------
+// bf16 at 128 < hd <= 256: the wide kernels (see the note at the top)
+// --------------------------------------------------------------------------
+namespace wide {
+
+constexpr int kRows = 64;              // dq kernel: packed query rows per block
+constexpr int kT = 64 * 256 * 2;       // a 64-row tile at HDP 256: 4 column blocks
+constexpr int kBlk = 64 * 128;         // one 64-column block of a 64-row tile
+constexpr int kSlots = 2;              // ring slots: a K and a V tile, or a Q and a dO tile
+constexpr int kStage = 64 * 64 * 2;    // a staged 64 x 64 bf16 tile: dS, P^T or dS^T
+constexpr int kX = 32 * 128 * 4;       // the fp32 exchange: 32 values of each of 128 threads
+// dq: Q, dO, the ring, dS, the exchange; dk/dv: K, V, the ring, P^T, dS^T,
+// the exchange (the 1024 bytes align the swizzle's atoms)
+constexpr int kDqSmem = 2 * kT + kSlots * 2 * kT + kStage + kX + 1024;
+constexpr int kDkdvSmem = 2 * kT + kSlots * 2 * kT + 2 * kStage + kX + 1024;
+
+// Zeroes column blocks ncb..3 of n consecutive 64-row tiles at `tiles`: no
+// load writes them, and the products over hd read them.
+__device__ __forceinline__ void zero_past_hd(unsigned char* tiles, int n, int ncb) {
+  const int per = (4 - ncb) * kBlk / 16;      // 16-byte chunks a tile
+  for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
+    const int tile = i / per, c = i - tile * per;
+    *reinterpret_cast<uint4*>(tiles + tile * kT + ncb * kBlk + c * 16) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// (x0, x1) in bf16 at row r, columns c and c + 1 (c even) of a staged 64 x
+// 64 tile in the 128-byte swizzle
+__device__ __forceinline__ void put_pair(unsigned char* tile, int r, int c, float x0, float x1) {
+  *reinterpret_cast<uint32_t*>(tile + swz(r, c >> 3, 64) + (c & 7) * 2) = pack_bf16(x0, x1);
+}
+
+// dQ and D: 64 packed query rows of one kv head's group, the G heads x bq
+// positions.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wide_kernel(const BwdParams p, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* base = smem_raw + pad;
+  const uint32_t sQ = raw + pad;
+  const uint32_t sO = sQ + kT;                        // dO
+  const uint32_t sKV = sO + kT;                       // slot s: K, then V
+  const uint32_t sDS = sKV + kSlots * 2 * kT;
+  unsigned char* dS = base + (sDS - sQ);
+  float* X = reinterpret_cast<float*>(dS + kStage);
+  __shared__ __align__(8) uint64_t full[kSlots];
+  __shared__ float Ls[kRows], Ds[kRows];
+  __shared__ int krange[2];
+  const uint32_t sFull = static_cast<uint32_t>(__cvta_generic_to_shared(full));
+
+  // the last rows first: under a causal mask they see the most keys
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int t = tid & 127;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.bq, kvh = blockIdx.y, b = blockIdx.z;
+  const int ncb = (p.hd + 63) / 64;
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) mbar_init(sFull + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    krange[0] = INT_MAX;
+    krange[1] = -1;
+  }
+  zero_past_hd(base + 2 * kT, 2 * kSlots, ncb);
+
+  stage_rows<kRows, 256>(p, q0, kvh, b, sQ, sO, Ls, Ds, krange);
+  cp_async_wait<0>();
+  fence_proxy_async();                 // cp.async and the zeroed blocks before wgmma reads
+  __syncthreads();
+
+  // the keys of the live rows' bands; a row with no key has no dQ
+  const int kstart = krange[0], kend = krange[1] + 1;
+  const int kt0 = kstart < kend ? (kstart / kBK) * kBK : 0;
+  const int ntiles = kstart < kend ? (kend - kt0 + kBK - 1) / kBK : 0;
+  const int box = ncb * kBlk;          // bytes of a 64-row tile's boxes
+  auto issue = [&](int n) {            // K/V tile n into its slot (one thread)
+    const uint32_t dst = sKV + (n % kSlots) * 2 * kT, bar = sFull + 8 * (n % kSlots);
+    mbar_expect(bar, 2 * box);
+    tma_rows(&tk, p.kdim, dst, bar, ncb, kBK, kt0 + n * kBK, kvh, b);
+    tma_rows(&tv, p.vdim, dst + kT, bar, ncb, kBK, kt0 + n * kBK, kvh, b);
+  };
+  if (tid == 0 && ntiles > 0) issue(0);
+
+  // this thread's two rows (the same in both warpgroups)
+  const int r0 = (warp & 3) * 16 + (lane >> 2);
+  int pos[2];
+  float lse[2], D[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    pos[h] = p.q_offset + q0 + (r - (r / p.bq) * p.bq);
+    lse[h] = Ls[r];
+    D[h] = Ds[r];
+  }
+  const int qmin = p.q_offset + q0;
+  const int qmax = p.q_offset + min(q0 + p.bq, p.Sq) - 1;
+  const float sl2 = p.sl2;
+  const uint64_t da = sw128_desc(wg ? sO : sQ, 16, 1024);   // Q (S) or dO (dP)
+  const uint64_t dsa = sw128_desc(sDS, 16, 1024);
+
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    __syncthreads();                   // tile n - 1 done: its slot, dS and the exchange are free
+    if (tid == 0 && n + 1 < ntiles) issue(n + 1);
+    mbar_wait(sFull + 8 * (n % kSlots), (n / kSlots) & 1);
+    const int kt = kt0 + n * kBK;
+    const uint32_t sK = sKV + (n % kSlots) * 2 * kT;
+
+    // warpgroup 0: S = Q K^T; warpgroup 1: dP = dO V^T; over hd in steps of 16
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    const uint64_t db = sw128_desc(wg ? sK + kT : sK, 16, 1024);
+    fence_regs(x);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t off = ((j >> 2) * kBlk + (j & 3) * 32) >> 4;
+      SS<64>::mma(x, da + off, db + off);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+
+    // warpgroup 0 finishes keys 0-31 and hands its S of keys 32-63 to
+    // warpgroup 1, which hands its dP of keys 0-31 back
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 16; i < 32; ++i) X[i * 128 + t] = x[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) X[i * 128 + t] = x[i];
+    }
+    __syncthreads();
+
+    // P = 2^(s sl2 - lse), masked in tiles that reach past Sk or the
+    // block's band; dS = P (dP - D), staged in bf16
+    const bool edge = kt + kBK > p.Sk || (p.causal && kt + kBK - 1 > qmin) ||
+                      (p.has_window && kt <= qmax - p.window);
+    auto ds_of = [&](int i, float s, float dp) {
+      const int h = (i >> 1) & 1;
+      float pr = ex2(fmaf(s, sl2, -lse[h]));
+      if (edge) {
+        const int c = kt + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        if (c >= p.Sk || masked(p, c, pos[h])) pr = 0.f;
+      }
+      return pr * (dp - D[h]);
+    };
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; i += 2)
+        put_pair(dS, r0 + 8 * ((i >> 1) & 1), (i >> 2) * 8 + (lane & 3) * 2,
+                 ds_of(i, x[i], X[i * 128 + t]), ds_of(i + 1, x[i + 1], X[(i + 1) * 128 + t]));
+    } else {
+#pragma unroll
+      for (int i = 16; i < 32; i += 2)
+        put_pair(dS, r0 + 8 * ((i >> 1) & 1), (i >> 2) * 8 + (lane & 3) * 2,
+                 ds_of(i, X[i * 128 + t], x[i]), ds_of(i + 1, X[(i + 1) * 128 + t], x[i + 1]));
+    }
+    fence_proxy_async();               // the staged dS before wgmma reads
+    __syncthreads();
+
+    // dQ[:, this warpgroup's 128 columns] += dS K; K is MN-major here: 8-key
+    // groups 1024 bytes apart, 64-column blocks kBlk apart
+    const uint64_t kb = sw128_desc(sK + wg * 2 * kBlk, kBlk, 1024);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_ss_n128_mn(dq, dsa + ((kk * 32) >> 4), kb + ((kk * 16 * 128) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+  }
+
+  store_rows(dq, p, b, kvh, q0, r0, lane, wg * 128);
+}
+
+// dK and dV: 64 keys of one kv head, over the sequence of 64-row tiles
+// (head g, query tile) of the rows whose band reaches them (tile u in ring
+// slot u % kSlots, issued by one thread a tile ahead). Blocks run the first
+// keys first: under a causal mask they see the most rows.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_wide_kernel(const BwdParams p, const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* base = smem_raw + pad;
+  const uint32_t sK = raw + pad;
+  const uint32_t sV = sK + kT;
+  const uint32_t sQO = sV + kT;        // slot s: Q, then dO
+  const uint32_t sPt = sQO + kSlots * 2 * kT;
+  const uint32_t sDSt = sPt + kStage;
+  unsigned char* Pt = base + (sPt - sK);
+  unsigned char* dSt = Pt + kStage;
+  float* X = reinterpret_cast<float*>(dSt + kStage);
+  __shared__ __align__(8) uint64_t full[kSlots + 1];   // the ring, then K/V
+  __shared__ float Ls[2][kBQ], Ds[2][kBQ];             // [tile & 1][row]
+  const uint32_t sFull = static_cast<uint32_t>(__cvta_generic_to_shared(full));
+  const uint32_t sKVbar = sFull + 8 * kSlots;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int t = tid & 127;
+  const int kvh = blockIdx.x % p.KV, k0 = (blockIdx.x / p.KV) * 64, b = blockIdx.y;
+  const int ncb = (p.hd + 63) / 64;
+  const int klast = min(k0 + 64, p.Sk) - 1;
+  int ibeg, iend;
+  row_range(p, k0, klast, ibeg, iend);
+  const int nqt = iend > ibeg ? (iend - ibeg + kBQ - 1) / kBQ : 0;
+  const int ntiles = p.G * nqt;        // tile u: head kvh G + u / nqt, rows from
+                                       // ibeg + (u % nqt) kBQ
+  const int box = ncb * kBlk;          // bytes of a 64-row tile's boxes
+
+  auto issue = [&](int u) {            // tile u into its slot (one thread)
+    const int h = kvh * p.G + u / nqt, it = ibeg + (u % nqt) * kBQ;
+    const uint32_t dst = sQO + (u % kSlots) * 2 * kT, bar = sFull + 8 * (u % kSlots);
+    mbar_expect(bar, 2 * box);
+    tma_rows(&tq, p.qdim, dst, bar, ncb, kBQ, it, h, b);
+    tma_rows(&tdo, p.ddim, dst + kT, bar, ncb, kBQ, it, h, b);
+  };
+  // lse and D of row tid of tile u (threads below kBQ)
+  auto stats = [&](int u, float& l, float& d) {
+    l = INFINITY;
+    d = 0.f;
+    if (u < ntiles) {
+      const int g = u / nqt;
+      row_stats(p, b, kvh * p.G + g, ibeg + (u - g * nqt) * kBQ + tid, l, d);
+    }
+  };
+
+  zero_past_hd(base, 2 + 2 * kSlots, ncb);   // K, V and the ring's tiles
+  if (tid == 0) {
+    for (int s = 0; s <= kSlots; ++s) mbar_init(sFull + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(sKVbar, 2 * box);
+    tma_rows(&tk, p.kdim, sK, sKVbar, ncb, 64, k0, kvh, b);
+    tma_rows(&tv, p.vdim, sV, sKVbar, ncb, 64, k0, kvh, b);
+    for (int u = 0; u < kSlots && u < ntiles; ++u) issue(u);
+  }
+  if (tid < kBQ) stats(0, Ls[0][tid], Ds[0][tid]);
+
+  // this thread's two keys (the same in both warpgroups)
+  const int kr = (warp & 3) * 16 + (lane >> 2);
+  const int key[2] = {k0 + kr, k0 + kr + 8};
+  const float sl2 = p.sl2;
+  const uint64_t da = sw128_desc(wg ? sV : sK, 16, 1024);   // K (S^T) or V (dP^T)
+  const uint64_t pa = sw128_desc(sPt, 16, 1024), dsa = sw128_desc(sDSt, 16, 1024);
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  fence_proxy_async();                 // the zeroed blocks before wgmma reads
+  __syncthreads();                     // barriers initialised, tile 0's lse and D in
+  mbar_wait(sKVbar, 0);
+
+  for (int u = 0; u < ntiles; ++u) {
+    __syncthreads();                   // tile u - 1 done: its slot, the staged tiles and
+                                       // the exchange are free; lse, D of tile u in
+    if (tid == 0 && u > 0 && u + 1 < ntiles) issue(u + 1);
+    // the next tile's lse and D, stored after this tile's products
+    float nl = 0.f, nd = 0.f;
+    const bool next = tid < kBQ && u + 1 < ntiles;
+    if (next) stats(u + 1, nl, nd);
+    const int buf = u & 1;
+
+    // does the band reach the block's keys from the tile's rows, and does
+    // it cover all of them (else mask)?
+    const int g = u / nqt, it = ibeg + (u - g * nqt) * kBQ;
+    const int pmin = p.q_offset + it, pmax = p.q_offset + min(it + kBQ, p.Sq) - 1;
+    const bool active = (!p.causal || k0 <= pmax) && (!p.has_window || klast > pmin - p.window);
+    const bool edge = (p.causal && klast > pmin) || (p.has_window && k0 <= pmax - p.window);
+    mbar_wait(sFull + 8 * (u % kSlots), (u / kSlots) & 1);
+    if (active) {                      // the same in every thread
+      const uint32_t sQt = sQO + (u % kSlots) * 2 * kT;
+      const uint32_t sOt = sQt + kT;
+      const float* L = Ls[buf];
+      const float* Dr = Ds[buf];
+      // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T; over hd in
+      // steps of 16
+      float x[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = 0.f;
+      const uint64_t db = sw128_desc(wg ? sOt : sQt, 16, 1024);
+      fence_regs(x);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t off = ((j >> 2) * kBlk + (j & 3) * 32) >> 4;
+        SS<64>::mma(x, da + off, db + off);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+
+      // warpgroup 0 finishes the tile's rows 0-31 and hands its S^T of rows
+      // 32-63 to warpgroup 1, which hands its dP^T of rows 0-31 back
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 16; i < 32; ++i) X[i * 128 + t] = x[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) X[i * 128 + t] = x[i];
+      }
+      __syncthreads();
+
+      // P^T = 2^(s sl2 - lse) and dS^T = P^T (dP^T - D); the columns are the
+      // tile's rows; both staged in bf16
+      auto finish = [&](int i, float s, float dp, float& pr, float& ds) {
+        const int c = (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+        pr = ex2(fmaf(s, sl2, -L[c]));
+        if (edge && masked(p, key[(i >> 1) & 1], p.q_offset + it + c)) pr = 0.f;
+        ds = pr * (dp - Dr[c]);
+      };
+      float p0, p1, d0, d1;
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 16; i += 2) {
+          finish(i, x[i], X[i * 128 + t], p0, d0);
+          finish(i + 1, x[i + 1], X[(i + 1) * 128 + t], p1, d1);
+          const int r = kr + 8 * ((i >> 1) & 1), c = (i >> 2) * 8 + (lane & 3) * 2;
+          put_pair(Pt, r, c, p0, p1);
+          put_pair(dSt, r, c, d0, d1);
+        }
+      } else {
+#pragma unroll
+        for (int i = 16; i < 32; i += 2) {
+          finish(i, X[i * 128 + t], x[i], p0, d0);
+          finish(i + 1, X[(i + 1) * 128 + t], x[i + 1], p1, d1);
+          const int r = kr + 8 * ((i >> 1) & 1), c = (i >> 2) * 8 + (lane & 3) * 2;
+          put_pair(Pt, r, c, p0, p1);
+          put_pair(dSt, r, c, d0, d1);
+        }
+      }
+      fence_proxy_async();             // the staged tiles before wgmma reads
+      __syncthreads();
+
+      // dV[:, half] += P^T dO[:, half], dK[:, half] += dS^T Q[:, half]; dO
+      // and Q are MN-major here: 8-row groups 1024 bytes apart, 64-column
+      // blocks kBlk apart
+      const uint64_t ob = sw128_desc(sOt + wg * 2 * kBlk, kBlk, 1024);
+      const uint64_t qb = sw128_desc(sQt + wg * 2 * kBlk, kBlk, 1024);
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        wgmma_ss_n128_mn(dv, pa + ((kk * 32) >> 4), ob + ((kk * 16 * 128) >> 4));
+        wgmma_ss_n128_mn(dk, dsa + ((kk * 32) >> 4), qb + ((kk * 16 * 128) >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+    }
+    if (next) {
+      Ls[buf ^ 1][tid] = nl;
+      Ds[buf ^ 1][tid] = nd;
+    }
+  }
+
+  // rows whose band is empty: dV_j += the sum of their dO over the group / Sk
+  int ie0, ie1;
+  empty_rows(p, ie0, ie1);
+  if (ie0 > 0 || ie1 < p.Sq) {
+    const float e = empty_col_sum<256>(p, b, kvh, ie0, ie1);   // column tid, all rows
+    __syncthreads();                   // the last tile's reads of the exchange are done
+    X[tid] = e;
+    __syncthreads();
+    const float inv = 1.f / (float)p.Sk;
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      dv[i] = fmaf(X[wg * 128 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1)], inv, dv[i]);
+  }
+
+  // dK (times scale) and dV of this warpgroup's 128 columns
+  store_keys(static_cast<__nv_bfloat16*>(p.dk), dk, p.scale, p, b, kvh, key[0], key[1], lane,
+             wg * 128);
+  store_keys(static_cast<__nv_bfloat16*>(p.dv), dv, 1.f, p, b, kvh, key[0], key[1], lane,
+             wg * 128);
+}
+
+}  // namespace wide
+
 }  // namespace tc
 
 template <int HDP, int HDK, int KW>
@@ -1161,6 +1606,28 @@ cudaError_t launch_mma(const BwdParams& p, const CUtensorMap& tq, const CUtensor
   return launch_dkdv<HDP, HDK, 2>(p, tq, tdo, tk, tv, B, stream);
 }
 
+// 128 < hd <= 256: the wide kernels, 64-key dK/dV blocks
+cudaError_t launch_wide(const BwdParams& p, const CUtensorMap& tq, const CUtensorMap& tdo,
+                        const CUtensorMap& tk, const CUtensorMap& tv, int B,
+                        cudaStream_t stream) {
+  static int allowed_dq[kMaxDevices], allowed_dkdv[kMaxDevices];
+  cudaError_t err =
+      allow_smem(tc::wide::flash_bwd_dq_wide_kernel, tc::wide::kDqSmem, allowed_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(tc::wide::flash_bwd_dkdv_wide_kernel, tc::wide::kDkdvSmem, allowed_dkdv);
+  if (err != cudaSuccess) return err;
+  const dim3 dq_grid((p.Sq + p.bq - 1) / p.bq, p.KV, B);
+  tc::wide::flash_bwd_dq_wide_kernel<<<dq_grid, tc::kThreads, tc::wide::kDqSmem, stream>>>(
+      p, tk, tv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // key blocks outer, kv heads inner: the first keys of every head first
+  const dim3 grid(((p.Sk + 63) / 64) * p.KV, B);
+  tc::wide::flash_bwd_dkdv_wide_kernel<<<grid, tc::kThreads, tc::wide::kDkdvSmem, stream>>>(
+      p, tq, tdo, tk, tv);
+  return cudaGetLastError();
+}
+
 // The tensor-core route: q, k, v and dout must start on 16 bytes and have
 // strides of whole 16-byte chunks (the wrapper copies them so where they do
 // not); the TMA unit reads hd columns of them and zero-fills the rest.
@@ -1179,6 +1646,10 @@ cudaError_t dispatch_mma(BwdParams& p, int B, int keys, cudaStream_t stream) {
         encode_rows(&tk, p.k, p.hd, p.Sk, p.KV, B, p.k_ss, p.k_sh, p.k_sb, p.kdim, 64) &&
         encode_rows(&tv, p.v, p.hd, p.Sk, p.KV, B, p.v_ss, p.v_sh, p.v_sb, p.vdim, 64)))
     return cudaErrorNotSupported;
+  if (p.hd > 128) {
+    p.bq = tc::wide::kRows / p.G;
+    return launch_wide(p, tq, tdo, tk, tv, B, stream);
+  }
   p.bq = tc::kRows / p.G;
   if (p.hd <= 64) return launch_mma<64, 64>(p, tq, tdo, tk, tv, B, keys, stream);
   if (p.hd <= 80) return launch_mma<128, 80>(p, tq, tdo, tk, tv, B, keys, stream);
@@ -1189,11 +1660,11 @@ cudaError_t dispatch_mma(BwdParams& p, int B, int keys, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16. route: 0 the CUDA cores, 1 the tensor cores (bf16
-// at hd <= 128 only), as the caller's rule (flash_attention.bwd_route)
-// chooses it; keys: the tensor-core route's dK/dV block, 64 or 128 (the
-// caller's flash_attention.bwd_keys). lse (B,H,Sq) fp32 contiguous, from the forward's training
-// entry; dq (B,H,Sq,hd), dk and dv (B,KV,Sk,hd) contiguous, dsum (B,H,Sq)
+// dtype: 0 fp32, 1 bf16. route: 0 the CUDA cores (fp32 only), 1 the tensor
+// cores (bf16 only), as the caller's rule (flash_attention.bwd_route)
+// chooses it; keys: the tensor-core route's dK/dV block, 64 or 128 at hd <=
+// 128 and 64 above (the caller's flash_attention.bwd_keys). lse (B,H,Sq)
+// fp32 contiguous, from the forward's training entry; dq (B,H,Sq,hd), dk and dv (B,KV,Sk,hd) contiguous, dsum (B,H,Sq)
 // fp32 contiguous scratch. Returns a cudaError_t (0 = launched).
 int flash_attention_bwd_launch(int dtype, int route, int keys, const void* q, const void* k,
                                const void* v, const void* o, const void* dout, void* dq,
@@ -1225,14 +1696,12 @@ int flash_attention_bwd_launch(int dtype, int route, int keys, const void* q, co
   p.sl2 = p.scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 1) {
-    if (dtype != 1 || hd > 128 || (keys != 64 && keys != 128))
+    if (dtype != 1 || (keys != 64 && keys != 128) || (hd > 128 && keys != 64))
       return (int)cudaErrorInvalidValue;
     return (int)dispatch_mma(p, B, keys, st);
   }
-  if (route != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)dispatch_f32(p, B, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  return (int)launch<__nv_bfloat16, 8, 1>(p, B, st);
+  if (route != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_f32(p, B, st);
 }
 
 }  // extern "C"

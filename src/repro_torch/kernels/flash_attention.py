@@ -47,9 +47,14 @@ fp32, base 2 of the scores times ``hd ** -0.5 * log2(e)``), and it saves q,
 k, v, the output and ``lse``. Its backward is ``flash_attention_bwd``, the C
 entry of ``csrc/flash_attention_bwd.cu``: two kernels, dQ with D =
 rowsum(dO * O), then dK and dV per key block, routed by ``bwd_route``
-from (dtype, hd) alone: bf16 at hd <= 128 on the tensor cores, the rest
-on the CUDA cores (see the source's note for the bound and the design);
-on the tensor cores ``bwd_keys`` sizes the dK/dV block from the mask.
+from the dtype alone: bf16 on the tensor cores at every hd, fp32 on the
+CUDA cores. The tensor cores' 989 TFLOP/s bound the bf16 route at the
+training shapes (about 2,000-3,000 flops per byte moved). Up to hd 128 a
+warpgroup holds the fp32 dK and dV of its keys; past it they would need
+256 registers a thread, so the wide kernels give each warpgroup half of
+hd's columns and split the products over hd between the two (the source's
+note has the design). On the tensor cores ``bwd_keys`` sizes the dK/dV
+block from the mask and hd.
 Everywhere else, the serving engine's ``inference_mode`` included, the
 call is the serving launch, which saves nothing. A launch of either
 forward entry counts in ``flash_attention.launches``; ``flash_attention_bwd
@@ -68,28 +73,40 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64          # query heads per kv head that one block packs
 INT32_MAX = 2**31 - 1
-TC_BWD_MAX_HEAD_DIM = 128   # the backward's tensor-core route takes bf16 up to this hd
+NARROW_BWD_MAX_HEAD_DIM = 128   # wider heads run the backward's wide kernels
 BWD_ROUTES = {"cuda cores": 0, "tensor cores": 1}   # the C entry's route argument
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
     """The backward kernels a call of (dtype, hd) runs: "tensor cores" for
-    bf16 at hd <= 128, "cuda cores" otherwise (fp32, whose 2e-5 tolerance
-    TF32 would miss, and bf16 at hd > 128, whose dK and dV accumulators do
-    not fit a warpgroup's registers). The C entry takes the route as an
-    argument (``BWD_ROUTES``) and refuses the tensor cores elsewhere."""
-    if dtype == torch.bfloat16 and hd <= TC_BWD_MAX_HEAD_DIM:
+    bf16 at every hd up to ``MAX_HEAD_DIM``, "cuda cores" for fp32, whose
+    2e-5 tolerance TF32 would miss. The C entry takes the route as an
+    argument (``BWD_ROUTES``) and refuses the tensor cores for fp32 and the
+    CUDA cores for bf16."""
+    if dtype == torch.bfloat16 and hd <= MAX_HEAD_DIM:
         return "tensor cores"
     return "cuda cores"
 
 
-def bwd_keys(causal: bool, window: Optional[int]) -> int:
-    """The keys of a dK/dV block on the backward's tensor-core route. 64
-    under a causal mask without a window: the first keys see every row and
-    the last one tile, so a block of 128 would take twice the mean, and 64
-    halve the longest for twice the Q/dO tile loads. Else 128, 64 a
-    warpgroup on the same tiles: every block sees about the same rows (at
-    most the window and a tile), and each tile loaded serves twice the keys."""
+def bwd_blocks(hd: int) -> tuple:
+    """The dK/dV blocks (keys) that the tensor-core route has at ``hd``:
+    64 and 128 up to ``NARROW_BWD_MAX_HEAD_DIM``; above it the wide kernels,
+    64 only (two 64-key tiles of K and V at 256 columns, and the ring of
+    Q/dO tiles, fill shared memory)."""
+    return (64, 128) if hd <= NARROW_BWD_MAX_HEAD_DIM else (64,)
+
+
+def bwd_keys(causal: bool, window: Optional[int], hd: int) -> int:
+    """The keys of a dK/dV block on the backward's tensor-core route. At
+    hd > ``NARROW_BWD_MAX_HEAD_DIM`` 64, the wide kernels' only block.
+    Otherwise 64 under a causal mask without a window: the first keys see
+    every row and the last one tile, so a block of 128 would take twice the
+    mean, and 64 halve the longest for twice the Q/dO tile loads. Else 128,
+    64 a warpgroup on the same tiles: every block sees about the same rows
+    (at most the window and a tile), and each tile loaded serves twice the
+    keys."""
+    if hd > NARROW_BWD_MAX_HEAD_DIM:
+        return 64
     return 64 if causal and window is None else 128
 
 
@@ -179,7 +196,7 @@ def _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, q_offset, causal, windo
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     return (DTYPES[q.dtype], BWD_ROUTES[bwd_route(q.dtype, hd)],
-            bwd_keys(causal, window) if keys is None else keys, q.data_ptr(), k.data_ptr(),
+            bwd_keys(causal, window, hd) if keys is None else keys, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), B, H, KV, Sq, Sk, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
@@ -282,11 +299,14 @@ def flash_attention_bwd(q, k, v, out, dout, *, lse=None, q_offset: int = 0,
     for the output gradient ``dout`` (both (B,H,Sq,hd)). On the CPU the
     plain version (``ref.flash_attention_bwd_ref``, which recomputes the
     output and needs neither); a CUDA tensor launches the kernels or
-    raises, and needs ``lse``. ``keys`` (64 or 128) overrides ``bwd_keys``
-    on the tensor-core route, to time the other block."""
+    raises, and needs ``lse``. ``keys`` (one of ``bwd_blocks(hd)``)
+    overrides ``bwd_keys`` on the tensor-core route, to time the other
+    block."""
     _check(q, k, v, q_offset, window)
-    if keys not in (None, 64, 128):
-        raise ValueError(f"keys={keys}: a dK/dV block takes 64 or 128 keys")
+    blocks = bwd_blocks(q.shape[-1])
+    if keys is not None and keys not in blocks:
+        raise ValueError(f"keys={keys}: a dK/dV block takes "
+                         f"{' or '.join(map(str, blocks))} keys at hd {q.shape[-1]}")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, dout, q_offset=q_offset,
                                            causal=causal, window=window)

@@ -25,7 +25,8 @@ from repro_torch.kernels.cases import (DECODE_MAIN, DECODE_RAGGED, DECODE_SWEEP,
                                        FLASH_TILES)
 from repro_torch.kernels.decode_attention import MAX_SPLITS, TILE, split_plan
 from repro_torch.kernels.flash_attention import (BWD_ROUTES, DTYPES, _bwd_args,
-                                                 _entry_args, bwd_keys, bwd_route, rows16)
+                                                 _entry_args, bwd_blocks, bwd_keys, bwd_route,
+                                                 rows16)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -366,10 +367,11 @@ def test_flash_train_plain_version_matches_float64_logsumexp(case):
 
 @pytest.mark.parametrize("hd", [64, 80, 128, 136, 256])
 def test_flash_bwd_route_depends_on_dtype_and_head_dim_alone(hd):
-    """bf16 up to hd 128 on the tensor cores, the rest on the CUDA cores;
-    the C entry takes the route as its second argument and the dK/dV block
-    of ``bwd_keys`` as its third, whatever the shape and strides."""
-    assert bwd_route(torch.bfloat16, hd) == ("tensor cores" if hd <= 128 else "cuda cores")
+    """bf16 on the tensor cores at every hd up to 256, fp32 on the CUDA
+    cores; the C entry takes the route as its second argument and the
+    dK/dV block of ``bwd_keys`` as its third, whatever the shape and
+    strides."""
+    assert bwd_route(torch.bfloat16, hd) == "tensor cores"
     assert bwd_route(torch.float32, hd) == "cuda cores"
     _, argtypes = build._SIGNATURES["flash_attention_bwd"]["flash_attention_bwd_launch"]
     for dtype in (torch.bfloat16, torch.float32):
@@ -381,7 +383,7 @@ def test_flash_bwd_route_depends_on_dtype_and_head_dim_alone(hd):
             args = _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, off, causal, win, 0)
             assert len(args) == len(argtypes)
             assert args[:3] == (DTYPES[dtype], BWD_ROUTES[bwd_route(dtype, hd)],
-                                bwd_keys(causal, win))
+                                bwd_keys(causal, win, hd))
             assert _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, off, causal, win, 0,
                              keys=64)[2] == 64
 
@@ -392,10 +394,23 @@ def test_flash_bwd_keys_follow_the_mask(causal, window, keys):
     """64-key dK/dV blocks under a causal mask without a window (the first
     keys see every row), 128 with a window or without a causal mask; a
     block of another size is refused before any launch."""
-    assert bwd_keys(causal, window) == keys
+    assert bwd_keys(causal, window, 128) == keys
     with pytest.raises(ValueError, match="64 or 128"):
         ops.flash_attention_bwd(*(torch.zeros(1, 2, 4, 8) for _ in range(5)), causal=causal,
                                 window=window, keys=96)
+
+
+@pytest.mark.parametrize("hd", [136, 192, 256])
+@pytest.mark.parametrize("causal, window", [(True, None), (True, 2048), (False, None),
+                                            (False, 7)])
+def test_flash_bwd_keys_are_64_past_hd_128(hd, causal, window):
+    """Past hd 128 the wide kernels have one dK/dV block, 64 keys, whatever
+    the mask; a block of 128 keys is refused before any launch."""
+    assert bwd_keys(causal, window, hd) == 64
+    assert bwd_blocks(hd) == (64,)
+    with pytest.raises(ValueError, match="takes 64 keys at hd"):
+        ops.flash_attention_bwd(*(torch.zeros(1, 2, 4, hd) for _ in range(5)), causal=causal,
+                                window=window, keys=128)
 
 
 def test_rows16_gives_16_byte_rows_and_the_same_values():
