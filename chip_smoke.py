@@ -5,9 +5,8 @@
 1. Setup: card name and power limit, torch and nvcc versions; builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
    all started together) and times the build; ptxas's registers and
-   spills per entry function, and no flash instantiation, no tensor-core
-   flash backward kernel and no kernel of the wkv6 backward's and the
-   RG-LRU's libraries may spill. TF32 is off for matmuls and
+   spills per entry function, and no kernel of the flash, flash backward,
+   wkv6 backward and RG-LRU libraries may spill. TF32 is off for matmuls and
    cuDNN.
 2. Attention kernels: each against its plain PyTorch version, fp32 and
    bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
@@ -218,7 +217,11 @@
    tensor cores at every hd: ``flash_bwd_dq_mma_kernel`` and
    ``flash_bwd_dkdv_mma_kernel`` up to hd 128, ``flash_bwd_dq_wide_kernel``
    and ``flash_bwd_dkdv_wide_kernel`` above (recurrentgemma-2b's hd 256,
-   the 100M twin's 192); fp32 on the CUDA cores. Where ``bwd_blocks`` has
+   the 100M twin's 192); fp32 on the tensor cores in split-TF32 products at
+   every hd, ``flash_bwd_dq_tf32_kernel`` and ``flash_bwd_dkdv_tf32_kernel``,
+   whose bound takes the products at 495 / 3 = 165 TFLOP/s (three TF32
+   products each; the 67 TFLOP/s of fp32 FMA logged beside it, the bound
+   before the route moved). Where ``bwd_blocks`` has
    a dK/dV block that ``bwd_keys`` did not choose for the mask (hd <= 128),
    it is held against the plain version and timed too, beside the chosen
    one.
@@ -281,8 +284,8 @@
    wide tensor-core kernels ``flash_bwd_dq_wide_kernel`` and
    ``flash_bwd_dkdv_wide_kernel``); the ``rglru backward`` class (both of
    its kernels, two device launches a call) and the ``rglru scan`` class in
-   the profile. No bf16 step may show a CUDA-core backward kernel
-   (``flash_bwd_dq_kernel``, ``flash_bwd_dkdv_kernel``).
+   the profile. No bf16 step may show an fp32 backward kernel
+   (``flash_bwd_dq_tf32_kernel``, ``flash_bwd_dkdv_tf32_kernel``).
 24. One layer's gradients through the kernels against the plain versions,
    fp32, as step 19: an rwkv6-1.6b time-mix at 4,096 tokens
    (``ops.wkv6`` swapped for ``ref.wkv6_ref``) and a Griffin recurrent
@@ -327,6 +330,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # fp32 outside the tensor cores
+# the fp32 flash backward's products: three TF32 products each on the tensor
+# cores (495 TFLOP/s dense TF32)
+PEAK_SPLIT_TF32 = 495e12 / 3
 L2_BYTES = 50e6
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
@@ -349,18 +355,18 @@ CSRC = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_att
         "rglru_scan_bwd": "rglru_scan.cu"}
 PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
                 "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
-                "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkdv_kernel", "flash_bwd_dq_mma_kernel",
+                "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_tf32_kernel",
+                "flash_bwd_dkdv_tf32_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_wide_kernel",
                 "flash_bwd_dkdv_wide_kernel", "wkv6_bwd_kernel",
                 "wkv6_bwd_dv_kernel", "rglru_bwd_kernel",
                 "rglru_bwd_carry_kernel")   # device names
 REPLAY_TRIES = 3                          # profiled replays, the first whole window read
 # the flash backward's device kernels by route; a bf16 call never runs the
-# CUDA cores' (the C entry refuses it)
+# fp32 ones (the C entry refuses the split-TF32 route for bf16)
 BWD_KERNELS = {"bf16, hd <= 128": ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel"),
                "bf16, hd 129-256": ("flash_bwd_dq_wide_kernel", "flash_bwd_dkdv_wide_kernel"),
-               "fp32": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")}
+               "fp32": ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkdv_tf32_kernel")}
 BF16_NEVER = BWD_KERNELS["fp32"]
 # the classes of a training step's device time, by kernel name (first match)
 STEP_CLASSES = (("flash backward", re.compile(r"flash_bwd_")),
@@ -500,8 +506,8 @@ def entry_spills(ptxas_log: str):
     return spills
 
 
-def bound(ops_n: float, nbytes: float, dtype):
-    t_ops, t_bytes = ops_n / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+def bound(ops_n: float, nbytes: float, dtype, peak=None):
+    t_ops, t_bytes = ops_n / (peak or PEAK_OPS[dtype]), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -695,11 +701,15 @@ def flash_bwd_row(ops, ref, cases, case, dtype):
     fwd_bound = bound(B * H * (4 * hd * pairs + 2 * hd * Sk * empty),
                       q.element_size() * (2 * q.numel() + k.numel() + v.numel())
                       + 4 * B * H * Sq, dtype)
+    # fp32: the products at the split-TF32 rate, and at the CUDA cores' (the
+    # bound before the route moved to the tensor cores), beside it
+    peak = PEAK_SPLIT_TF32 if dtype == torch.float32 else None
+    cuda_cores = dict(cuda_cores_bound_ms=bound(ops_n, nbytes, dtype)[0]) if peak else {}
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **other,
                 train_fwd_ms=fwd_ms, train_fwd_library_ms=fwd_lib,
                 train_fwd_bound_ms=fwd_bound[0],
-                train_fwd_bound_by=fwd_bound[1],
-                **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
+                train_fwd_bound_by=fwd_bound[1], **cuda_cores,
+                **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype, peak))))
 
 
 def flash_bwd_phase(ops, ref, cases):
@@ -725,7 +735,11 @@ def flash_bwd_phase(ops, ref, cases):
             log(f"flash_attention_bwd {str(dtype)[6:]} {label} {case}: max |err| "
                 f"{r['max_abs_err']:.3e}, kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
                 f"ms, sdpa backward {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-                f"({r['bound_by']}); training forward {r['train_fwd_ms']:.5f} ms, sdpa "
+                f"({r['bound_by']}"
+                + (f", products at {PEAK_SPLIT_TF32 / 1e12:.0f} TFLOP/s in split TF32; "
+                   f"{r['cuda_cores_bound_ms']:.6f} ms at {PEAK_OPS[dtype] / 1e12:.0f} TFLOP/s "
+                   f"of fp32 FMA" if "cuda_cores_bound_ms" in r else "")
+                + f"); training forward {r['train_fwd_ms']:.5f} ms, sdpa "
                 f"forward {r['train_fwd_library_ms']:.5f} ms, bound "
                 f"{r['train_fwd_bound_ms']:.6f} ms ({r['train_fwd_bound_by']})"
                 + (f"; {r['other_keys']}-key dK/dV blocks (not chosen): "
@@ -1973,8 +1987,7 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
     spills = {f: n for lib in ("flash_attention", "flash_attention_bwd", "wkv6_bwd",
                                "rglru_scan")
-              for f, n in entry_spills(build.build_logs.get(lib, "")).items()
-              if lib != "flash_attention_bwd" or "_mma_kernel" in f or "_wide_kernel" in f}
+              for f, n in entry_spills(build.build_logs.get(lib, "")).items()}
     if any(n != (0, 0) for n in spills.values()):
         raise AssertionError(f"kernels spill: {spills}")
 
@@ -2110,14 +2123,17 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{key: r[key] for key in ("device_ms", "plain_device_ms", "library_device_ms",
                                        "library_premasked_device_ms") if key in r}})
-    # the flash backward's device kernels, and its bf16 rows at every training
-    # shape (the forward's training entry and SDPA's forward beside them)
+    # the flash backward's device kernels, and its rows at every training
+    # shape, bf16 and fp32 (the forward's training entry and SDPA's forward
+    # beside them; fp32 with the bound at the CUDA cores' rate too)
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "train_fwd_ms",
+              "train_fwd_library_ms", "train_fwd_bound_ms", "cuda_cores_bound_ms")
     kernels[list(SOURCES).index("flash_attention_bwd")].update(
         device_kernels=BWD_KERNELS,
-        training_shapes={label: {key: r[key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "train_fwd_ms",
-            "train_fwd_library_ms", "train_fwd_bound_ms")}
-            for (dtype, label), r in bwd_rows.items() if dtype == torch.bfloat16})
+        **{key: {label: {f: r[f] for f in fields if f in r}
+                 for (dtype, label), r in bwd_rows.items() if dtype == want}
+           for key, want in (("training_shapes", torch.bfloat16),
+                             ("training_shapes_fp32", torch.float32))})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -55,7 +55,7 @@ _SIGNATURES = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": (
-            _I, [_I] * 3 + [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_P]),
+            _I, [_I] * 4 + [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_P]),
     },
     "decode_attention": {
         "decode_attention_launch": (

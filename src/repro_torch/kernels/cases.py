@@ -40,7 +40,8 @@ dense archs after yi-6b and of the long-context phase are not listed here:
 The flash backward (``ops.flash_attention_bwd``, reached through autograd
 of ``ops.flash_attention``) is held by ``check_flash_bwd`` at ``FLASH_BWD``,
 the forward's sweep, ragged, empty-band and tile-edge cases and
-``FLASH_BWD_TILES``, either side of the backward's own tiles, and at
+``FLASH_BWD_TILES``, either side of the backward's own tiles and blocks
+(bf16's and the fp32 route's), and at
 ``FLASH_BWD_TRAIN``, the training shapes: h2o-danube-1.8b's layer at 8,192
 tokens (its window binds), yi-6b's at 4,096, the 100M twin's
 (``repro_torch.launch.train_100m``: yi-6b reduced to 12 layers of d_model
@@ -55,7 +56,10 @@ O) from the saved output, which in bf16 is rounded (a relative 2**-9 of D,
 far below dO V^T - D's size), and rounds each gradient once; in bf16 it also
 rounds P and dS to bf16 before the products that take them (as
 FlashAttention-2 and -3 do), a relative 2**-9 per term that averages out
-over the rows and keys of each sum. ``check_flash_bwd_repeat`` holds two
+over the rows and keys of each sum. In fp32 every product runs in three TF32
+products (big·small + small·big + big·big of each operand's TF32 split),
+well inside the tolerance, which one TF32 product misses
+(tests/test_torch_flash_bwd_tf32.py). ``check_flash_bwd_repeat`` holds two
 backward calls on the same inputs to the same bits. ``check_flash_train``
 holds the training entry (``ops.flash_attention_train``, whose lse the
 backward takes) to the serving entry's output bit for bit and its lse to
@@ -183,7 +187,7 @@ FLASH_IDENTITY = [
 # window 2048; the model phase's prefill of 2,560 tokens, where the window
 # masks keys
 FLASH_GRIFFIN = [(1, 10, 1, 2560, 2560, 256, 0, 2048, True)]
-# either side of the backward's tensor-core tiles. Up to hd 128: 128 packed
+# either side of the bf16 backward's tiles. Up to hd 128: 128 packed
 # query rows a dQ block (G heads x 128/G positions) over 64-key K/V tiles; a
 # dK/dV block of 64 keys (causal without a window) or 128 keys (64 a
 # warpgroup: a window, or no causal mask) over 64-row Q/dO tiles; hd 64, 80
@@ -209,6 +213,22 @@ FLASH_BWD_TILES = [
     (1, 2, 1, 65, 129, 256, 64, None, False),     # not causal: rows one above a Q/dO tile, keys one above two blocks
     (1, 10, 1, 40, 100, 192, 60, 50, True),       # hd 192: the fourth column block zero; window 50
     (1, 10, 1, 13, 64, 136, 50, 20, True),        # hd 136 at G = 10: 13 positions, two dQ blocks and one of a third
+    # the fp32 route's own blocks and tiles (flash_attention.bwd_tf32_blocks):
+    # dQ blocks of 16, 32, 64 or 128 positions of one head over 32-key K/V
+    # tiles; dK/dV blocks of 16, 32, 64 or 128 keys over 32-row Q/dO tiles;
+    # (rows, keys) in the comments
+    (1, 4, 4, 31, 33, 64, 2, None, True),         # G = 1, (16, 16): rows one below a Q/dO tile, keys one above a K/V tile
+    (1, 8, 2, 33, 31, 80, 0, None, False),        # G = 4, (16, 16), not causal: the other way round
+    (2, 64, 8, 129, 129, 80, 0, None, True),      # G = 8, (128, 16): rows one above a dQ block of 128
+    (2, 16, 8, 31, 1151, 80, 1120, 500, True),    # G = 2, (16, 128): keys one below nine dK/dV blocks of 128; window 500
+    (2, 40, 8, 127, 127, 160, 0, None, True),     # G = 5 at hd 160, (64, 16): rows one below two dQ blocks of 64
+    (1, 40, 8, 97, 161, 128, 64, 100, True),      # G = 5, (32, 16): rows one above three dQ blocks of 32; window 100
+    (2, 16, 16, 127, 575, 128, 448, None, True),  # G = 1, (16, 64): keys one below nine dK/dV blocks of 64 and a tile
+    (1, 10, 1, 33, 95, 192, 62, None, True),      # G = 10 past hd 128, (16, 16): rows one above a tile, keys one below
+    (4, 4, 4, 63, 65, 192, 2, None, True),        # G = 1 at the 100M twin's hd, (16, 16)
+    (1, 16, 8, 65, 1089, 192, 1024, 300, True),   # G = 2, (16, 64): keys one above 17 blocks of 64; window 300
+    (2, 24, 4, 65, 97, 256, 32, None, True),      # G = 6 at hd 256, (32, 16): rows one above two dQ blocks of 32
+    (2, 4, 4, 31, 543, 256, 512, None, True),     # G = 1 at hd 256, (16, 32): keys one below 17 blocks of 32
 ]
 # the backward at the forward's cases, its own tiles' edges, and at the
 # training shapes

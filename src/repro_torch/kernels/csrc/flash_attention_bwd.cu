@@ -36,13 +36,15 @@
 // heads of 256 on 1, 8,192 tokens, window 2,048) that is about 3,000,
 // 2,300 and 2,000 flops per byte that must move (q, k, v, o, dO in; dq, dk,
 // dv out), far above the card's 295, so operations bound it: 989 TFLOP/s
-// for bf16 on the tensor cores, 67 TFLOP/s of fp32 FMA.
+// for bf16 on the tensor cores; for fp32 the tensor cores' 495 TFLOP/s of
+// TF32 over the three TF32 products each fp32 product takes, 165 TFLOP/s.
 // Two kernels without atomics recompute S and dP in both, seven products;
 // the single kernel that adds dQ by atomics does five but gives other bits
 // from run to run.
 //
-// Routes, chosen from (dtype, hd) alone by the caller (flash_attention.
-// bwd_route), which passes the route to the entry:
+// Routes, chosen from the dtype alone by the caller (flash_attention.
+// bwd_route), which passes the route to the entry; both run on the tensor
+// cores at every hd up to 256:
 //
 //  * bf16, any hd: the tensor cores, wgmma with fp32 accumulation, two
 //    warpgroups a block, the forward's 128-byte swizzle and descriptors
@@ -117,14 +119,43 @@
 //    One instantiation serves hd 129-256: the TMA unit and cp.async zero-
 //    fill columns past hd inside a block they load, the column blocks they
 //    do not load are zeroed once, and every product runs over 256 columns.
-//  * fp32, any hd: the CUDA cores. TF32 products would miss the 2e-5 kernel
-//    tolerance and the fp32 layer-gradient gate, for the reason the
-//    forward's fp32 route keeps fp32 FMA. Each warp owns 8 rows (dq) or 8
-//    keys (dk/dv) of a 64-row block; a lane owns X keys (dq) or X query rows
-//    (dk/dv) of a tile and NJ 32-wide column groups of hd; shared memory is
-//    read as warp broadcasts and conflict-free columns (odd row strides).
-//  Every route takes lse from the forward. The entry refuses the CUDA cores
-//  for bf16, so no bf16 call can take them.
+//  * fp32, any hd: split-TF32 products on the tensor cores (mma.sync
+//    m16n8k8, fp32 accumulation): flash_bwd_dq_tf32_kernel, then
+//    flash_bwd_dkdv_tf32_kernel. One TF32 product (10 mantissa bits) misses
+//    the 2e-5 kernel tolerance by two orders; so each operand x is split in
+//    registers, as its fragment is loaded, into big = tf32(x) and small =
+//    tf32(x - big) (cvt.rna: the tensor cores would truncate a plain fp32
+//    register), and every product, the two recomputed ones (S, dP)
+//    included, is big.small + small.big, then big.big, accumulated in fp32:
+//    165 TFLOP/s of fp32-accurate products against the CUDA cores' 67. wgmma takes TF32 only K-major, and three of the
+//    products read an operand along its rows (K in dQ += dS K, Q and dO in
+//    dK and dV); mma.sync fragments are loaded from shared memory in any
+//    layout. Tiles are stored row-major with rows of hd padded to HDP (64,
+//    80, 128, 192 or 256, zero-filled) + 4 floats, so the K-major fragments
+//    come by ldmatrix (8 rows x 4 fp32 a matrix) and the transposed ones by
+//    32-bit loads, a key or row pair (2 tig, 2 tig + 1) in the places of k
+//    = tig, tig + 4 of a k-step (A takes dS, P^T or dS^T from shared
+//    memory in the same order), both without bank conflicts.
+//    - flash_bwd_dq_tf32_kernel: 16, 32 or 64 positions of one query head,
+//      Q and dO resident by cp.async, 32-key K/V tiles by cp.async, the next
+//      in flight while one is multiplied. Each warp owns 16 rows; past hd
+//      128 two warps split a tile's keys (S, dP) and hd's columns (dQ),
+//      whose 16 x 256 accumulator alone would be 128 registers a thread.
+//      dS goes through shared memory. Writes D to dsum. Last rows first.
+//    - flash_bwd_dkdv_tf32_kernel: 16, 32 or 64 keys of one kv head, K and
+//      V resident, the 32-row Q/dO tiles of the G heads whose band reaches
+//      them by cp.async, the next in flight; lse and D of a tile's rows in
+//      shared memory. Each warp owns 16 keys; past hd 80 two warps split a
+//      tile's rows and hd's columns. P^T and dS^T go through shared
+//      memory. Empty-band rows, GQA's sum over the G heads inside the block
+//      and the first keys first as the bf16 kernels.
+//    The caller chooses both blocks from the shape (flash_attention.
+//    bwd_tf32_blocks), the largest whose grid fills the card's 132 SMs (the
+//    100M twin's (4,4,4,256,256,192): 16 positions and 16 keys, 256 blocks
+//    a kernel); 32 at most past hd 192, where Q and dO of 64 rows (133 KB)
+//    and two stages of K and V (133 KB) would not fit in 227 KB.
+//  Every route takes lse from the forward. The entry refuses a route that
+//  is not its dtype's.
 #include <limits.h>
 #include <math.h>
 
@@ -137,11 +168,6 @@ using namespace hopper;
 constexpr float kNegInf = -1e30f;      // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxGroup = 64;          // query heads per kv head
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 64;              // dq kernel: packed query rows per block
-constexpr int kKeys = 64;              // dk/dv kernel: keys per block
-constexpr int kPerWarp = 8;            // rows (dq) or keys (dk/dv) per warp
 
 struct BwdParams {
   const void* q;
@@ -154,7 +180,9 @@ struct BwdParams {
   void* dv;
   const float* lse;  // (B, H, Sq) contiguous, base 2, from the forward
   float* dsum;       // (B, H, Sq) contiguous: D = rowsum(dO * O)
-  int H, KV, G, Sq, Sk, hd, bq;
+  int H, KV, G, Sq, Sk, hd;
+  int bq;            // positions of a query head a dq block (the bf16 route packs G heads' bq)
+  int bk;            // keys a dK/dV block (split-TF32 route)
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -165,9 +193,6 @@ struct BwdParams {
   float scale;
   float sl2;         // scale * log2 e
 };
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -211,416 +236,567 @@ __device__ __forceinline__ void empty_rows(const BwdParams& p, int& ie0, int& ie
   ie1 = max(ie0, clamp_rows(e1 - p.q_offset, p.Sq));
 }
 
-// --------------------------------------------------------------------------
-// CUDA-core route (fp32)
-// dQ and D: one block per 64 packed query rows of one kv head's group
-// --------------------------------------------------------------------------
-
-size_t dq_smem_bytes(int hd, int bk) {
-  return sizeof(float) * (size_t)(2 * kRows * hd + 2 * bk * (hd | 1) + kRows * bk);
+// lse (+inf for a row past Sq or whose band is empty: P = 0) and D of query
+// row `row` of head h, for the dk/dv kernels' tile of that row
+__device__ __forceinline__ void row_stats(const BwdParams& p, int b, int h, int row,
+                                          float& lse, float& D) {
+  lse = INFINITY;
+  D = 0.f;
+  if (row < p.Sq) {
+    int lo, hi;
+    band(p, p.q_offset + row, lo, hi);
+    const long long srow = ((long long)b * p.H + h) * p.Sq + row;
+    if (lo <= hi) lse = p.lse[srow];
+    D = p.dsum[srow];
+  }
 }
 
-template <typename T, int NJ, int X>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int BK = 32 * X;              // keys per tile, X per lane
-  extern __shared__ float smem[];
+// --------------------------------------------------------------------------
+// fp32 route: split-TF32 products on the tensor cores (mma.sync m16n8k8)
+// --------------------------------------------------------------------------
+namespace tf32 {
+
+constexpr int kTile = 32;              // keys a K/V tile (dq), rows a Q/dO tile (dk/dv)
+constexpr int kLS = kTile + 8;         // row stride of the staged dS, P^T, dS^T (floats)
+constexpr int kMaxThreads = 256;
+
+// A tile of HDP columns is stored with rows of LD = HDP + 4 floats (4 mod
+// 8): the 8 rows of an ldmatrix phase and the 2 x 4 rows x 8 columns of a
+// transposed fragment load fall in 32 different banks. WQ (dq) and WK
+// (dk/dv) warps split each 16 rows' accumulator columns (HQ, HK of them)
+// and a tile's keys or rows (NQ, NK) between them.
+template <int HDP>
+struct Cfg {
+  static constexpr int LD = HDP + 4;
+  static constexpr int WQ = HDP > 128 ? 2 : 1;
+  static constexpr int WK = HDP > 80 ? 2 : 1;
+  static constexpr int HQ = HDP / WQ, HK = HDP / WK;
+  static constexpr int NQ = kTile / WQ, NK = kTile / WK;
+  // positions a dQ block and keys a dK/dV block at most: 8 warps, and shared
+  // memory (Q and dO of 64 rows at hd 256 alone are 133 KB)
+  static constexpr int kMaxRows = HDP <= 128 ? 128 : (HDP <= 192 ? 64 : 32);
+  static constexpr int kMaxKeys = HDP <= 80 ? 128 : (HDP <= 192 ? 64 : 32);
+  static size_t dq_smem(int rows) {    // Q, dO, two stages of K and V, dS
+    return sizeof(float) * ((size_t)2 * rows * LD + 4 * kTile * LD + (size_t)rows * kLS);
+  }
+  static size_t dkdv_smem(int keys) {  // K, V, two stages of Q and dO, P^T, dS^T
+    return sizeof(float) * ((size_t)2 * keys * LD + 4 * kTile * LD + (size_t)2 * keys * kLS);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x rounded to TF32, to nearest with ties away from zero; the tensor cores
+// would truncate the low 13 bits of a plain fp32 register instead
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as big + small, the operands of three TF32 products: big = tf32(x) by
+// cvt.rna, which passes NaN and inf on; small = x - big (exact in fp32) plus
+// half a TF32 ulp on its bits, which the tensor cores read, truncating the
+// low 13 bits, as tf32(x - big) rounded to nearest, ties away: what cvt.rna
+// gives, in one instruction where cvt.rna takes several on sm_90a (a NaN
+// test and a select among them). small is finite wherever x is.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+template <int N>
+__device__ __forceinline__ void split_regs(const uint32_t (&r)[N], uint32_t (&big)[N],
+                                           uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split(__uint_as_float(r[i]), big[i], small[i]);
+}
+
+// d (16 x 8) += a (16 x 8) b (8 x 8), TF32 operands, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in three TF32 products: big.small and small.big first, then big.big
+__device__ __forceinline__ void mma3(float* d, const uint32_t* ab, const uint32_t* as,
+                                     const uint32_t* bb, const uint32_t* bs) {
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bb);
+}
+
+// Four 8-row x 4-column fp32 matrices from shared memory (ldmatrix of 8 x 8
+// b16): thread t passes the address of row t % 8 of matrix t / 8 and gets
+// element (t / 4, t % 4) of each matrix.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// Rows row0 .. row0 + n - 1 of an (S, hd) fp32 matrix at src (row stride ss)
+// into a tile of row stride LD by 16-byte cp.async, zero past S and hd (not
+// committed).
+template <int HDP>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ss, int row0,
+                                          int n, int S, int hd) {
+  constexpr int kChunks = HDP / 4;
+  for (int i = threadIdx.x; i < n * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    const bool ok = row0 + r < S && c * 4 < hd;
+    cp_async16(smem_u32(dst + r * Cfg<HDP>::LD + c * 4),
+               ok ? src + (long long)(row0 + r) * ss + c * 4 : src,
+               ok ? min(16, 4 * (hd - c * 4)) : 0);
+  }
+}
+
+// A barrier of the W warps that share 16 rows (dq) or keys (dk/dv), named
+// 1 + group (0 is __syncthreads')
+template <int W>
+__device__ __forceinline__ void sync_group(int group) {
+  if (W == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + group), "r"(32 * W) : "memory");
+  }
+}
+
+// acc (16 x 8 tiles, C fragments) of row `row` (this thread's) and the one
+// 8 below, those below nrows, times mul into out (rows of hd floats), from
+// column col0
+template <int NT>
+__device__ __forceinline__ void store_acc(float* out, const float (&acc)[NT][4], float mul,
+                                          int row, int nrows, int hd, int col0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row + 8 * hh >= nrows) continue;
+    float* o = out + (long long)(row + 8 * hh) * hd;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int d = col0 + 8 * j + 2 * (lane & 3);
+      const float x0 = acc[j][2 * hh] * mul, x1 = acc[j][2 * hh + 1] * mul;
+      if (hd % 2 == 0 && d + 1 < hd) {
+        *reinterpret_cast<float2*>(o + d) = make_float2(x0, x1);
+      } else {
+        if (d < hd) o[d] = x0;
+        if (d + 1 < hd) o[d + 1] = x1;
+      }
+    }
+  }
+}
+
+// s = A B^T and dp = A2 B2^T over hd (S and dP in the dq kernel, S^T and
+// dP^T in the dk/dv kernel) for this warp's 16 rows and NS columns: A, A2
+// the ldmatrix addresses of the warp's 16 rows of the resident tiles (Q and
+// dO, or K and V), B, B2 those of its NS rows of the streamed tile. Each 32
+// columns of hd (four k-steps) are summed from zero on the tensor cores,
+// then added in fp32 on the CUDA cores, as tile_product does.
+template <int HDP, int NS>
+__device__ __forceinline__ void scores(float (&s)[NS / 8][4], float (&dp)[NS / 8][4], uint32_t a,
+                                       uint32_t a2, uint32_t b, uint32_t b2) {
+  constexpr int LD = Cfg<HDP>::LD;
+#pragma unroll
+  for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll 1
+  for (int kc = 0; kc < HDP / 8; kc += 4) {
+    float ts[NS / 8][4], tp[NS / 8][4];
+#pragma unroll
+    for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ts[j][i] = tp[j][i] = 0.f;
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      const int kk = kc + kq;
+      if (HDP % 32 != 0 && kk >= HDP / 8) break;
+      uint32_t r[4], xb[4], xs[4], yb[4], ys[4];
+      ldsm4(r, a + kk * 32);
+      split_regs(r, xb, xs);
+      ldsm4(r, a2 + kk * 32);
+      split_regs(r, yb, ys);
+#pragma unroll
+      for (int j = 0; j < NS / 16; ++j) {      // two 8-column n-tiles an ldmatrix
+        uint32_t bb[4], bs[4], cb[4], cs[4];
+        ldsm4(r, b + j * 16 * LD * 4 + kk * 32);
+        split_regs(r, bb, bs);
+        ldsm4(r, b2 + j * 16 * LD * 4 + kk * 32);
+        split_regs(r, cb, cs);
+        mma3(ts[2 * j], xb, xs, bb, bs);
+        mma3(ts[2 * j + 1], xb, xs, bb + 2, bs + 2);
+        mma3(tp[2 * j], yb, ys, cb, cs);
+        mma3(tp[2 * j + 1], yb, ys, cb + 2, cs + 2);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] += ts[j][i];
+        dp[j][i] += tp[j][i];
+      }
+  }
+}
+
+// out[:, HC columns] += A B over a tile's 32 keys (dq) or rows (dk/dv): A
+// the staged 16 x 32 tile (dS, P^T or dS^T) at this thread's pair `a`
+// (row gid, columns 2 tig, 2 tig + 1), B the 32 x HC tile at `bt` (row 2
+// tig, column gid of this warp's columns). For each 8-column n-tile the
+// four k-steps of 8 are summed from zero on the tensor cores, then added to
+// out on the CUDA cores (fp32, round to nearest): mma.sync adds by
+// truncation, and the bias of a chain over thousands of keys or rows would
+// miss the tolerance.
+template <int HC, int LD>
+__device__ __forceinline__ void tile_product(float (&out)[HC / 8][4], const float* a,
+                                             const float* bt) {
+  uint32_t ab[kTile / 8][4], as[kTile / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < kTile / 8; ++kk) {
+    const float2 x0 = *reinterpret_cast<const float2*>(a + 8 * kk);
+    const float2 x1 = *reinterpret_cast<const float2*>(a + 8 * kk + 8 * kLS);
+    split(x0.x, ab[kk][0], as[kk][0]);
+    split(x1.x, ab[kk][1], as[kk][1]);
+    split(x0.y, ab[kk][2], as[kk][2]);
+    split(x1.y, ab[kk][3], as[kk][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < HC / 8; ++j) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kTile / 8; ++kk) {
+      uint32_t bb[2], bs[2];
+      split(bt[8 * kk * LD + 8 * j], bb[0], bs[0]);
+      split(bt[8 * kk * LD + 8 * j + LD], bb[1], bs[1]);
+      mma3(acc, ab[kk], as[kk], bb, bs);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[j][i] += acc[i];
+  }
+}
+
+// dQ and D: `rows` (p.bq: 16, 32, 64 or 128) positions of query head h. Warp w
+// owns rows 16 (w / WQ) .. + 15 of the block: S and dP of NQ keys of each
+// tile, dQ of HQ columns. Per 32-key tile (K/V by cp.async, the next tile in
+// flight while this one is multiplied): S = Q K^T and dP = dO V^T (Q, dO, K,
+// V fragments by ldmatrix), P and dS = P (dP - D) in registers, dS staged in
+// shared memory, dQ += dS K (K read transposed, a key pair 2 tig, 2 tig + 1
+// in the places of k = tig, tig + 4 of the k-step, in A as in B). The last
+// rows run first: under a causal mask they see the most keys.
+template <int HDP>
+__global__ void __launch_bounds__(kMaxThreads, 1) flash_bwd_dq_tf32_kernel(const BwdParams p) {
+  using C = Cfg<HDP>;
+  constexpr int LD = C::LD, W = C::WQ, HC = C::HQ, NS = C::NQ;
+  extern __shared__ float4 smem4[];
+  float* const Qs = reinterpret_cast<float*>(smem4);
+  const int rows = p.bq;
+  float* const Gs = Qs + rows * LD;          // dO
+  float* const KVs = Gs + rows * LD;         // stage s: K at KVs + 2 s kTile LD, then V
+  float* const dS = KVs + 4 * kTile * LD;    // rows x kLS
+  __shared__ float Ls[128], Ds[128];
   __shared__ int krange[2];
-  const int hd = p.hd;
-  const int kst = hd | 1;                 // odd stride: column reads hit 32 banks
-  float* Qs = smem;                       // kRows x hd
-  float* Gs = Qs + kRows * hd;            // kRows x hd: dO
-  float* Ks = Gs + kRows * hd;            // BK x kst
-  float* Vs = Ks + BK * kst;              // BK x kst
-  float* Ss = Vs + BK * kst;              // kRows x BK: dS (each warp its own rows)
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * p.bq, kvh = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q);
-  const T* o = static_cast<const T*>(p.o);
-  const T* dO = static_cast<const T*>(p.dout);
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rows, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / p.G;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dO = static_cast<const float*>(p.dout) + b * p.d_sb + h * p.d_sh;
+  const float* o = static_cast<const float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   if (tid == 0) {
     krange[0] = INT_MAX;
     krange[1] = -1;
   }
-  for (int idx = tid; idx < kRows * hd; idx += kThreads) {
-    const int r = idx / hd, d = idx - r * hd;
-    const int g = r / p.bq, i = r - g * p.bq;
-    float x = 0.f, y = 0.f;
-    if (g < p.G && q0 + i < p.Sq) {
-      const long long h = kvh * p.G + g, row = q0 + i;
-      x = ld(q + b * p.q_sb + h * p.q_sh + row * p.q_ss + d);
-      y = ld(dO + b * p.d_sb + h * p.d_sh + row * p.d_ss + d);
-    }
-    Qs[idx] = x;
-    Gs[idx] = y;
-  }
-  __syncthreads();
+  load_rows<HDP>(Qs, q, p.q_ss, q0, rows, p.Sq, p.hd);
+  load_rows<HDP>(Gs, dO, p.d_ss, q0, rows, p.Sq, p.hd);
+  cp_async_commit();
+  __syncthreads();                     // krange set
 
-  // the warp's rows: r = warp + kWarps * i; live = a real row that sees a key
-  int lo[kPerWarp], hi[kPerWarp];
-  bool live[kPerWarp];
-  float D[kPerWarp], lse[kPerWarp];
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    const int r = warp + kWarps * i;
-    const int g = r / p.bq, qi = r - g * p.bq;
-    const bool valid = g < p.G && q0 + qi < p.Sq;
-    band(p, p.q_offset + q0 + qi, lo[i], hi[i]);
-    live[i] = valid && lo[i] <= hi[i];
-    if (live[i] && lane == 0) {
-      atomicMin(&krange[0], lo[i]);
-      atomicMax(&krange[1], hi[i]);
-    }
+  // D = rowsum(dO * O) and lse (+inf where the row sees no key: P = 0), a
+  // warp a row; the keys of the live rows' bands into krange
+  for (int r = warp; r < rows; r += nwarps) {
+    const int row = q0 + r;
     float acc = 0.f;
-    lse[i] = 0.f;
-    if (valid) {
-      const long long h = kvh * p.G + g, row = q0 + qi;
-      const T* orow = o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
-      for (int d = lane; d < hd; d += 32) acc = fmaf(Gs[r * hd + d], ld(orow + d), acc);
-      if (live[i]) lse[i] = p.lse[((long long)b * p.H + h) * p.Sq + row];
+    if (row < p.Sq) {
+      const float* grow = dO + (long long)row * p.d_ss;
+      const float* orow = o + (long long)row * p.o_ss;
+      for (int d = lane; d < p.hd; d += 32) acc = fmaf(grow[d], orow[d], acc);
     }
-    D[i] = warp_sum(acc);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      int lo, hi;
+      band(p, p.q_offset + row, lo, hi);
+      const bool live = row < p.Sq && lo <= hi;
+      const long long srow = ((long long)b * p.H + h) * p.Sq + row;
+      Ls[r] = live ? p.lse[srow] : INFINITY;
+      Ds[r] = acc;
+      if (row < p.Sq) p.dsum[srow] = acc;
+      if (live) {
+        atomicMin(&krange[0], lo);
+        atomicMax(&krange[1], hi);
+      }
+    }
   }
   __syncthreads();
-  // the keys of the live rows' bands (none if no row is live); an empty row
-  // has no dQ, and its dV share is the dk/dv kernel's
+
+  // the keys of the live rows' bands; a row with no key has no dQ
   const int kstart = krange[0], kend = krange[1] + 1;
-  const int kfirst = kstart < kend ? (kstart / BK) * BK : kend;
+  const int kt0 = kstart < kend ? (kstart / kTile) * kTile : 0;
+  const int ntiles = kstart < kend ? (kend - kt0 + kTile - 1) / kTile : 0;
+  auto fetch = [&](int n) {            // K/V tile n into stage n & 1
+    float* dst = KVs + (n & 1) * 2 * kTile * LD;
+    load_rows<HDP>(dst, k, p.k_ss, kt0 + n * kTile, kTile, p.Sk, p.hd);
+    load_rows<HDP>(dst + kTile * LD, v, p.v_ss, kt0 + n * kTile, kTile, p.Sk, p.hd);
+    cp_async_commit();
+  };
+  if (ntiles > 0) fetch(0);
 
-  // P = 2^(s scale log2 e - lse), dS = P (dO V^T - D), dQ += dS K
-  float acc[kPerWarp][NJ];
+  const int rg = warp / W, wc = warp % W, r0 = 16 * rg;
+  int pos[2];
+  float lse[2], D[2];
 #pragma unroll
-  for (int i = 0; i < kPerWarp; ++i)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + gid + 8 * hh;
+    pos[hh] = p.q_offset + q0 + r;
+    lse[hh] = Ls[r];
+    D[hh] = Ds[r];
+  }
+  const int qmin = p.q_offset + q0, qmax = p.q_offset + min(q0 + rows, p.Sq) - 1;
+  const float sl2 = p.sl2;
+  // ldmatrix: Q/dO rows r0 + t % 8 (+ 8 for t / 8 odd), columns 4 (t / 16);
+  // K/V keys wc NS + t % 8 (+ 8 for t >= 16), columns 4 (t / 8 % 2)
+  const uint32_t sQ = smem_u32(Qs + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                               4 * (lane >> 4));
+  const uint32_t sG = sQ + rows * LD * 4;
+  const uint32_t boff = ((wc * NS + (lane & 7) + 8 * (lane >> 4)) * LD + 4 * ((lane >> 3) & 1)) * 4;
+  const float* dsr = dS + (r0 + gid) * kLS + 2 * tig;
+
+  float dq[HC / 8][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int kt = kfirst; kt < kend; kt += BK) {
-    __syncthreads();
-    for (int idx = tid; idx < BK * hd; idx += kThreads) {
-      const int c = idx / hd, d = idx - c * hd;
-      float kx = 0.f, vx = 0.f;
-      if (kt + c < p.Sk) {
-        kx = ld(k + (long long)(kt + c) * p.k_ss + d);
-        vx = ld(v + (long long)(kt + c) * p.v_ss + d);
-      }
-      Ks[c * kst + d] = kx;
-      Vs[c * kst + d] = vx;
-    }
-    __syncthreads();
-    float s[kPerWarp][X], dp[kPerWarp][X];
+  for (int j = 0; j < HC / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();                   // tile t in; tile t - 1's reads of its stage and dS done
+    if (t + 1 < ntiles) fetch(t + 1);
+    const int kt = kt0 + t * kTile;
+    const float* Ks = KVs + (t & 1) * 2 * kTile * LD;
+    const uint32_t sK = smem_u32(Ks) + boff, sV = sK + kTile * LD * 4;
+
+    // S = Q K^T, dP = dO V^T over hd
+    float s[NS / 8][4], dp[NS / 8][4];
+    scores<HDP, NS>(s, dp, sQ, sG, sK, sV);
+
+    // P = 2^(s sl2 - lse), masked in tiles that reach past Sk or the
+    // block's band; dS = P (dP - D), staged
+    const bool edge = kt + kTile > p.Sk || (p.causal && kt + kTile - 1 > qmin) ||
+                      (p.has_window && kt <= qmax - p.window);
 #pragma unroll
-    for (int i = 0; i < kPerWarp; ++i)
+    for (int j = 0; j < NS / 8; ++j) {
 #pragma unroll
-      for (int x = 0; x < X; ++x) s[i][x] = dp[i][x] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float kx[X], vx[X];
-#pragma unroll
-      for (int x = 0; x < X; ++x) {
-        kx[x] = Ks[(lane + 32 * x) * kst + d];
-        vx[x] = Vs[(lane + 32 * x) * kst + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) {
-        const int r = warp + kWarps * i;
-        const float qv = Qs[r * hd + d], gv = Gs[r * hd + d];
-#pragma unroll
-        for (int x = 0; x < X; ++x) {
-          s[i][x] = fmaf(qv, kx[x], s[i][x]);
-          dp[i][x] = fmaf(gv, vx[x], dp[i][x]);
+      for (int i = 0; i < 4; ++i) {
+        const int hh = i >> 1;
+        float pr = ex2(fmaf(s[j][i], sl2, -lse[hh]));
+        if (edge) {
+          const int c = kt + wc * NS + 8 * j + 2 * tig + (i & 1);
+          if (c >= p.Sk || masked(p, c, pos[hh])) pr = 0.f;
         }
+        s[j][i] = pr * (dp[j][i] - D[hh]);
       }
+      float* d0 = dS + (r0 + gid) * kLS + wc * NS + 8 * j + 2 * tig;
+      *reinterpret_cast<float2*>(d0) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(d0 + 8 * kLS) = make_float2(s[j][2], s[j][3]);
     }
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      float* srow = Ss + (warp + kWarps * i) * BK;
-#pragma unroll
-      for (int x = 0; x < X; ++x) {
-        const int c = kt + lane + 32 * x;
-        const bool vis = live[i] && c >= lo[i] && c <= hi[i];
-        const float pr = vis ? exp2f(s[i][x] * p.sl2 - lse[i]) : 0.f;
-        srow[lane + 32 * x] = vis ? pr * (dp[i][x] - D[i]) : 0.f;
-      }
-    }
-    __syncwarp();
-    const int nc = min(BK, p.Sk - kt);
-    for (int c = 0; c < nc; ++c) {
-      float kk[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane + 32 * j;
-        kk[j] = d < hd ? Ks[c * kst + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) {
-        const float ds = Ss[(warp + kWarps * i) * BK + c];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(ds, kk[j], acc[i][j]);
-      }
-    }
+    sync_group<W>(rg);
+
+    // dQ[:, wc HC ..] += dS K
+    tile_product<HC, LD>(dq, dsr, Ks + 2 * tig * LD + wc * HC + gid);
   }
 
-  T* dq = static_cast<T*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    const int r = warp + kWarps * i;
-    const int g = r / p.bq, qi = r - g * p.bq;
-    if (g < p.G && q0 + qi < p.Sq) {
-      const long long row = ((long long)b * p.H + kvh * p.G + g) * p.Sq + q0 + qi;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane + 32 * j;
-        if (d < hd) st(dq + row * hd + d, acc[i][j] * p.scale);
-      }
-      if (lane == 0) p.dsum[row] = D[i];
-    }
-  }
+  cp_async_wait<0>();                  // no copy outlives the block
+  store_acc(static_cast<float*>(p.dq) + (((long long)b * p.H + h) * p.Sq + q0) * p.hd, dq,
+            p.scale, r0 + gid, min(rows, p.Sq - q0), p.hd, wc * HC);
 }
 
-// --------------------------------------------------------------------------
-// CUDA-core route: dK and dV, one block per 64 keys of one kv head
-// --------------------------------------------------------------------------
-
-size_t dkdv_smem_bytes(int hd, int bq) {
-  return sizeof(float) * (size_t)(2 * kKeys * hd + 2 * bq * (hd | 1) + kKeys * bq + 2 * bq);
-}
-
-template <typename T, int NJ, int X>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const BwdParams p) {
-  constexpr int BQ = 32 * X;              // query rows per tile, X per lane
-  extern __shared__ float smem[];
-  const int hd = p.hd;
-  const int kst = hd | 1;
-  float* Ks = smem;                       // kKeys x hd (read as warp broadcasts)
-  float* Vs = Ks + kKeys * hd;            // kKeys x hd
-  float* Qs = Vs + kKeys * hd;            // BQ x kst
-  float* Gs = Qs + BQ * kst;              // BQ x kst: dO
-  float* Ps = Gs + BQ * kst;              // kKeys x BQ: P, then dS (each warp its own keys)
-  float* Ls = Ps + kKeys * BQ;            // BQ: lse
-  float* Ds = Ls + BQ;                    // BQ: D
-  float* Es = Qs;                         // kWarps x hd, after the band loop: empty rows' dO
+// dK and dV: `keys` (p.bk: 16, 32, 64 or 128) keys of kv head kvh over the
+// 32-row Q/dO tiles (head g, rows) of the G heads whose band reaches them,
+// the farthest rows first, each by cp.async, the next one in
+// flight while this one is multiplied; lse and D of a tile's rows staged in
+// shared memory. Warp w owns keys 16 (w / WK) .. + 15: S^T = K Q^T and dP^T
+// = V dO^T of NK rows of each tile, P^T and dS^T in registers, staged; dV
+// += P^T dO and dK += dS^T Q of HK columns (dO and Q read transposed, as K
+// in the dq kernel). GQA's sum over the G heads stays in the block; the
+// first keys run first.
+template <int HDP>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    flash_bwd_dkdv_tf32_kernel(const BwdParams p) {
+  using C = Cfg<HDP>;
+  constexpr int LD = C::LD, W = C::WK, HC = C::HK, NS = C::NK;
+  extern __shared__ float4 smem4[];
+  float* const Ks = reinterpret_cast<float*>(smem4);
+  const int keys = p.bk;
+  float* const Vs = Ks + keys * LD;
+  float* const QO = Vs + keys * LD;          // stage s: Q at QO + 2 s kTile LD, then dO
+  float* const Pt = QO + 4 * kTile * LD;     // keys x kLS: P^T
+  float* const dSt = Pt + keys * kLS;        // dS^T
+  __shared__ float Ls[2][kTile], Ds[2][kTile];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k0 = blockIdx.x * kKeys, kvh = blockIdx.y, b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q);
-  const T* dO = static_cast<const T*>(p.dout);
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  for (int idx = tid; idx < kKeys * hd; idx += kThreads) {
-    const int c = idx / hd, d = idx - c * hd;
-    float kx = 0.f, vx = 0.f;
-    if (k0 + c < p.Sk) {
-      kx = ld(k + (long long)(k0 + c) * p.k_ss + d);
-      vx = ld(v + (long long)(k0 + c) * p.v_ss + d);
-    }
-    Ks[idx] = kx;
-    Vs[idx] = vx;
-  }
-
-  float dk[kPerWarp][NJ], dv[kPerWarp][NJ];
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  const int klast = min(k0 + kKeys, p.Sk) - 1;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kvh = blockIdx.x % p.KV, k0 = (blockIdx.x / p.KV) * keys, b = blockIdx.y;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb;
+  const float* dO = static_cast<const float*>(p.dout) + b * p.d_sb;
+  const int klast = min(k0 + keys, p.Sk) - 1;
   int ibeg, iend;
   row_range(p, k0, klast, ibeg, iend);
-  // Far rows first: under a causal mask a key's largest terms come from the
-  // rows nearest it (they see the fewest keys), so adding those last keeps
-  // the fp32 running sums small while most of the G * rows terms are added.
-  const int ntiles = iend > ibeg ? (iend - ibeg + BQ - 1) / BQ : 0;
-  for (int t = ntiles - 1; t >= 0; --t) {
-    const int it = ibeg + t * BQ;
-    for (int g = 0; g < p.G; ++g) {
-      const long long h = kvh * p.G + g;
-      const T* qh = q + b * p.q_sb + h * p.q_sh;
-      const T* gh = dO + b * p.d_sb + h * p.d_sh;
-      const long long srow = ((long long)b * p.H + h) * p.Sq;
-      __syncthreads();   // K/V staged / the previous tile's reads done
-      for (int idx = tid; idx < BQ * hd; idx += kThreads) {
-        const int r = idx / hd, d = idx - r * hd;
-        float x = 0.f, y = 0.f;
-        if (it + r < p.Sq) {
-          x = ld(qh + (long long)(it + r) * p.q_ss + d);
-          y = ld(gh + (long long)(it + r) * p.d_ss + d);
-        }
-        Qs[r * kst + d] = x;
-        Gs[r * kst + d] = y;
-      }
-      for (int r = tid; r < BQ; r += kThreads) {
-        const bool in = it + r < p.Sq;
-        Ls[r] = in ? p.lse[srow + it + r] : 0.f;
-        Ds[r] = in ? p.dsum[srow + it + r] : 0.f;
-      }
-      __syncthreads();
+  const int nqt = iend > ibeg ? (iend - ibeg + kTile - 1) / kTile : 0;
+  const int ntiles = p.G * nqt;
 
-      int lo[X], hi[X];
+  load_rows<HDP>(Ks, static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss, k0,
+                 keys, p.Sk, p.hd);
+  load_rows<HDP>(Vs, static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss, k0,
+                 keys, p.Sk, p.hd);
+  cp_async_commit();
+  // tile u: the G heads' rows from ibeg + (nqt - 1 - u / G) 32, far rows
+  // first: under a causal mask a key's largest terms come from the rows
+  // nearest it, so adding them last keeps the running sums small while most
+  // of the terms are added
+  auto rows_of = [&](int u) { return ibeg + (nqt - 1 - u / p.G) * kTile; };
+  auto fetch = [&](int u) {            // Q/dO tile u into stage u & 1
+    const int it = rows_of(u);
+    const long long h = kvh * p.G + u % p.G;
+    float* dst = QO + (u & 1) * 2 * kTile * LD;
+    load_rows<HDP>(dst, q + h * p.q_sh, p.q_ss, it, kTile, p.Sq, p.hd);
+    load_rows<HDP>(dst + kTile * LD, dO + h * p.d_sh, p.d_ss, it, kTile, p.Sq, p.hd);
+    cp_async_commit();
+  };
+  auto stats = [&](int u, float& l, float& d) {   // row tid of tile u (tid < kTile)
+    l = INFINITY;
+    d = 0.f;
+    if (u < ntiles) row_stats(p, b, kvh * p.G + u % p.G, rows_of(u) + tid, l, d);
+  };
+  if (ntiles > 0) fetch(0);
+  if (tid < kTile) stats(0, Ls[0][tid], Ds[0][tid]);
+
+  const int kg = warp / W, wc = warp % W, c0 = 16 * kg;
+  const int key[2] = {k0 + c0 + gid, k0 + c0 + gid + 8};
+  const float sl2 = p.sl2;
+  // ldmatrix: K/V keys c0 + t % 8 (+ 8 for t / 8 odd), columns 4 (t / 16);
+  // Q/dO rows wc NS + t % 8 (+ 8 for t >= 16), columns 4 (t / 8 % 2)
+  const uint32_t sK = smem_u32(Ks + (c0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                               4 * (lane >> 4));
+  const uint32_t sV = sK + keys * LD * 4;
+  const uint32_t boff = ((wc * NS + (lane & 7) + 8 * (lane >> 4)) * LD + 4 * ((lane >> 3) & 1)) * 4;
+  const int pr0 = (c0 + gid) * kLS + 2 * tig;      // this thread's P^T / dS^T pairs
+
+  float dk[HC / 8][4], dv[HC / 8][4];
 #pragma unroll
-      for (int x = 0; x < X; ++x) {
-        const int row = it + lane + 32 * x;
-        band(p, p.q_offset + row, lo[x], hi[x]);
-        if (row >= p.Sq) hi[x] = -1;        // not a row: sees no key
+  for (int j = 0; j < HC / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[j][i] = dv[j][i] = 0.f;
+
+  for (int u = 0; u < ntiles; ++u) {
+    cp_async_wait<0>();
+    __syncthreads();                   // tile u (and K/V) in, its lse and D staged; tile u - 1
+                                       // done with its stage, P^T, dS^T
+    if (u + 1 < ntiles) fetch(u + 1);
+    float nl = 0.f, nd = 0.f;          // the next tile's lse and D, stored after this tile
+    const bool next = tid < kTile && u + 1 < ntiles;
+    if (next) stats(u + 1, nl, nd);
+    const int buf = u & 1, it = rows_of(u);
+    // does the band reach the block's keys from the tile's rows, and does it
+    // cover all of them (else mask)?
+    const int pmin = p.q_offset + it, pmax = p.q_offset + min(it + kTile, p.Sq) - 1;
+    const bool active = (!p.causal || k0 <= pmax) && (!p.has_window || klast > pmin - p.window);
+    const bool edge = (p.causal && klast > pmin) || (p.has_window && k0 <= pmax - p.window);
+    if (active) {                      // the same in every thread
+      const float* Qt = QO + buf * 2 * kTile * LD;
+      const float* Ot = Qt + kTile * LD;
+      const uint32_t sQt = smem_u32(Qt) + boff, sOt = sQt + kTile * LD * 4;
+
+      // S^T = K Q^T, dP^T = V dO^T over hd
+      float s[NS / 8][4], dp[NS / 8][4];
+      scores<HDP, NS>(s, dp, sK, sV, sQt, sOt);
+
+      // P^T = 2^(s sl2 - lse), dS^T = P^T (dP^T - D); the columns are the
+      // tile's rows; both staged
+      const float* L = Ls[buf];
+      const float* Dr = Ds[buf];
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        float pt[4], dst[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = wc * NS + 8 * j + 2 * tig + (i & 1);
+          float pr = ex2(fmaf(s[j][i], sl2, -L[c]));
+          if (edge && masked(p, key[i >> 1], p.q_offset + it + c)) pr = 0.f;
+          pt[i] = pr;
+          dst[i] = pr * (dp[j][i] - Dr[c]);
+        }
+        const int at = (c0 + gid) * kLS + wc * NS + 8 * j + 2 * tig;
+        *reinterpret_cast<float2*>(Pt + at) = make_float2(pt[0], pt[1]);
+        *reinterpret_cast<float2*>(Pt + at + 8 * kLS) = make_float2(pt[2], pt[3]);
+        *reinterpret_cast<float2*>(dSt + at) = make_float2(dst[0], dst[1]);
+        *reinterpret_cast<float2*>(dSt + at + 8 * kLS) = make_float2(dst[2], dst[3]);
       }
-      float s[kPerWarp][X], dp[kPerWarp][X];
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i)
-#pragma unroll
-        for (int x = 0; x < X; ++x) s[i][x] = dp[i][x] = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        float qx[X], gx[X];
-#pragma unroll
-        for (int x = 0; x < X; ++x) {
-          qx[x] = Qs[(lane + 32 * x) * kst + d];
-          gx[x] = Gs[(lane + 32 * x) * kst + d];
-        }
-#pragma unroll
-        for (int i = 0; i < kPerWarp; ++i) {
-          const int c = warp + kWarps * i;
-          const float kv = Ks[c * hd + d], vv = Vs[c * hd + d];
-#pragma unroll
-          for (int x = 0; x < X; ++x) {
-            s[i][x] = fmaf(kv, qx[x], s[i][x]);
-            dp[i][x] = fmaf(vv, gx[x], dp[i][x]);
-          }
-        }
-      }
-      // P into the warp's rows of Ps; dS kept in s
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) {
-        const int c = warp + kWarps * i, key = k0 + c;
-#pragma unroll
-        for (int x = 0; x < X; ++x) {
-          const int r = lane + 32 * x;
-          const bool vis = key <= klast && key >= lo[x] && key <= hi[x];
-          const float pr = vis ? exp2f(s[i][x] * p.sl2 - Ls[r]) : 0.f;
-          Ps[c * BQ + r] = pr;
-          s[i][x] = vis ? pr * (dp[i][x] - Ds[r]) : 0.f;
-        }
-      }
-      __syncwarp();
-      const int nr = min(BQ, p.Sq - it);
-      for (int r = nr - 1; r >= 0; --r) {     // dV += P^T dO, far rows first
-        float gg[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = lane + 32 * j;
-          gg[j] = d < hd ? Gs[r * kst + d] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kPerWarp; ++i) {
-          const float pr = Ps[(warp + kWarps * i) * BQ + r];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) dv[i][j] = fmaf(pr, gg[j], dv[i][j]);
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < kPerWarp; ++i)
-#pragma unroll
-        for (int x = 0; x < X; ++x) Ps[(warp + kWarps * i) * BQ + lane + 32 * x] = s[i][x];
-      __syncwarp();
-      for (int r = nr - 1; r >= 0; --r) {     // dK += dS^T Q
-        float qq[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = lane + 32 * j;
-          qq[j] = d < hd ? Qs[r * kst + d] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kPerWarp; ++i) {
-          const float ds = Ps[(warp + kWarps * i) * BQ + r];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) dk[i][j] = fmaf(ds, qq[j], dk[i][j]);
-        }
-      }
+      sync_group<W>(kg);
+
+      // dV[:, wc HC ..] += P^T dO, then dK[:, wc HC ..] += dS^T Q
+      const int bo = 2 * tig * LD + wc * HC + gid;
+      tile_product<HC, LD>(dv, Pt + pr0, Ot + bo);
+      tile_product<HC, LD>(dk, dSt + pr0, Qt + bo);
+    }
+    if (next) {
+      Ls[buf ^ 1][tid] = nl;
+      Ds[buf ^ 1][tid] = nd;
     }
   }
 
+  // rows whose band is empty: dV_j += the sum of their dO over the group / Sk
   int ie0, ie1;
   empty_rows(p, ie0, ie1);
   if (ie0 > 0 || ie1 < p.Sq) {
-    float es[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) es[j] = 0.f;
-    for (int g = 0; g < p.G; ++g) {
-      const T* gh = dO + b * p.d_sb + (long long)(kvh * p.G + g) * p.d_sh;
-      for (int part = 0; part < 2; ++part) {      // rows [0, ie0), then [ie1, Sq)
-        const int rend = part ? p.Sq : ie0;
-        for (int r = (part ? ie1 : 0) + warp; r < rend; r += kWarps) {
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            const int d = lane + 32 * j;
-            if (d < hd) es[j] += ld(gh + (long long)r * p.d_ss + d);
+    float* es = QO;                    // HDP column sums, in the stages' memory
+    cp_async_wait<0>();
+    __syncthreads();                   // the last tile's reads are done
+    for (int d = tid; d < HDP; d += blockDim.x) {
+      float e = 0.f;
+      if (d < p.hd) {
+        for (int g = 0; g < p.G; ++g) {
+          const float* gh = dO + (long long)(kvh * p.G + g) * p.d_sh + d;
+          for (int part = 0; part < 2; ++part) {     // rows [0, ie0), then [ie1, Sq)
+            const int rend = part ? p.Sq : ie0;
+            for (int r = part ? ie1 : 0; r < rend; ++r) e += gh[(long long)r * p.d_ss];
           }
         }
       }
-    }
-    __syncthreads();   // the band loop's reads of Qs are done
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + 32 * j;
-      if (d < hd) Es[warp * hd + d] = es[j];
+      es[d] = e;
     }
     __syncthreads();
     const float inv = 1.f / (float)p.Sk;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + 32 * j;
-      if (d >= hd) continue;
-      float e = 0.f;
-      for (int w = 0; w < kWarps; ++w) e += Es[w * hd + d];
+    for (int j = 0; j < HC / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < kPerWarp; ++i) dv[i][j] = fmaf(e, inv, dv[i][j]);
-    }
+      for (int i = 0; i < 4; ++i)
+        dv[j][i] = fmaf(es[wc * HC + 8 * j + 2 * tig + (i & 1)], inv, dv[j][i]);
   }
 
-  T* dkp = static_cast<T*>(p.dk);
-  T* dvp = static_cast<T*>(p.dv);
-#pragma unroll
-  for (int i = 0; i < kPerWarp; ++i) {
-    const int key = k0 + warp + kWarps * i;
-    if (key >= p.Sk) continue;
-    const long long row = ((long long)b * p.KV + kvh) * p.Sk + key;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + 32 * j;
-      if (d < hd) {
-        st(dkp + row * hd + d, dk[i][j] * p.scale);
-        st(dvp + row * hd + d, dv[i][j]);
-      }
-    }
-  }
+  // dK (times scale) and dV of this warp's keys and columns
+  cp_async_wait<0>();                  // no copy outlives the block
+  const long long base = ((long long)b * p.KV + kvh) * p.Sk + k0;
+  const int nk = min(keys, p.Sk - k0);
+  store_acc(static_cast<float*>(p.dk) + base * p.hd, dk, p.scale, c0 + gid, nk, p.hd, wc * HC);
+  store_acc(static_cast<float*>(p.dv) + base * p.hd, dv, 1.f, c0 + gid, nk, p.hd, wc * HC);
 }
 
-template <typename T, int NJ, int X>
-cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
-  static int allowed_dq[kMaxDevices], allowed_dkdv[kMaxDevices];
-  const int dq_smem = (int)dq_smem_bytes(p.hd, 32 * X);
-  const int dkdv_smem = (int)dkdv_smem_bytes(p.hd, 32 * X);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, NJ, X>, dq_smem, allowed_dq);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dkdv_kernel<T, NJ, X>, dkdv_smem, allowed_dkdv);
-  if (err != cudaSuccess) return err;
-  const dim3 dq_grid((p.Sq + p.bq - 1) / p.bq, p.KV, B);
-  flash_bwd_dq_kernel<T, NJ, X><<<dq_grid, kThreads, dq_smem, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 dkdv_grid((p.Sk + kKeys - 1) / kKeys, p.KV, B);
-  flash_bwd_dkdv_kernel<T, NJ, X><<<dkdv_grid, kThreads, dkdv_smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// NJ 32-wide column groups cover hd; X = 2 keys (dq) or rows (dk/dv) per lane
-// where shared memory allows two blocks per SM at that width, else 1.
-cudaError_t dispatch_f32(const BwdParams& p, int B, cudaStream_t stream) {
-  if (p.hd <= 64) return launch<float, 2, 2>(p, B, stream);
-  if (p.hd <= 96) return launch<float, 3, 2>(p, B, stream);
-  if (p.hd <= 128) return launch<float, 4, 1>(p, B, stream);
-  return launch<float, 8, 1>(p, B, stream);
-}
+}  // namespace tf32
 
 // --------------------------------------------------------------------------
 // bf16 route: wgmma on the tensor cores (hd <= 128, then the wide kernels)
@@ -921,21 +1097,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   store_rows(dq, p, b, kvh, q0, wg * 64 + (warp & 3) * 16 + (lane >> 2), lane);
-}
-
-// lse (+inf for a row past Sq or whose band is empty: P = 0) and D of query
-// row `row` of head h, for the dk/dv kernel's tile of that row
-__device__ __forceinline__ void row_stats(const BwdParams& p, int b, int h, int row,
-                                          float& lse, float& D) {
-  lse = INFINITY;
-  D = 0.f;
-  if (row < p.Sq) {
-    int lo, hi;
-    band(p, p.q_offset + row, lo, hi);
-    const long long srow = ((long long)b * p.H + h) * p.Sq + row;
-    if (lo <= hi) lse = p.lse[srow];
-    D = p.dsum[srow];
-  }
 }
 
 // A warpgroup's accumulator rows (keys key0 and key1 of this thread), the
@@ -1656,22 +1817,74 @@ cudaError_t dispatch_mma(BwdParams& p, int B, int keys, cudaStream_t stream) {
   return launch_mma<128, 128>(p, tq, tdo, tk, tv, B, keys, stream);
 }
 
+template <int HDP>
+cudaError_t launch_tf32(BwdParams& p, int B, int rows, int keys, cudaStream_t stream) {
+  using C = tf32::Cfg<HDP>;
+  static int allowed_dq[kMaxDevices], allowed_dkdv[kMaxDevices];
+  if (rows > C::kMaxRows || keys > C::kMaxKeys) return cudaErrorInvalidValue;
+  p.bq = rows;
+  p.bk = keys;
+  const int dq_smem = (int)C::dq_smem(rows), dkdv_smem = (int)C::dkdv_smem(keys);
+  cudaError_t err = allow_smem(tf32::flash_bwd_dq_tf32_kernel<HDP>, dq_smem, allowed_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(tf32::flash_bwd_dkdv_tf32_kernel<HDP>, dkdv_smem, allowed_dkdv);
+  if (err != cudaSuccess) return err;
+  const dim3 dq_grid((p.Sq + rows - 1) / rows, p.H, B);
+  tf32::flash_bwd_dq_tf32_kernel<HDP><<<dq_grid, 32 * (rows / 16) * C::WQ, dq_smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // key blocks outer, kv heads inner: the first keys of every head first
+  const dim3 dkdv_grid(((p.Sk + keys - 1) / keys) * p.KV, B);
+  tf32::flash_bwd_dkdv_tf32_kernel<HDP>
+      <<<dkdv_grid, 32 * (keys / 16) * C::WK, dkdv_smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// A stride allows 16-byte fp32 copies if it is a positive multiple of 4
+// elements or its dimension has one entry.
+inline bool aligned4(long long stride, int n) { return n == 1 || (stride > 0 && stride % 4 == 0); }
+
+// The split-TF32 route: q, k, v and dout must start on 16 bytes and have
+// strides of whole 16-byte chunks (the wrapper copies them so where they do
+// not), for cp.async. hd is padded to HDP columns (zero-filled): 64, 80,
+// 128, 192 or 256.
+cudaError_t dispatch_tf32(BwdParams& p, int B, int rows, int keys, cudaStream_t stream) {
+  const bool ok = (uintptr_t)p.q % 16 == 0 && (uintptr_t)p.k % 16 == 0 &&
+                  (uintptr_t)p.v % 16 == 0 && (uintptr_t)p.dout % 16 == 0 &&
+                  aligned4(p.q_sb, B) && aligned4(p.q_sh, p.H) && aligned4(p.q_ss, p.Sq) &&
+                  aligned4(p.d_sb, B) && aligned4(p.d_sh, p.H) && aligned4(p.d_ss, p.Sq) &&
+                  aligned4(p.k_sb, B) && aligned4(p.k_sh, p.KV) && aligned4(p.k_ss, p.Sk) &&
+                  aligned4(p.v_sb, B) && aligned4(p.v_sh, p.KV) && aligned4(p.v_ss, p.Sk);
+  const bool blocks = (rows == 16 || rows == 32 || rows == 64 || rows == 128) &&
+                      (keys == 16 || keys == 32 || keys == 64 || keys == 128);
+  if (!ok || !blocks) return cudaErrorInvalidValue;
+  if (p.hd <= 64) return launch_tf32<64>(p, B, rows, keys, stream);
+  if (p.hd <= 80) return launch_tf32<80>(p, B, rows, keys, stream);
+  if (p.hd <= 128) return launch_tf32<128>(p, B, rows, keys, stream);
+  if (p.hd <= 192) return launch_tf32<192>(p, B, rows, keys, stream);
+  return launch_tf32<256>(p, B, rows, keys, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16. route: 0 the CUDA cores (fp32 only), 1 the tensor
-// cores (bf16 only), as the caller's rule (flash_attention.bwd_route)
-// chooses it; keys: the tensor-core route's dK/dV block, 64 or 128 at hd <=
-// 128 and 64 above (the caller's flash_attention.bwd_keys). lse (B,H,Sq)
-// fp32 contiguous, from the forward's training entry; dq (B,H,Sq,hd), dk and dv (B,KV,Sk,hd) contiguous, dsum (B,H,Sq)
-// fp32 contiguous scratch. Returns a cudaError_t (0 = launched).
-int flash_attention_bwd_launch(int dtype, int route, int keys, const void* q, const void* k,
-                               const void* v, const void* o, const void* dout, void* dq,
-                               void* dk, void* dv, const void* lse, void* dsum, int B, int H,
-                               int KV, int Sq, int Sk, int hd, long long q_sb, long long q_sh,
-                               long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-                               long long v_sb, long long v_sh, long long v_ss,
+// dtype: 0 fp32, 1 bf16. route: 1 the tensor cores in bf16 (bf16 only), 2
+// the tensor cores in split-TF32 products (fp32 only), as the caller's rule
+// (flash_attention.bwd_route) chooses it. keys: the dK/dV block, on route 1
+// 64 or 128 at hd <= 128 and 64 above (flash_attention.bwd_keys), on route 2
+// 16, 32 or 64 (32 at most past hd 192); rows: route 2's dQ block, positions
+// of one head, 16, 32 or 64 (32 at most past hd 192), 0 on route 1
+// (flash_attention.bwd_tf32_blocks chooses both). lse (B,H,Sq) fp32
+// contiguous, from the forward's training entry; dq (B,H,Sq,hd), dk and dv
+// (B,KV,Sk,hd) contiguous, dsum (B,H,Sq) fp32 contiguous scratch. Returns a
+// cudaError_t (0 = launched).
+int flash_attention_bwd_launch(int dtype, int route, int keys, int rows, const void* q,
+                               const void* k, const void* v, const void* o, const void* dout,
+                               void* dq, void* dk, void* dv, const void* lse, void* dsum, int B,
+                               int H, int KV, int Sq, int Sk, int hd, long long q_sb,
+                               long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                               long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                                long long o_sb, long long o_sh, long long o_ss,
                                long long d_sb, long long d_sh, long long d_ss, int q_offset,
                                int causal, int has_window, int window, void* stream) {
@@ -1684,7 +1897,6 @@ int flash_attention_bwd_launch(int dtype, int route, int keys, const void* q, co
   p.lse = static_cast<const float*>(lse);
   p.dsum = static_cast<float*>(dsum);
   p.H = H; p.KV = KV; p.G = H / KV; p.Sq = Sq; p.Sk = Sk; p.hd = hd;
-  p.bq = kRows / p.G;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
@@ -1696,12 +1908,12 @@ int flash_attention_bwd_launch(int dtype, int route, int keys, const void* q, co
   p.sl2 = p.scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 1) {
-    if (dtype != 1 || (keys != 64 && keys != 128) || (hd > 128 && keys != 64))
+    if (dtype != 1 || rows != 0 || (keys != 64 && keys != 128) || (hd > 128 && keys != 64))
       return (int)cudaErrorInvalidValue;
     return (int)dispatch_mma(p, B, keys, st);
   }
-  if (route != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_f32(p, B, st);
+  if (route != 2 || dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_tf32(p, B, rows, keys, st);
 }
 
 }  // extern "C"

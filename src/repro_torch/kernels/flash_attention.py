@@ -47,14 +47,18 @@ fp32, base 2 of the scores times ``hd ** -0.5 * log2(e)``), and it saves q,
 k, v, the output and ``lse``. Its backward is ``flash_attention_bwd``, the C
 entry of ``csrc/flash_attention_bwd.cu``: two kernels, dQ with D =
 rowsum(dO * O), then dK and dV per key block, routed by ``bwd_route``
-from the dtype alone: bf16 on the tensor cores at every hd, fp32 on the
-CUDA cores. The tensor cores' 989 TFLOP/s bound the bf16 route at the
-training shapes (about 2,000-3,000 flops per byte moved). Up to hd 128 a
-warpgroup holds the fp32 dK and dV of its keys; past it they would need
-256 registers a thread, so the wide kernels give each warpgroup half of
-hd's columns and split the products over hd between the two (the source's
-note has the design). On the tensor cores ``bwd_keys`` sizes the dK/dV
-block from the mask and hd.
+from the dtype alone, both on the tensor cores at every hd. bf16: ``wgmma``;
+the tensor cores' 989 TFLOP/s bound it at the training shapes (about
+2,000-3,000 flops per byte moved). Up to hd 128 a warpgroup holds the fp32
+dK and dV of its keys; past it they would need 256 registers a thread, so
+the wide kernels give each warpgroup half of hd's columns and split the
+products over hd between the two (the source's note has the design);
+``bwd_keys`` sizes the dK/dV block from the mask and hd. fp32: ``mma.sync``
+in split-TF32 products, each operand split into a TF32 big part and a TF32
+small part and every product taken as big·small + small·big + big·big with
+fp32 sums (one TF32 product would miss the fp32 tolerance 2e-5 by two
+orders), bound by 495/3 = 165 TFLOP/s; ``bwd_tf32_blocks`` sizes both
+kernels' blocks from the shape so that the grid fills the card.
 Everywhere else, the serving engine's ``inference_mode`` included, the
 call is the serving launch, which saves nothing. A launch of either
 forward entry counts in ``flash_attention.launches``; ``flash_attention_bwd
@@ -74,22 +78,37 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 64          # query heads per kv head that one block packs
 INT32_MAX = 2**31 - 1
 NARROW_BWD_MAX_HEAD_DIM = 128   # wider heads run the backward's wide kernels
-BWD_ROUTES = {"cuda cores": 0, "tensor cores": 1}   # the C entry's route argument
+BWD_ROUTES = {"tensor cores": 1, "tensor cores, split tf32": 2}   # the C entry's route argument
+SMS = 132                        # the H100's streaming multiprocessors
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The backward kernels a call of (dtype, hd) runs: "tensor cores" for
-    bf16 at every hd up to ``MAX_HEAD_DIM``, "cuda cores" for fp32, whose
-    2e-5 tolerance TF32 would miss. The C entry takes the route as an
-    argument (``BWD_ROUTES``) and refuses the tensor cores for fp32 and the
-    CUDA cores for bf16."""
-    if dtype == torch.bfloat16 and hd <= MAX_HEAD_DIM:
-        return "tensor cores"
-    return "cuda cores"
+    """The backward kernels a call of (dtype, hd) runs, at every hd up to
+    ``MAX_HEAD_DIM``: "tensor cores" (``wgmma`` in bf16) for bf16, "tensor
+    cores, split tf32" (``mma.sync`` in three TF32 products a product) for
+    fp32, whose 2e-5 tolerance one TF32 product would miss. The C entry
+    takes the route as an argument (``BWD_ROUTES``) and refuses a route
+    that is not the dtype's."""
+    return "tensor cores" if dtype == torch.bfloat16 else "tensor cores, split tf32"
+
+
+def bwd_tf32_blocks(B: int, H: int, KV: int, Sq: int, Sk: int, hd: int) -> tuple:
+    """(rows, keys) of the split-TF32 route's blocks: the positions of one
+    query head that a dQ block takes and the keys of a dK/dV block, each the
+    largest of 128, 64, 32 and 16 whose grid has at least ``SMS`` blocks (16
+    if none has), within what a block holds: rows at most 128 up to hd 128,
+    64 up to 192, 32 past it; keys at most 128 up to hd 80, 64 up to 192, 32
+    past it (8 warps a block; Q and dO of 64 rows at hd 256 alone fill 133 KB
+    of shared memory)."""
+    def size(n, per, most):
+        return next((s for s in (128, 64, 32, 16) if s <= most and -(-n // s) * per >= SMS), 16)
+
+    rows = size(Sq, H * B, 128 if hd <= 128 else 64 if hd <= 192 else 32)
+    return rows, size(Sk, KV * B, 128 if hd <= 80 else 64 if hd <= 192 else 32)
 
 
 def bwd_blocks(hd: int) -> tuple:
-    """The dK/dV blocks (keys) that the tensor-core route has at ``hd``:
+    """The dK/dV blocks (keys) that the bf16 route has at ``hd``:
     64 and 128 up to ``NARROW_BWD_MAX_HEAD_DIM``; above it the wide kernels,
     64 only (two 64-key tiles of K and V at 256 columns, and the ring of
     Q/dO tiles, fill shared memory)."""
@@ -97,7 +116,7 @@ def bwd_blocks(hd: int) -> tuple:
 
 
 def bwd_keys(causal: bool, window: Optional[int], hd: int) -> int:
-    """The keys of a dK/dV block on the backward's tensor-core route. At
+    """The keys of a dK/dV block on the backward's bf16 route. At
     hd > ``NARROW_BWD_MAX_HEAD_DIM`` 64, the wide kernels' only block.
     Otherwise 64 under a causal mask without a window: the first keys see
     every row and the last one tile, so a block of 128 would take twice the
@@ -113,8 +132,9 @@ def bwd_keys(causal: bool, window: Optional[int], hd: int) -> int:
 def rows16(t: torch.Tensor) -> torch.Tensor:
     """``t`` (B,N,S,hd) if it starts on 16 bytes and every stride but the
     head dimension's (which must be 1) is a whole number of 16-byte chunks
-    or spans one entry, as the TMA unit and 16-byte copies need; else a copy
-    whose rows are padded to 16 bytes, as a view of ``hd`` columns."""
+    or spans one entry, as the TMA unit and 16-byte copies (``cp.async``)
+    need; else a copy whose rows are padded to 16 bytes, as a view of ``hd``
+    columns."""
     per = 16 // t.element_size()
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
             n == 1 or (s > 0 and s % per == 0) for s, n in zip(t.stride()[:3], t.shape[:3])):
@@ -190,15 +210,19 @@ def _launch(q, k, v, q_offset, causal, window, with_lse=False):
 def _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, q_offset, causal, window, stream,
               keys=None):
     """The arguments of the C entry ``flash_attention_bwd_launch``: the
-    dtype, the route ``bwd_route`` chooses, the dK/dV block (``keys``, else
-    ``bwd_keys``'s), pointers, shapes, strides in elements, masking and the
-    stream."""
+    dtype, the route ``bwd_route`` chooses, the dK/dV block and the dQ
+    block (bf16: ``keys``, else ``bwd_keys``'s, and 0; fp32:
+    ``bwd_tf32_blocks``'s keys and rows), pointers, shapes, strides in
+    elements, masking and the stream."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    return (DTYPES[q.dtype], BWD_ROUTES[bwd_route(q.dtype, hd)],
-            bwd_keys(causal, window, hd) if keys is None else keys, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), B, H, KV, Sq, Sk, hd,
+    if q.dtype == torch.bfloat16:
+        rows, keys = 0, bwd_keys(causal, window, hd) if keys is None else keys
+    else:
+        rows, keys = bwd_tf32_blocks(B, H, KV, Sq, Sk, hd)
+    return (DTYPES[q.dtype], BWD_ROUTES[bwd_route(q.dtype, hd)], keys, rows, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), dsum.data_ptr(), B, H, KV, Sq, Sk, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             *dout.stride()[:3], int(q_offset), int(causal), int(window is not None),
             int(window or 0), ctypes.c_void_p(stream))
@@ -224,8 +248,7 @@ def _launch_bwd(q, k, v, out, lse, dout, q_offset, causal, window, keys=None):
     dq = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:                        # no query row: nothing flows
         return dq, torch.zeros_like(k), torch.zeros_like(v)
-    if bwd_route(q.dtype, hd) == "tensor cores":   # TMA and 16-byte copies
-        q, k, v, dout = (rows16(t) for t in (q, k, v, dout))
+    q, k, v, dout = (rows16(t) for t in (q, k, v, dout))   # TMA and 16-byte copies
     dk = torch.empty((B, KV, Sk, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     dsum = torch.empty_like(lse)
@@ -300,13 +323,15 @@ def flash_attention_bwd(q, k, v, out, dout, *, lse=None, q_offset: int = 0,
     plain version (``ref.flash_attention_bwd_ref``, which recomputes the
     output and needs neither); a CUDA tensor launches the kernels or
     raises, and needs ``lse``. ``keys`` (one of ``bwd_blocks(hd)``)
-    overrides ``bwd_keys`` on the tensor-core route, to time the other
-    block."""
+    overrides ``bwd_keys`` on the bf16 route, to time the other block; the
+    fp32 route takes none."""
     _check(q, k, v, q_offset, window)
     blocks = bwd_blocks(q.shape[-1])
     if keys is not None and keys not in blocks:
         raise ValueError(f"keys={keys}: a dK/dV block takes "
                          f"{' or '.join(map(str, blocks))} keys at hd {q.shape[-1]}")
+    if keys is not None and q.dtype != torch.bfloat16:
+        raise ValueError(f"keys={keys}: only the bf16 route takes a dK/dV block")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, dout, q_offset=q_offset,
                                            causal=causal, window=window)

@@ -104,7 +104,7 @@ def main(argv=None):
             dt = time.time() - t0
             print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)", flush=True)
+                  f"lr {float(metrics['lr']):.2e} ({dt:.3f}s)", flush=True)
     if args.checkpoint:
         save_checkpoint(args.checkpoint, params, step=args.steps)
         print(f"saved {args.checkpoint}")

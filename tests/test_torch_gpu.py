@@ -459,6 +459,35 @@ def test_flash_bwd_kernel_gives_the_same_bits_twice(cuda, dtype, case):
     cases.check_flash_bwd_repeat(case, dtype, cuda)
 
 
+BWD_TF32 = ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkdv_tf32_kernel")
+BWD_BF16 = ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_wide_kernel",
+            "flash_bwd_dkdv_wide_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [cases.FLASH_BWD_TRAIN["100M twin"],
+                                  (1, 32, 4, 37, 141, 128, 104, 24, True),
+                                  (1, 8, 2, 33, 31, 80, 0, None, False)])
+def test_flash_bwd_runs_its_routes_device_kernels(cuda, dtype, case):
+    """The profiler's device kernels of backward calls (a whole window,
+    launch/device_time.py): fp32 runs the split-TF32 kernels, one launch
+    each a call, and no bf16 one; bf16 runs its tensor-core kernels and
+    never the fp32 ones."""
+    from repro_torch.launch import device_time
+    q, k, v, dout = cases.flash_bwd_inputs(case, dtype, cuda)
+    kw = dict(q_offset=case[6], window=case[7], causal=case[8])
+    out, lse = ops.flash_attention_train(q, k, v, **kw)
+    _, calls = device_time.device_ms(
+        lambda *t: ops.flash_attention_bwd(*t, lse=lse, **kw), [[q, k, v, out, dout]], 2)
+    ran = {name: [n for n in calls if name in n] for name in BWD_TF32 + BWD_BF16}
+    if dtype == torch.float32:
+        assert all(len(ran[name]) == 1 and calls[ran[name][0]][0] == 2 for name in BWD_TF32)
+        assert not any(ran[name] for name in BWD_BF16), calls
+    else:
+        assert any(ran[name] for name in BWD_BF16) and not any(ran[n] for n in BWD_TF32), calls
+
+
 def _guarded_calls(cuda):
     q, k, v, valid = cases.decode_inputs(cases.DECODE_SWEEP[0], torch.float32, cuda)
     return {"decode_attention": (ops.decode_attention, [q, k, v, valid], 0),

@@ -26,7 +26,7 @@ from repro_torch.kernels.cases import (DECODE_MAIN, DECODE_RAGGED, DECODE_SWEEP,
 from repro_torch.kernels.decode_attention import MAX_SPLITS, TILE, split_plan
 from repro_torch.kernels.flash_attention import (BWD_ROUTES, DTYPES, _bwd_args,
                                                  _entry_args, bwd_blocks, bwd_keys, bwd_route,
-                                                 rows16)
+                                                 bwd_tf32_blocks, rows16)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -367,12 +367,13 @@ def test_flash_train_plain_version_matches_float64_logsumexp(case):
 
 @pytest.mark.parametrize("hd", [64, 80, 128, 136, 256])
 def test_flash_bwd_route_depends_on_dtype_and_head_dim_alone(hd):
-    """bf16 on the tensor cores at every hd up to 256, fp32 on the CUDA
-    cores; the C entry takes the route as its second argument and the
-    dK/dV block of ``bwd_keys`` as its third, whatever the shape and
-    strides."""
+    """Both dtypes on the tensor cores at every hd up to 256: bf16 in
+    bf16, fp32 in split-TF32 products; the C entry takes the route as its
+    second argument, then the dK/dV block (``bwd_keys``'s in bf16,
+    ``bwd_tf32_blocks``'s in fp32) and the dQ block (0 in bf16, whose
+    blocks are fixed), whatever the strides."""
     assert bwd_route(torch.bfloat16, hd) == "tensor cores"
-    assert bwd_route(torch.float32, hd) == "cuda cores"
+    assert bwd_route(torch.float32, hd) == "tensor cores, split tf32"
     _, argtypes = build._SIGNATURES["flash_attention_bwd"]["flash_attention_bwd_launch"]
     for dtype in (torch.bfloat16, torch.float32):
         for B, H, KV, Sq, Sk, off, causal, win in ((1, 4, 2, 8, 8, 0, True, None),
@@ -382,10 +383,26 @@ def test_flash_bwd_route_depends_on_dtype_and_head_dim_alone(hd):
             lse = dsum = torch.zeros(B, H, Sq)
             args = _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, off, causal, win, 0)
             assert len(args) == len(argtypes)
-            assert args[:3] == (DTYPES[dtype], BWD_ROUTES[bwd_route(dtype, hd)],
-                                bwd_keys(causal, win, hd))
-            assert _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, off, causal, win, 0,
-                             keys=64)[2] == 64
+            rows, keys = bwd_tf32_blocks(B, H, KV, Sq, Sk, hd)
+            blocks = (bwd_keys(causal, win, hd), 0) if dtype == torch.bfloat16 else (keys, rows)
+            assert args[:4] == (DTYPES[dtype], BWD_ROUTES[bwd_route(dtype, hd)], *blocks)
+            if dtype == torch.bfloat16:
+                assert _bwd_args(q, k, v, out, dout, dq, dk, dv, lse, dsum, off, causal, win, 0,
+                                 keys=64)[2] == 64
+
+
+@pytest.mark.parametrize("label", list(cases.FLASH_BWD_TRAIN))
+def test_flash_bwd_tf32_blocks_fill_the_card(label):
+    """The split-TF32 route's blocks at the training shapes: each kernel's
+    grid has at least 132 blocks (the 100M twin's 16 positions and 16 keys:
+    256 each), within the largest block that fits at the case's hd."""
+    B, H, KV, Sq, Sk, hd = cases.FLASH_BWD_TRAIN[label][:6]
+    rows, keys = bwd_tf32_blocks(B, H, KV, Sq, Sk, hd)
+    assert -(-Sq // rows) * H * B >= 132 and -(-Sk // keys) * KV * B >= 132
+    assert rows <= (128 if hd <= 128 else 64 if hd <= 192 else 32)
+    assert keys <= (128 if hd <= 80 else 64 if hd <= 192 else 32)
+    if label == "100M twin":
+        assert (rows, keys) == (16, 16)
 
 
 @pytest.mark.parametrize("causal, window, keys", [(True, None, 64), (True, 4096, 128),
