@@ -9,8 +9,9 @@
    wkv6 backward and RG-LRU libraries may spill. TF32 is off for matmuls and
    cuDNN.
 2. Attention kernels: each against its plain PyTorch version, fp32 and
-   bf16 (flash: the CUDA-core and the tensor-core route), at the sweep,
-   ragged, empty-band and tile-edge shapes of
+   bf16 (flash: the split-TF32 and the wgmma route, both on the tensor
+   cores), at the sweep, ragged, empty-band and tile-edge shapes (the bf16
+   kernel's tiles and the fp32 kernel's, ``cases.FLASH_TF32_TILES``) of
    ``repro_torch/kernels/cases.py``, at every shape the yi-6b path gives
    it and at every call of the dense and MoE archs served in steps 10-12
    (the MoE archs' calls are nemotron-4-15b's, held once) and of
@@ -23,8 +24,9 @@
    decode steps (16 kv heads) (``repro_torch.launch.shapes``, from the
    configs and the turns), with
    the tolerance stated there (2e-5 fp32, 2e-2 bf16, the absolute term
-   scaled to the output). Then, at full width, the last rows of a cold bf16
-   flash call must equal a hit's call from the first of them bit for bit:
+   scaled to the output). Then, at full width, the last rows of a cold
+   flash call must equal a hit's call from the first of them bit for bit,
+   in bf16 and (at ``cases.FLASH_IDENTITY``) in fp32:
    yi-6b's (1,32,4,2560,2560,128) and Griffin's (1,10,1,2560,2560,256,
    window 2048) from 2,048 (``cases.FLASH_IDENTITY``), and each dense
    arch's and qwen2-vl-2b's cold prefill from its turn-2 hit (danube's
@@ -34,7 +36,9 @@
    ``library_ms`` (``F.scaled_dot_product_attention`` on the same masked GQA
    problem, a yardstick only: the port never calls it) and the least time
    the card could take, max(operations / peak rate, bytes / 3.35 TB/s),
-   with the term that binds. Times rotate over copies of the inputs that
+   with the term that binds (fp32 flash: its products at 495 / 3 = 165
+   TFLOP/s in split TF32, the CUDA cores' 67 TFLOP/s bound logged beside
+   it as ``cuda_cores_bound_ms``). Times rotate over copies of the inputs that
    together exceed the 50 MB L2 cache, as each layer of the model reads its
    own inputs. Each decode row also gives device time per call from the
    profiler over the same rotated loop (the calls queued behind a spin
@@ -61,11 +65,11 @@
    tokens, and last-position logits within the bf16 kernel tolerance scaled
    by the largest logit it measures. Then a profile of a replay of turn 2,
    which must show 32 launches of ``flash_mma_kernel`` (one per layer) and
-   none of the CUDA-core ``flash_kernel``, and 256 of ``decode_mma_kernel``
+   none of the fp32 route's kernels, and 256 of ``decode_mma_kernel``
    (8 tokens x 32 layers) and none of ``decode_partial_kernel<bf16>``.
    Every profiled replay (here and in steps 6, 9 and 10) opens its
-   session with small kernels and a spin and is read between that spin and
-   one after it; a window short of the launches it must show lost device
+   session with ``PROFILE_LEAD`` small kernels and a spin of about 5 ms
+   and is read between that spin and one after it; a window short of the launches it must show lost device
    events and is discarded, up to ``REPLAY_TRIES`` replays (each from a
    freshly stored prefix or state), and the last is judged.
 4. wkv6 kernel: against ``wkv6_ref`` at every ``WKV6_*`` case (the step
@@ -213,7 +217,17 @@
    dq, dk, dv written once at 3.35 TB/s; and the training entry's time
    beside its own bound (two products; q, k, v read, the output and lse
    written) and SDPA's forward (``enable_gqa``, the mask explicit, no
-   grad; a yardstick only: ``train_fwd_library_ms``). bf16 runs on the
+   grad; a yardstick only: ``train_fwd_library_ms``; in fp32 the products
+   at 165 TFLOP/s, the 67 TFLOP/s bound beside it as
+   ``train_fwd_cuda_cores_bound_ms``). At the 100M twin's and the enc-dec
+   cross's shapes, right after those rows (before any profile with host
+   activity: a run that read these windows after the training phases'
+   profiles recorded nothing in ten sessions), a profiler window of five fp32 training-entry calls must hold only
+   ``flash_tf32_split_kernel`` and ``flash_tf32_kernel`` launches, one
+   each a call; its device time per call and that of a window of SDPA's
+   fp32 forward join the shape's row (``train_fwd_device_ms``,
+   ``train_fwd_library_device_ms``): at these shapes the event times are
+   the host's. bf16 runs on the
    tensor cores at every hd: ``flash_bwd_dq_mma_kernel`` and
    ``flash_bwd_dkdv_mma_kernel`` up to hd 128, ``flash_bwd_dq_wide_kernel``
    and ``flash_bwd_dkdv_wide_kernel`` above (recurrentgemma-2b's hd 256,
@@ -330,9 +344,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # fp32 outside the tensor cores
-# the fp32 flash backward's products: three TF32 products each on the tensor
-# cores (495 TFLOP/s dense TF32)
+# the fp32 flash forward's and backward's products: three TF32 products each
+# on the tensor cores (495 TFLOP/s dense TF32)
 PEAK_SPLIT_TF32 = 495e12 / 3
+PROFILE_LEAD = 64                         # small kernels ahead of a profiled window
 L2_BYTES = 50e6
 DTYPES = (torch.float32, torch.bfloat16)
 SOURCES = {"flash_attention": "src/repro/kernels/flash_attention.py:106",
@@ -353,7 +368,8 @@ CSRC = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_att
         "rglru_scan": "rglru_scan.cu", "rglru_step": "rglru_scan.cu", "wkv6": "wkv6.cu",
         "flash_attention_bwd": "flash_attention_bwd.cu", "wkv6_bwd": "wkv6_bwd.cu",
         "rglru_scan_bwd": "rglru_scan.cu"}
-PORT_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
+PORT_KERNELS = ("flash_mma_kernel", "flash_tf32_split_kernel", "flash_tf32_kernel",
+                "decode_mma_kernel",
                 "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
                 "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_tf32_kernel",
                 "flash_bwd_dkdv_tf32_kernel", "flash_bwd_dq_mma_kernel",
@@ -370,7 +386,7 @@ BWD_KERNELS = {"bf16, hd <= 128": ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mm
 BF16_NEVER = BWD_KERNELS["fp32"]
 # the classes of a training step's device time, by kernel name (first match)
 STEP_CLASSES = (("flash backward", re.compile(r"flash_bwd_")),
-                ("flash forward", re.compile(r"flash_mma_kernel|flash_kernel")),
+                ("flash forward", re.compile(r"flash_mma_kernel|flash_tf32_")),
                 ("wkv6 backward", re.compile(r"wkv6_bwd_")),
                 ("wkv6 forward", re.compile(r"wkv6_kernel|wkv6_step_kernel")),
                 ("rglru backward", re.compile(r"rglru_bwd_")),
@@ -511,6 +527,29 @@ def bound(ops_n: float, nbytes: float, dtype, peak=None):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def flash_bounds(ops_n: float, nbytes: float, dtype, prefix: str = ""):
+    """A flash route's bound as {prefix + "bound_ms", prefix + "bound_by"}:
+    fp32 products at the split-TF32 rate, with the CUDA cores' bound (the
+    one before the fp32 routes moved to the tensor cores) beside it as
+    prefix + "cuda_cores_bound_ms"."""
+    split = dtype == torch.float32
+    ms, by = bound(ops_n, nbytes, dtype, PEAK_SPLIT_TF32 if split else None)
+    out = {"bound_ms": ms, "bound_by": by}
+    if split:
+        out["cuda_cores_bound_ms"] = bound(ops_n, nbytes, dtype)[0]
+    return {prefix + k: v for k, v in out.items()}
+
+
+def bound_text(r, prefix: str = "") -> str:
+    """The log's words for ``flash_bounds``' entries in ``r``."""
+    text = f"bound {r[prefix + 'bound_ms']:.6f} ms ({r[prefix + 'bound_by']}"
+    if prefix + "cuda_cores_bound_ms" in r:
+        text += (f"; products at {PEAK_SPLIT_TF32 / 1e12:.0f} TFLOP/s in split TF32, "
+                 f"{r[prefix + 'cuda_cores_bound_ms']:.6f} ms at "
+                 f"{PEAK_OPS[torch.float32] / 1e12:.0f} TFLOP/s of fp32 FMA")
+    return text + ")"
+
+
 # --------------------------------------------------------------------------- #
 # kernels
 # --------------------------------------------------------------------------- #
@@ -536,7 +575,7 @@ def flash_row(ops, ref, cases, case, dtype):
     ops_n = B * H * (4 * hd * pairs + 2 * hd * Sk * empty)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype))))
+                **flash_bounds(ops_n, nbytes, dtype))
 
 
 def decode_row(ops, ref, cases, case, dtype):
@@ -625,7 +664,8 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
     for dtype in DTYPES:
         for group, table in (("sweep", cases.FLASH_SWEEP), ("ragged", cases.FLASH_RAGGED),
                              ("empty band", cases.FLASH_EMPTY_BAND),
-                             ("griffin", cases.FLASH_GRIFFIN), ("tiles", cases.FLASH_TILES)):
+                             ("griffin", cases.FLASH_GRIFFIN), ("tiles", cases.FLASH_TILES),
+                             ("tf32 tiles", cases.FLASH_TF32_TILES)):
             for i, case in enumerate(table):
                 rows[("flash_attention", dtype, f"{group} {i}")] = (
                     case, flash_row(ops, ref, cases, case, dtype))
@@ -648,8 +688,7 @@ def kernels_phase(ops, ref, cases, flash_main, decode_main):
                       f"precomputed {r['library_premasked_device_ms']:.5f} ms")
         log(f"{name} {str(dtype)[6:]} {label} {case}: max |err| {r['max_abs_err']:.3e}, "
             f"kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-            f"sdpa {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']}){device}")
+            f"sdpa {r['library_ms']:.5f} ms, {bound_text(r)}{device}")
         if name == "decode_attention" and dtype == torch.bfloat16 and \
                 (label.startswith("floor") or case in decode_main.values()):
             for which, calls in r["library_kernels"].items():
@@ -698,18 +737,45 @@ def flash_bwd_row(ops, ref, cases, case, dtype):
     with torch.no_grad():
         fwd_lib = rotated_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), sets, 5)
-    fwd_bound = bound(B * H * (4 * hd * pairs + 2 * hd * Sk * empty),
-                      q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-                      + 4 * B * H * Sq, dtype)
-    # fp32: the products at the split-TF32 rate, and at the CUDA cores' (the
-    # bound before the route moved to the tensor cores), beside it
-    peak = PEAK_SPLIT_TF32 if dtype == torch.float32 else None
-    cuda_cores = dict(cuda_cores_bound_ms=bound(ops_n, nbytes, dtype)[0]) if peak else {}
+    fwd_ops = B * H * (4 * hd * pairs + 2 * hd * Sk * empty)
+    fwd_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * Sq
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **other,
                 train_fwd_ms=fwd_ms, train_fwd_library_ms=fwd_lib,
-                train_fwd_bound_ms=fwd_bound[0],
-                train_fwd_bound_by=fwd_bound[1], **cuda_cores,
-                **dict(zip(("bound_ms", "bound_by"), bound(ops_n, nbytes, dtype, peak))))
+                **flash_bounds(fwd_ops, fwd_bytes, dtype, "train_fwd_"),
+                **flash_bounds(ops_n, nbytes, dtype))
+
+
+def fwd_device_phase(ops, cases, rows, iters: int = 5):
+    """Step 16's fp32 training-entry windows, run before any profile with
+    host activity: at the 100M twin's and the enc-dec cross's shapes a profiler
+    window of ``iters`` fp32 training-entry calls must hold ``iters``
+    launches each of ``flash_tf32_split_kernel`` and ``flash_tf32_kernel``
+    and no other kernel (no bf16 flash kernel), as ``check_decode_calls``
+    checks decode. Its device time per call, and that of a window of SDPA's
+    fp32 forward on the same inputs, join the shape's fp32 row in ``rows``."""
+    for label in ("100M twin", "enc-dec cross"):
+        case = cases.FLASH_BWD_TRAIN[label]
+        q, k, v = cases.flash_inputs(case, torch.float32, "cuda")
+        kw = dict(q_offset=case[6], window=case[7], causal=case[8])
+        mask = flash_mask(case)
+        dev, calls = device_ms(lambda q, k, v: ops.flash_attention_train(q, k, v, **kw),
+                               [[q, k, v]], iters)
+        for want in ("flash_tf32_split_kernel", "flash_tf32_kernel<"):
+            if sum(c for n, (c, _) in calls.items() if want in n) != iters:
+                raise AssertionError(f"flash_attention_train float32 {case}: device launches "
+                                     f"{calls}, want {iters} of {want}")
+        if sum(c for c, _ in calls.values()) != 2 * iters:
+            raise AssertionError(f"flash_attention_train float32 {case}: device launches "
+                                 f"{calls}, want only the two fp32 kernels")
+        with torch.no_grad():
+            lib_dev, _ = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), [[q, k, v]], iters)
+        rows[(torch.float32, label)].update(train_fwd_device_ms=dev,
+                                            train_fwd_library_device_ms=lib_dev)
+        log(f"flash_attention_train float32 {label} {case}: a profiler window of {iters} calls "
+            f"ran only the fp32 route's kernels; device per call {dev:.5f} ms ("
+            + ", ".join(f"{n[:48]} {c} launches {t:.5f} ms" for n, (c, t) in calls.items())
+            + f"), sdpa forward {lib_dev:.5f} ms")
 
 
 def flash_bwd_phase(ops, ref, cases):
@@ -734,14 +800,9 @@ def flash_bwd_phase(ops, ref, cases):
             torch.cuda.empty_cache()
             log(f"flash_attention_bwd {str(dtype)[6:]} {label} {case}: max |err| "
                 f"{r['max_abs_err']:.3e}, kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
-                f"ms, sdpa backward {r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-                f"({r['bound_by']}"
-                + (f", products at {PEAK_SPLIT_TF32 / 1e12:.0f} TFLOP/s in split TF32; "
-                   f"{r['cuda_cores_bound_ms']:.6f} ms at {PEAK_OPS[dtype] / 1e12:.0f} TFLOP/s "
-                   f"of fp32 FMA" if "cuda_cores_bound_ms" in r else "")
-                + f"); training forward {r['train_fwd_ms']:.5f} ms, sdpa "
-                f"forward {r['train_fwd_library_ms']:.5f} ms, bound "
-                f"{r['train_fwd_bound_ms']:.6f} ms ({r['train_fwd_bound_by']})"
+                f"ms, sdpa backward {r['library_ms']:.5f} ms, {bound_text(r)}; training "
+                f"forward {r['train_fwd_ms']:.5f} ms, sdpa forward "
+                f"{r['train_fwd_library_ms']:.5f} ms, {bound_text(r, 'train_fwd_')}"
                 + (f"; {r['other_keys']}-key dK/dV blocks (not chosen): "
                                         f"{r['other_ms']:.5f} ms, max |err| "
                                         f"{r['other_err']:.3e}" if "other_ms" in r else ""))
@@ -749,11 +810,14 @@ def flash_bwd_phase(ops, ref, cases):
 
 
 def identity_phase(cases, pairs):
-    """Cold rows against a cache hit's, bit for bit, at full width."""
+    """Cold rows against a cache hit's, bit for bit, at full width: bf16 at
+    every pair, fp32 also at ``cases.FLASH_IDENTITY``'s."""
     for case, first in pairs:
-        cases.check_flash_hit_rows(case, first, torch.bfloat16, "cuda", seed=3)
-        log(f"flash bfloat16 {case}: rows {first}-{case[3] - 1} of the cold call equal "
-            f"the hit's from q_offset {first} bit for bit")
+        for dtype in DTYPES if (case, first) in cases.FLASH_IDENTITY else (torch.bfloat16,):
+            cases.check_flash_hit_rows(case, first, dtype, "cuda", seed=3)
+            torch.cuda.empty_cache()
+            log(f"flash {str(dtype)[6:]} {case}: rows {first}-{case[3] - 1} of the cold call "
+                f"equal the hit's from q_offset {first} bit for bit")
 
 
 # --------------------------------------------------------------------------- #
@@ -968,14 +1032,14 @@ def profile_turn2(serve, arch, params, ctx2):
         {"flash_mma_kernel": cfg.num_layers, "decode_mma_kernel": num_new * cfg.num_layers})
     if r.reused_tokens != ctx_len:
         raise AssertionError(f"{arch}: profiled replay of turn 2 missed the cache")
-    # the suffix prefill: one tensor-core flash launch per layer, no CUDA-core one
+    # the suffix prefill: one bf16 (wgmma) flash launch per layer, no fp32 one
     mma = sum(c for n, c in calls.items() if "flash_mma_kernel" in n)
-    cuda_core = sum(c for n, c in calls.items() if "flash_kernel<" in n)
-    log(f"{arch} profiled replay: {mma} flash_mma_kernel launches, {cuda_core} flash_kernel")
-    if mma != cfg.num_layers or cuda_core:
+    fp32 = sum(c for n, c in calls.items() if "flash_tf32_" in n)
+    log(f"{arch} profiled replay: {mma} flash_mma_kernel launches, {fp32} of the fp32 "
+        "route's (flash_tf32_split_kernel, flash_tf32_kernel)")
+    if mma != cfg.num_layers or fp32:
         raise AssertionError(f"{arch} profiled replay: {mma} flash_mma_kernel and "
-                             f"{cuda_core} flash_kernel launches, want {cfg.num_layers} "
-                             "and 0")
+                             f"{fp32} fp32 flash launches, want {cfg.num_layers} and 0")
     # the decode: one tensor-core decode launch per layer and token
     check_decode_calls(arch, calls, num_new * cfg.num_layers)
 
@@ -1168,24 +1232,30 @@ def profiled(label, fn):
     """Run ``fn()`` under the profiler; log the window, the device's busy
     time and idle share, and device time by kernel. Returns fn's result and
     the device calls by kernel name. A session can lose its first device
-    operations (``launch/device_time.py``), so it opens with a few small
-    kernels and a short spin, and fn's device work is read between that spin
-    and one after fn, as ``device_ms`` reads its windows."""
+    operations (``launch/device_time.py``): behind 3 small kernels and a
+    50 us spin, every try of a recurrentgemma-2b replay window lost one
+    ``rglru_step_kernel`` launch in two runs on an H100. So a session opens
+    with ``PROFILE_LEAD`` small kernels and a spin as long as ``device_ms``'s
+    (about 5 ms), and fn's device work is read between that spin and one
+    after fn, as ``device_ms`` reads its windows; a session that lost the
+    opening spin too is logged (its window is then all it recorded)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.device_time import LEAD_CALLS, SPIN_CYCLES, _device_events
+    from repro_torch.launch.device_time import SPIN_CYCLES, _device_events
 
     lead = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(LEAD_CALLS):
+        for _ in range(PROFILE_LEAD):
             lead.add_(1)
-        torch.cuda._sleep(SPIN_CYCLES // 100)
+        torch.cuda._sleep(SPIN_CYCLES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = fn()
         wall_us = (time.perf_counter() - t0) * 1e6
         torch.cuda._sleep(SPIN_CYCLES // 100)
         torch.cuda.synchronize()
-    _, us = _device_events(prof)
+    spins, us = _device_events(prof)
+    if spins < 2:
+        log(f"profile of {label}: the session recorded {spins} of its 2 spins (lost its start)")
     by_name = {n: sum(t) for n, t in us.items()}
     calls = {n: len(t) for n, t in us.items()}
     busy = sum(by_name.values())
@@ -2020,6 +2090,9 @@ def main():
     bwd_rows = flash_bwd_phase(ops, ref, cases)
     log(f"flash backward kernel phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
+    fwd_device_phase(ops, cases, bwd_rows)
+    log(f"fp32 training-entry windows: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
     wkv_bwd_rows = wkv6_bwd_phase(ops, ref, cases)
     log(f"wkv6 backward kernel phase: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
@@ -2127,7 +2200,9 @@ def main():
     # shape, bf16 and fp32 (the forward's training entry and SDPA's forward
     # beside them; fp32 with the bound at the CUDA cores' rate too)
     fields = ("ms", "plain_ms", "library_ms", "bound_ms", "train_fwd_ms",
-              "train_fwd_library_ms", "train_fwd_bound_ms", "cuda_cores_bound_ms")
+              "train_fwd_library_ms", "train_fwd_bound_ms", "cuda_cores_bound_ms",
+              "train_fwd_cuda_cores_bound_ms", "train_fwd_device_ms",
+              "train_fwd_library_device_ms")
     kernels[list(SOURCES).index("flash_attention_bwd")].update(
         device_kernels=BWD_KERNELS,
         **{key: {label: {f: r[f] for f in fields if f in r}

@@ -49,9 +49,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": (
-            _I, [_I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_I] * 4 + [_P]),
+            _I, [_I, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_I] * 5 + [_P, _P]),
         "flash_attention_train_launch": (
-            _I, [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_I] * 4 + [_P]),
+            _I, [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_I] * 5 + [_P, _P]),
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": (

@@ -230,10 +230,34 @@ FLASH_BWD_TILES = [
     (2, 24, 4, 65, 97, 256, 32, None, True),      # G = 6 at hd 256, (32, 16): rows one above two dQ blocks of 32
     (2, 4, 4, 31, 543, 256, 512, None, True),     # G = 1 at hd 256, (16, 32): keys one below 17 blocks of 32
 ]
+# either side of the fp32 forward's blocks and tiles (flash_tf32_kernel):
+# blocks of 16, 32, ... 128 packed rows (flash_attention.fwd_tf32_rows: the
+# G heads times rows/G positions; past hd 192 a group of more than 32 heads
+# in parts of 32) over 32-key K/V tiles; hd 64, 80, 136 (the two-warp
+# columns, HDP 192) and 256; (rows, positions a block) in the comments
+FLASH_TF32_TILES = [
+    (1, 4, 4, 31, 33, 80, 2, None, True),         # G = 1, (16, 16): rows one below two blocks, keys one above a tile
+    (1, 4, 4, 33, 31, 80, 0, None, False),        # not causal: rows one above two blocks, keys one below a tile
+    (2, 64, 8, 129, 129, 80, 0, None, True),      # G = 8, (128, 16): rows one above eight blocks of 128
+    (4, 4, 4, 255, 257, 192, 2, None, True),      # the 100M twin's heads, (32, 32): one below eight blocks
+    (1, 16, 16, 383, 383, 64, 0, None, True),     # G = 1, (48, 48): rows one below eight blocks of 48
+    (1, 16, 16, 511, 511, 64, 0, None, True),     # G = 1, (64, 64): rows one below eight blocks of 64
+    (1, 16, 16, 513, 1024, 64, 0, None, False),   # G = 1, (64, 64), not causal: one above eight blocks
+    (1, 16, 16, 641, 641, 64, 0, 100, True),      # G = 1, (80, 80): one above eight blocks; window 100
+    (1, 16, 16, 767, 767, 64, 0, None, True),     # G = 1, (96, 96): one below eight blocks of 96
+    (1, 16, 16, 785, 785, 64, 0, None, True),     # G = 1, (112, 112): one above seven blocks of 112
+    (1, 4, 2, 40, 100, 80, 100, 20, True),        # G = 2, (16, 8): rows 19-39 see no key, a block of both kinds
+    (1, 8, 2, 33, 100, 136, 67, None, True),      # hd 136, G = 4, (16, 4): rows one above eight blocks
+    (1, 8, 2, 50, 200, 136, 150, 45, True),       # hd 136: the window edge inside a tile
+    (1, 64, 1, 4, 65, 136, 61, None, True),       # G = 64 at hd 136, (64, 1): keys one above two tiles
+    (1, 64, 1, 5, 90, 80, 85, None, True),        # G = 64 at hd 80, (64, 1)
+    (1, 10, 1, 70, 200, 256, 130, 37, True),      # hd 256, G = 10, (16, 1): the window edge inside a tile
+    (1, 64, 1, 3, 70, 256, 67, None, True),       # G = 64 at hd 256: two blocks of 32 heads a position
+]
 # the backward at the forward's cases, its own tiles' edges, and at the
 # training shapes
 FLASH_BWD = (FLASH_SWEEP + FLASH_RAGGED + FLASH_EMPTY_BAND + FLASH_TILES
-             + FLASH_BWD_TILES)
+             + FLASH_TF32_TILES + FLASH_BWD_TILES)
 FLASH_BWD_TRAIN = {
     "h2o-danube-1.8b": (1, 32, 8, 8192, 8192, 80, 0, 4096, True),
     "yi-6b": (1, 32, 4, 4096, 4096, 128, 0, None, True),

@@ -17,19 +17,27 @@
 // sits in each route's epilogue behind a template flag (kLse) that the
 // serving entry's instantiations leave false, so their code is the code
 // without it. A row whose band is empty gets -1e30 log2 e, the mask value's.
-// Each entry has two routes chosen by dtype alone:
+// Each entry has two routes chosen by dtype alone, both on the tensor cores:
 //
-//  * bf16 -> flash_mma_kernel<HDP>, both products on the tensor cores.
-//  * fp32 -> flash_kernel<NJ>, fp32 FMA on the CUDA cores. The fp32 callers
-//    (the recurrent models' fp32 phases, held at 5e-4, and the 2e-5 kernel
-//    tolerance) need fp32 products: TF32 keeps a 10-bit mantissa and meets
-//    neither, so this route keeps its CUDA-core arithmetic.
+//  * bf16 -> flash_mma_kernel<HDP>, wgmma with fp32 accumulation.
+//  * fp32 -> flash_tf32_split_kernel, then flash_tf32_kernel<HDP>, mma.sync
+//    in split-TF32 products: each
+//    operand x as big = tf32(x) and small = tf32(x - big), each product as
+//    big.small + small.big + big.big, and every 32 of a product's shared
+//    dimension summed from zero on the tensor cores, then added in fp32.
+//    One TF32 product (10 mantissa bits) misses the 2e-5 kernel tolerance
+//    and the fp32 model phases' 5e-4; the split products hold them, as the
+//    fp32 backward's (csrc/flash_attention_bwd.cu) do.
 //
-// Both routes give a block the G = H/KV query heads that share one kv head,
+// Both routes give a block G = H/KV query heads that share one kv head,
 // packed head-major into rows r = g*bq + i (bq = rows/G), as the Pallas kernel
 // packs them, so each K/V tile is read once per group; the grid is
-// (q-tile, kv_head, batch). Rows: 128 for bf16 (two warpgroups of 64), 64 for
-// fp32.
+// (q-tile, kv_head, batch). Rows: 128 for bf16 (two warpgroups of 64); for
+// fp32 the caller's (flash_attention.fwd_tf32_rows: a multiple of 16 and at
+// least G, the largest whose grid has 128 blocks, at most 128, 64 past hd
+// 128, 32 past hd 192). Where G exceeds the rows (past hd 192, G >
+// 32) a block packs as many heads as it has rows, and the grid's second
+// dimension takes each kv head's group in parts.
 //
 // Semantics shared by both routes, beyond the Pallas kernel's (all forced by
 // the GPU or the engine):
@@ -43,19 +51,21 @@
 //    tile width from key 0, and a skipped or extra tile changes a row's
 //    result by exactly nothing (its keys weigh e^(-1e30 - m) = 0, or are
 //    wiped by alpha = 0 once a visible key is seen), so a row's output does
-//    not depend on the block it lands in: a cache hit's suffix rows equal the
-//    cold run's bit for bit (held in bf16 at full width by
-//    cases.FLASH_IDENTITY). That is exact only while every row of the block
-//    sees a key. A row whose band is empty (causal with a window, at position
-//    q_offset + i >= Sk + window - 1) scores -1e30 on every key, so the
-//    reference gives it the mean of V over all Sk keys; a block that holds
-//    such a row therefore visits every tile.
+//    not depend on the block it lands in, however many rows the block has: a
+//    cache hit's suffix rows equal the cold run's bit for bit (held in bf16
+//    and fp32 at full width by cases.FLASH_IDENTITY). That is exact only
+//    while every row of the block sees a key. A row whose band is empty
+//    (causal with a window, at position q_offset + i >= Sk + window - 1)
+//    scores -1e30 on every key, so the reference gives it the mean of V over
+//    all Sk keys; a block that holds such a row therefore visits every tile.
 //
 // Bound on the H100 at the main path's shapes (yi-6b: 32 heads of 128 on 4 kv
 // heads, 512 suffix queries against 2,560 keys; Griffin: 10 heads of 256 on
 // one, 2,560 against 2,560, window 2,048): 900-1,400 flops per byte that must
 // move, above the H100's balance point of 295, so operations bound both
-// routes: 989 TFLOP/s in bf16 on the tensor cores, 67 TFLOP/s of fp32 FMA.
+// routes: 989 TFLOP/s in bf16 on the tensor cores; in fp32 the tensor cores'
+// 495 TFLOP/s of TF32 over the three TF32 products an fp32 product takes,
+// 165 TFLOP/s (the CUDA cores' fp32 FMA: 67).
 //
 // The bf16 route (flash_mma_kernel) therefore runs both products as
 // wgmma.mma_async (m64nNk16, fp32 accumulation), two warpgroups of 64 rows:
@@ -81,8 +91,27 @@
 //    their maxima skips rescaling O. Masked keys keep the reference's
 //    meaning: they weigh 1 while a row has seen no visible key (-1e30
 //    against -1e30), else 0.
-// The fp32 route (flash_kernel) keeps its CUDA-core form: key tiles staged
-// in shared memory, the fp32 running max, sum and accumulator in registers.
+// The fp32 route runs both products as mma.sync m16n8k8 on TF32 operands
+// (wgmma takes TF32 only K-major, and V is read along its rows), a warp on
+// 16 rows (two past hd 128, each on half of O's columns):
+//  * each value is split once a call: flash_tf32_split_kernel writes big and
+//    small copies of q, k and v into the caller's scratch, whatever the
+//    inputs' strides, in the tiles' own layout (rows of hd padded to 64, 80,
+//    128, 192 or 256, + 4 floats against bank conflicts; keys padded to a
+//    tile), so no block splits a K/V tile that other blocks split too, and
+//    a tile's copy is one contiguous block;
+//  * flash_tf32_kernel then takes Q's copies once a block by cp.async and
+//    each 32-key K and V tile's by bulk copies (cp.async.bulk, one thread,
+//    completed on an mbarrier) into slots of their own: two slots where
+//    shared memory holds them (every copy issued a tile ahead), else one
+//    (V's issued under S, the next K's under PV). Q and K fragments come by
+//    ldmatrix, V's by 32-bit loads;
+//  * the softmax stays in fp32 on the CUDA cores, in the backward's base-2
+//    units (2^(s sl2 - m) by one FMA and exp2f, not ex2.approx; lse = m +
+//    log2 l rounded once), so that the backward's P = 2^(s sl2 - lse) sums
+//    to 1 but for lse's rounding; P is the PV product's A operand in its
+//    accumulator's registers, no shuffles: a key pair 2 tig, 2 tig + 1 in
+//    the places of k = tig, tig + 4, V read in the same order.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -109,208 +138,474 @@ struct Params {
   int vec;       // bf16 route: q rows and strides allow 16-byte copies
   int tma;       // bf16 route: K/V tiles come by TMA (else element by element)
   int kdim[3], vdim[3];   // tensor-map dimension of k's/v's keys, kv heads, batch
-  int pairs;     // bf16 route: output rows allow 4-byte stores of 2 values
+  int pairs;     // output rows allow stores of 2 values (4 bytes bf16, 8 fp32)
+  int rows;      // fp32 route: packed query rows a block (flash_attention.fwd_tf32_rows)
+  int gb, nsub;  // fp32 route: query heads a block packs, blocks a kv head's group takes
+  float* sp;     // fp32 route: scratch for the split copies of q, k and v
+  int ld, skp;   // fp32 route: the copies' row (floats), Sk rounded up to a tile
+  long long qn, kn;   // fp32 route: floats of one copy of q, of k (and of v)
+  int nbuf;      // fp32 route: K/V slots
   float scale;
 };
 
 // --------------------------------------------------------------------------
-// fp32 route: CUDA-core FMA
+// fp32 route: split-TF32 products on the tensor cores (mma.sync m16n8k8)
 // --------------------------------------------------------------------------
+namespace tf32 {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 64;                      // packed query rows per block
-constexpr int kRowsPerWarp = kRows / kWarps;   // 8
-constexpr int kBK = 64;                        // keys per tile (2 per lane)
+constexpr int kBK = 32;                // keys a K/V tile
+constexpr int kLS = kBK + 8;           // row stride of the staged P (floats), W = 2
+constexpr int kMaxThreads = 256;
+constexpr int kSplitThreads = 256;
+constexpr size_t kSmemMax = 232448 - 1024;   // a block's dynamic shared memory, less the static
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// Tiles are row-major with rows of LD = HDP (64, 80, 128, 192 or 256) + 4
+// floats (4 mod 8, as the backward's): the 8 rows of an ldmatrix phase and
+// the 2 x 4 keys x 8 columns of a V fragment's 32-bit loads fall in 32
+// different banks. W warps share 16 rows: each takes NS of a tile's keys in
+// S and HC of hd's columns of O (past hd 128 two, whose 16 x 256 O alone
+// would be 128 registers a thread). NC: S's 32-column sums. Rows a block at
+// most: 8 warps, and shared memory (Q's two copies of 64 rows at hd 256
+// alone are 133 KB).
+template <int HDP>
+struct Cfg {
+  static constexpr int LD = HDP + 4;
+  static constexpr int W = HDP > 128 ? 2 : 1;
+  static constexpr int HC = HDP / W, NS = kBK / W, NC = (HDP + 31) / 32;
+  static constexpr int kMaxRows = HDP <= 128 ? 128 : (HDP <= 192 ? 64 : 32);
+  // Q big and small, nbuf slots of K and V big and small, P
+  static size_t smem(int rows, int nbuf) {
+    return sizeof(float) *
+           ((size_t)2 * rows * LD + nbuf * 4 * kBK * LD + (W > 1 ? (size_t)rows * kLS : 0));
+  }
+};
+
+// Every value of q, k and v split once a call: big = tf32(x) and small (the
+// operands of split) into the scratch p.sp, row-major with rows of p.ld =
+// HDP + 4 floats, the rows of the attention kernel's tiles (zero past hd),
+// and k and v with p.skp = Sk rounded up to a tile (zero rows past Sk), so
+// that a K or V tile is one contiguous copy: q's big then small copy, then
+// k's, then v's. blockIdx.y: 0 q (B, H, Sq), 1 k, 2 v (B, KV, skp). The
+// inputs come by strides, each thread a 4-column chunk.
+__global__ void __launch_bounds__(kSplitThreads) flash_tf32_split_kernel(const Params p) {
+  const int which = blockIdx.y;
+  const int N = which == 0 ? p.KV * p.G : p.KV, S = which == 0 ? p.Sq : p.skp;
+  const float* x = static_cast<const float*>(which == 0 ? p.q : which == 1 ? p.k : p.v);
+  const long long sb = which == 0 ? p.q_sb : which == 1 ? p.k_sb : p.v_sb;
+  const long long sh = which == 0 ? p.q_sh : which == 1 ? p.k_sh : p.v_sh;
+  const long long ss = which == 0 ? p.q_ss : which == 1 ? p.k_ss : p.v_ss;
+  const long long n = which == 0 ? p.qn : p.kn;
+  float* big = p.sp + (which == 0 ? 0 : 2 * p.qn + (which - 1) * 2 * p.kn);
+  const int ch = p.ld / 4;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / ch;
+    const int c = (int)(i - row * ch), s = (int)(row % S);
+    const long long bh = row / S;
+    const float* src = x + (bh / N) * sb + (bh % N) * sh + (long long)s * ss + 4 * c;
+    const bool in = which == 0 || s < p.Sk;
+    uint4 hb, hs;
+    split(in && 4 * c < p.hd ? src[0] : 0.f, hb.x, hs.x);
+    split(in && 4 * c + 1 < p.hd ? src[1] : 0.f, hb.y, hs.y);
+    split(in && 4 * c + 2 < p.hd ? src[2] : 0.f, hb.z, hs.z);
+    split(in && 4 * c + 3 < p.hd ? src[3] : 0.f, hb.w, hs.w);
+    *reinterpret_cast<uint4*>(big + 4 * i) = hb;
+    *reinterpret_cast<uint4*>(big + n + 4 * i) = hs;
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// bytes from global memory at src into shared memory at dst, one bulk copy
+// (cp.async.bulk: both 16-byte aligned, a multiple of 16 bytes) completing
+// on the mbarrier bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-size_t smem_bytes(int hd) {
-  const int kst = hd | 1;
-  return sizeof(float) * (size_t)(kRows * hd + kBK * kst + kBK * hd + kRows * kBK);
-}
-
-// Key tiles are staged in shared memory; the fp32 running max, sum and
-// accumulator stay in registers. Each warp owns 8 rows, so the row-wise
-// softmax reductions are warp shuffles; lane l owns keys l and l+32 of a tile
-// and output columns l, l+32, ... of its rows. NJ = number of 32-wide column
-// groups a lane holds (hd <= 32 * NJ).
-template <int NJ, bool kLse>
-__global__ void __launch_bounds__(kThreads) flash_kernel(const Params p, float* lse) {
-  extern __shared__ float smem[];
-  const int hd = p.hd;
-  const int kst = hd | 1;                 // odd stride: column reads hit 32 banks
-  float* Qs = smem;                       // kRows x hd
-  float* Ks = Qs + kRows * hd;            // kBK x kst
-  float* Vs = Ks + kBK * kst;             // kBK x hd
-  float* Ps = Vs + kBK * hd;              // kRows x kBK (each warp its own rows)
+// p.rows packed query rows (a multiple of 16: p.gb heads of one kv head,
+// head-major, times p.bq positions) over 32-key K/V tiles, every operand
+// already split (flash_tf32_split_kernel). Warp w owns rows 16 (w / W) ..
+// + 15: S of NS keys of each tile and O of HC columns. A thread holds rows
+// gid and gid + 8 of its warp's 16, and of each 8-key (or 8-column) group
+// the two at 2 tig, 2 tig + 1. A K or V tile's big and small copies come by
+// two bulk copies, issued by one thread and completed on an mbarrier, into
+// p.nbuf slots: two where shared memory holds them (each tile's copies
+// issued a whole tile ahead), else one (V's issued under S, the next K's
+// under PV). Per tile:
+//  1. K's copies in; block barrier (every warp done with the previous tile);
+//     the next copies issued;
+//  2. S = Q K^T: each 32 columns of hd (four k-steps of three products) from
+//     zero, then the NC sums added in order in fp32; the k-steps of the NC
+//     sums interleave, so the tensor cores see NC independent chains (Q and
+//     K fragments by ldmatrix);
+//  3. the online softmax in fp32 on the CUDA cores (exp2f, the running max
+//     of s sl2; at W = 2 the pair exchanges its maxima through shared
+//     memory and stages P there);
+//  4. V's copies in (one slot: block barrier, then the next K's issued);
+//  5. O = alpha O + P V, the tile's 32 keys from zero, then added in fp32.
+//     P is the A operand without shuffles: a key pair 2 tig, 2 tig + 1
+//     takes the places of k = tig, tig + 4 of a k-step (in the registers of
+//     S's accumulator at W = 1), and V's B fragment is read in that order
+//     (keys 2 tig, 2 tig + 1 of column gid).
+template <int HDP, bool kLse>
+__global__ void __launch_bounds__(kMaxThreads, 1) flash_tf32_kernel(const Params p, float* lse) {
+  using C = Cfg<HDP>;
+  constexpr int LD = C::LD, W = C::W, HC = C::HC, NS = C::NS, NC = C::NC;
+  constexpr int kTile = kBK * LD;                      // floats of one copy of a tile
+  extern __shared__ float4 smem4[];
+  const int rows = p.rows, nbuf = p.nbuf;
+  float* const Qb = reinterpret_cast<float*>(smem4);   // rows x LD: tf32(q)
+  float* const Qs = Qb + rows * LD;                    // the small parts
+  float* const KV0 = Qs + rows * LD;                   // slot s: K big, K small, V big, V small
+  float* const Ps = KV0 + nbuf * 4 * kTile;            // rows x kLS (W = 2)
+  __shared__ float Xs[2][64];                          // W = 2: the pair's row maxima, then l
+  __shared__ __align__(8) uint64_t bars[4];            // slot s: K's (2 s), V's (2 s + 1)
+  const uint32_t sbar = smem_u32(bars);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * p.bq, kvh = blockIdx.y, b = blockIdx.z;
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  float* o = static_cast<float*>(p.o);
-
-  for (int idx = tid; idx < kRows * hd; idx += kThreads) {
-    const int r = idx / hd, d = idx - r * hd;
-    const int g = r / p.bq, i = r - g * p.bq;
-    float x = 0.f;
-    if (g < p.G && q0 + i < p.Sq)
-      x = q[b * p.q_sb + (long long)(kvh * p.G + g) * p.q_sh +
-            (long long)(q0 + i) * p.q_ss + d];
-    Qs[idx] = x;
-  }
-
-  int qpos[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + kWarps * i;
-    qpos[i] = p.q_offset + q0 + (r - (r / p.bq) * p.bq);
+  const int gid = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * p.bq, b = blockIdx.z;
+  const int kvh = blockIdx.y / p.nsub, g0 = (blockIdx.y - kvh * p.nsub) * p.gb;
+  const int ng = min(p.gb, p.G - g0);                  // heads of this block
+  // the split copies: q's rows of head kvh G + g0 on, k's and v's of kv head kvh
+  const float* q = p.sp + ((long long)(b * p.KV + kvh) * p.G + g0) * p.Sq * LD;
+  const float* k = p.sp + 2 * p.qn + (long long)(b * p.KV + kvh) * p.skp * LD;
+  const float* v = k + 2 * p.kn;
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(sbar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
   // Key range the block's rows can see, unless one of its rows sees none.
   int empty = 0;
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + kWarps * i;
-    const int g = r / p.bq;
-    if (g < p.G && q0 + (r - g * p.bq) < p.Sq) {
-      const int lo = p.has_window ? max(0, qpos[i] - p.window + 1) : 0;
-      const int hi = p.causal ? min(p.Sk - 1, qpos[i]) : p.Sk - 1;
-      empty |= lo > hi;
+  if (tid < rows) {
+    const int g = tid / p.bq, i = tid - g * p.bq;
+    if (g < ng && q0 + i < p.Sq) {
+      const int pos = p.q_offset + q0 + i;
+      const int lo = p.has_window ? max(0, pos - p.window + 1) : 0;
+      const int hi = p.causal ? min(p.Sk - 1, pos) : p.Sk - 1;
+      empty = lo > hi;
     }
   }
+  const int qmin = p.q_offset + q0;
+  const int qmax = p.q_offset + min(q0 + p.bq, p.Sq) - 1;
   int kstart = 0, kend = p.Sk;
   if (!__syncthreads_or(empty)) {
-    const int qmin = p.q_offset + q0;
-    const int qmax = p.q_offset + min(q0 + p.bq, p.Sq) - 1;
     if (p.causal) kend = min(p.Sk, qmax + 1);
     if (p.has_window) kstart = max(0, qmin - p.window + 1);
   }
-
-  float acc[kRowsPerWarp][NJ];
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  const int kt0 = (kstart / kBK) * kBK;
+  const int ntiles = (kend - kt0 + kBK - 1) / kBK;
+  // tile u's K (which 0) or V (1) copies into slot u % nbuf, by thread 0
+  auto issue = [&](int u, int which) {
+    const int slot = u % nbuf;
+    const uint32_t bar = sbar + 8 * (2 * slot + which);
+    const float* src = (which ? v : k) + (long long)(kt0 + u * kBK) * LD;
+    const uint32_t dst = smem_u32(KV0 + (4 * slot + 2 * which) * kTile);
+    mbar_expect(bar, 2 * kTile * 4);
+    bulk_load(dst, src, kTile * 4, bar);
+    bulk_load(dst + kTile * 4, src + p.kn, kTile * 4, bar);
+  };
+  if (tid == 0) {
+    issue(0, 0);
+    if (nbuf > 1) issue(0, 1);
+  }
+  // Q's rows (zero past Sq and the block's heads) by 16-byte cp.async
+  {
+    constexpr int kChunks = LD / 4;
+    for (int idx = tid; idx < rows * kChunks; idx += blockDim.x) {
+      const int r = idx / kChunks, c = idx - r * kChunks;
+      const int g = r / p.bq, i = r - g * p.bq;
+      const bool ok = g < ng && q0 + i < p.Sq;
+      const float* from = ok ? q + ((long long)g * p.Sq + q0 + i) * LD + c * 4 : q;
+      cp_async16(smem_u32(Qb + r * LD + c * 4), from, ok ? 16 : 0);
+      cp_async16(smem_u32(Qs + r * LD + c * 4), ok ? from + p.qn : q, ok ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();                // the block sees it after the first barrier
   }
 
-  for (int kt = (kstart / kBK) * kBK; kt < kend; kt += kBK) {
-    __syncthreads();   // Qs staged / previous tile's Vs reads done
-    for (int idx = tid; idx < kBK * hd; idx += kThreads) {
-      const int c = idx / hd, d = idx - c * hd;
-      float kx = 0.f, vx = 0.f;
-      if (kt + c < p.Sk) {
-        kx = k[(long long)(kt + c) * p.k_ss + d];
-        vx = v[(long long)(kt + c) * p.v_ss + d];
-      }
-      Ks[c * kst + d] = kx;
-      Vs[c * hd + d] = vx;
-    }
-    __syncthreads();
+  const int rg = warp / W, wc = warp % W, r0 = 16 * rg;
+  int pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + gid + 8 * h;
+    pos[h] = p.q_offset + q0 + (r - (r / p.bq) * p.bq);
+  }
+  const float sl2 = p.scale * kLog2e;  // the backward's: exp(x scale) = 2^(x sl2)
+  // ldmatrix: Q rows r0 + t % 8 (+ 8 for t / 8 odd), columns 4 (t / 16);
+  // K keys wc NS + t % 8 (+ 8 for t >= 16), columns 4 (t / 8 % 2), of slot 0
+  const uint32_t aQ = smem_u32(Qb + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+                               4 * (lane >> 4));
+  const uint32_t aQs = aQ + rows * LD * 4;
+  const uint32_t bK0 = smem_u32(KV0) +
+                       ((wc * NS + (lane & 7) + 8 * (lane >> 4)) * LD + 4 * ((lane >> 3) & 1)) * 4;
+  // V: keys 2 tig, 2 tig + 1 of column gid of this warp's columns, of slot 0
+  const float* vb0 = KV0 + 2 * kTile + 2 * tig * LD + wc * HC + gid;
 
-    float s[kRowsPerWarp][2];
+  float o[HC / 8][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i][0] = s[i][1] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      const float k0 = Ks[lane * kst + d], k1 = Ks[(lane + 32) * kst + d];
+  for (int j = 0; j < HC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // m: running max of s sl2 (kNegInf while a row has seen only masked keys:
+  // then those weigh 2^0 = 1, as the reference's -1e30 scores do); l: this
+  // thread's part of the row sum
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int kt = kt0 + t * kBK, slot = t % nbuf, phase = (t / nbuf) & 1;
+    mbar_wait(sbar + 16 * slot, phase);
+    __syncthreads();                   // K in (and Q); every warp done with tile t - 1
+    if (tid == 0) {
+      if (nbuf == 1) {
+        issue(t, 1);
+      } else if (t + 1 < ntiles) {     // into the slot tile t - 1 used
+        issue(t + 1, 0);
+        issue(t + 1, 1);
+      }
+    }
+    const uint32_t bK = bK0 + slot * 4 * kTile * 4, bKs = bK + kTile * 4;
+    const float* vb = vb0 + slot * 4 * kTile;
+    const float* vs = vb + kTile;
+
+    // S = Q K^T over hd: NC sums of 32 columns (four k-steps) from zero,
+    // the k-steps of different sums interleaved, then added in order
+    float ts[NC][NS / 8][4];
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float qv = Qs[(warp + kWarps * i) * hd + d];
-        s[i][0] = fmaf(qv, k0, s[i][0]);
-        s[i][1] = fmaf(qv, k1, s[i][1]);
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ts[c][j][i] = 0.f;
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int kk = 4 * c + kq;
+        if (kk >= HDP / 8) continue;
+        uint32_t ab[4], as[4];
+        ldsm4(ab, aQ + kk * 32);
+        ldsm4(as, aQs + kk * 32);
+#pragma unroll
+        for (int j = 0; j < NS / 16; ++j) {    // two 8-key n-tiles an ldmatrix
+          uint32_t bb[4], bs[4];
+          ldsm4(bb, bK + j * 16 * LD * 4 + kk * 32);
+          ldsm4(bs, bKs + j * 16 * LD * 4 + kk * 32);
+          mma3(ts[c][2 * j], ab, as, bb, bs);
+          mma3(ts[c][2 * j + 1], ab, as, bb + 2, bs + 2);
+        }
+      }
+    }
+    float s[NS / 8][4];
+#pragma unroll
+    for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) s[j][i] += ts[c][j][i];
+      }
+
+    // The softmax in base 2, in the backward's units: the running max m of
+    // s sl2 and p = 2^(s sl2 - m) by one FMA and exp2f, so that the
+    // backward's P = 2^(s sl2 - lse) sums to 1 up to lse's rounding. Masks
+    // only in tiles that reach past Sk or the block's band: keys past Sk are
+    // no keys (`past`: p = 0), keys outside a row's band score the
+    // reference's -1e30 (`band`: p = 1 while the row has seen no visible
+    // key, else 0)
+    const bool edge = kt + kBK > p.Sk || (p.causal && kt + kBK - 1 > qmin) ||
+                      (p.has_window && kt <= qmax - p.window);
+    uint32_t band = 0, past = 0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, bit = 4 * j + i;
+        float y = s[j][i] * sl2;
+        if (edge) {
+          const int c = kt + wc * NS + 8 * j + 2 * tig + (i & 1);
+          if (c >= p.Sk) {
+            y = -INFINITY;
+            past |= 1u << bit;
+          } else if ((p.causal && c > pos[h]) || (p.has_window && c <= pos[h] - p.window)) {
+            y = kNegInf;
+            band |= 1u << bit;
+          }
+        }
+        mx[h] = fmaxf(mx[h], y);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if constexpr (W > 1) {             // the max over both warps' keys
+      if (tig == 0) {
+        Xs[wc][r0 + gid] = mx[0];
+        Xs[wc][r0 + gid + 8] = mx[1];
+      }
+      sync_group<W>(rg);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mx[h] = fmaxf(Xs[0][r0 + gid + 8 * h], Xs[1][r0 + gid + 8 * h]);
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f(m[h] - mn);
+      m[h] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < NS / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, bit = 4 * j + i;
+        float pr = exp2f(fmaf(s[j][i], sl2, -m[h]));
+        if ((band | past) >> bit & 1) pr = (band >> bit & 1) && m[h] == kNegInf ? 1.f : 0.f;
+        s[j][i] = pr;
+        rs[h] += pr;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+    // a warp whose rows kept their maxima skips the rescale (x 1 is exact)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < HC / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[j][i] *= alpha[i >> 1];
+    }
+    if constexpr (W > 1) {             // P of this warp's keys, for the pair
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        float* d0 = Ps + (r0 + gid) * kLS + wc * NS + 8 * j + 2 * tig;
+        *reinterpret_cast<float2*>(d0) = make_float2(s[j][0], s[j][1]);
+        *reinterpret_cast<float2*>(d0 + 8 * kLS) = make_float2(s[j][2], s[j][3]);
       }
     }
 
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int c = kt + lane + 32 * jj;
-        float x;
-        if (c >= p.Sk)
-          x = -INFINITY;   // ragged tail: not a key at all
-        else if ((p.causal && c > qpos[i]) ||
-                 (p.has_window && c <= qpos[i] - p.window))
-          x = kNegInf;
-        else
-          x = s[i][jj] * p.scale;
-        s[i][jj] = x;
-      }
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(s[i][0], s[i][1])));
-      const float alpha = expf(m[i] - m_new);
-      const float p0 = expf(s[i][0] - m_new), p1 = expf(s[i][1] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p0 + p1);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-      float* prow = Ps + (warp + kWarps * i) * kBK;
-      prow[lane] = p0;
-      prow[lane + 32] = p1;
+    mbar_wait(sbar + 16 * slot + 8, phase);
+    if (nbuf == 1) {
+      __syncthreads();                 // V in, P staged; every S done with K
+      if (tid == 0 && t + 1 < ntiles) issue(t + 1, 0);
+    } else if constexpr (W > 1) {
+      sync_group<W>(rg);               // P staged
     }
-    __syncwarp();
 
-    const int nc = min(kBK, p.Sk - kt);
-    for (int c = 0; c < nc; ++c) {
-      float vv[NJ];
+    // P split as the A operand: k = tig, tig + 4 of k-step kk hold keys
+    // 8 kk + 2 tig, 8 kk + 2 tig + 1 of rows gid, gid + 8
+    uint32_t pb[kBK / 8][4], ps[kBK / 8][4];
+    if constexpr (W == 1) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane + 32 * j;
-        vv[j] = d < hd ? Vs[c * hd + d] : 0.f;
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        split(s[kk][0], pb[kk][0], ps[kk][0]);
+        split(s[kk][2], pb[kk][1], ps[kk][1]);
+        split(s[kk][1], pb[kk][2], ps[kk][2]);
+        split(s[kk][3], pb[kk][3], ps[kk][3]);
+      }
+    } else {
+      const float* a = Ps + (r0 + gid) * kLS + 2 * tig;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        const float2 x0 = *reinterpret_cast<const float2*>(a + 8 * kk);
+        const float2 x1 = *reinterpret_cast<const float2*>(a + 8 * kk + 8 * kLS);
+        split(x0.x, pb[kk][0], ps[kk][0]);
+        split(x1.x, pb[kk][1], ps[kk][1]);
+        split(x0.y, pb[kk][2], ps[kk][2]);
+        split(x1.y, pb[kk][3], ps[kk][3]);
+      }
+    }
+    // O[:, wc HC ..] += P V, each 8 columns' 32 keys from zero
+#pragma unroll
+    for (int j = 0; j < HC / 8; ++j) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        const int at = 8 * kk * LD + 8 * j;
+        const uint32_t bb[2] = {__float_as_uint(vb[at]), __float_as_uint(vb[at + LD])};
+        const uint32_t bs[2] = {__float_as_uint(vs[at]), __float_as_uint(vs[at + LD])};
+        mma3(acc, pb[kk], ps[kk], bb, bs);
       }
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float pc = Ps[(warp + kWarps * i) * kBK + c];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pc, vv[j], acc[i][j]);
-      }
+      for (int i = 0; i < 4; ++i) o[j][i] += acc[i];
     }
   }
 
+  // l over the quad, then (W = 2) over the pair: every S of the block is
+  // done, so no warp reads a maximum from Xs any more
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + kWarps * i;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if constexpr (W > 1) {
+    if (tig == 0) {
+      Xs[wc][r0 + gid] = l[0];
+      Xs[wc][r0 + gid + 8] = l[1];
+    }
+    sync_group<W>(rg);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = Xs[0][r0 + gid + 8 * h] + Xs[1][r0 + gid + 8 * h];
+  }
+  float* out = static_cast<float*>(p.o);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + gid + 8 * h;
     const int g = r / p.bq, qi = r - g * p.bq;
-    if (g < p.G && q0 + qi < p.Sq) {
-      const float den = fmaxf(l[i], 1e-20f);
-      float* orow = o + b * p.o_sb + (long long)(kvh * p.G + g) * p.o_sh +
-                (long long)(q0 + qi) * p.o_ss;
+    if (g < ng && q0 + qi < p.Sq) {
+      const float den = fmaxf(l[h], 1e-20f);
+      float* orow = out + b * p.o_sb + (long long)(kvh * p.G + g0 + g) * p.o_sh +
+                    (long long)(q0 + qi) * p.o_ss;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane + 32 * j;
-        if (d < hd) orow[d] = acc[i][j] / den;
+      for (int j = 0; j < HC / 8; ++j) {
+        const int d = wc * HC + 8 * j + 2 * tig;
+        const float x0 = o[j][2 * h] / den, x1 = o[j][2 * h + 1] / den;
+        if (p.pairs && d + 1 < p.hd) {
+          *reinterpret_cast<float2*>(orow + d) = make_float2(x0, x1);
+        } else {
+          if (d < p.hd) orow[d] = x0;
+          if (d + 1 < p.hd) orow[d + 1] = x1;
+        }
       }
-      if constexpr (kLse) {            // base 2: m and l are natural-log units here
-        if (lane == 0)
-          lse[((long long)b * p.KV * p.G + kvh * p.G + g) * p.Sq + q0 + qi] =
-              (m[i] + logf(l[i])) * kLog2e;
+      // m + log2 l in double, rounded once (in fp32 the sum rounds again,
+      // and at yi-6b's training shape that took one entry of the
+      // backward's dV past TOL[fp32]); a row that saw no visible key gets
+      // the mask value's
+      if constexpr (kLse) {
+        if (tig == 0 && wc == 0)
+          lse[((long long)b * p.KV * p.G + kvh * p.G + g0 + g) * p.Sq + q0 + qi] =
+              m[h] == kNegInf ? kNegInf * kLog2e : (float)((double)m[h] + log2((double)l[h]));
       }
     }
   }
 }
 
-template <int NJ, bool kLse>
-cudaError_t launch_f32(const Params& p, float* lse, int B, cudaStream_t stream) {
+}  // namespace tf32
+
+// The split, then the attention, on the caller's stream: the scratch's rows
+// and the slots follow HDP and the rows.
+template <int HDP, bool kLse>
+cudaError_t launch_tf32(Params p, float* lse, int B, cudaStream_t stream) {
+  using C = tf32::Cfg<HDP>;
   static int allowed[kMaxDevices];
-  const int smem = (int)smem_bytes(p.hd);
-  cudaError_t err = allow_smem(flash_kernel<NJ, kLse>, smem, allowed);
+  if (p.rows > C::kMaxRows) return cudaErrorInvalidValue;
+  p.ld = C::LD;
+  p.qn = (long long)B * p.KV * p.G * p.Sq * C::LD;
+  p.kn = (long long)B * p.KV * p.skp * C::LD;
+  p.nbuf = C::smem(p.rows, 2) <= tf32::kSmemMax ? 2 : 1;
+  const int smem = (int)C::smem(p.rows, p.nbuf);
+  cudaError_t err = allow_smem(tf32::flash_tf32_kernel<HDP, kLse>, smem, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.KV, B);
-  flash_kernel<NJ, kLse><<<grid, kThreads, smem, stream>>>(p, lse);
+  const long long blocks = ((p.qn > p.kn ? p.qn : p.kn) / 4 + tf32::kSplitThreads - 1) /
+                           tf32::kSplitThreads;
+  const dim3 split_grid((unsigned)(blocks < 4096 ? blocks : 4096), 3);
+  tf32::flash_tf32_split_kernel<<<split_grid, tf32::kSplitThreads, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.KV * p.nsub, B);
+  tf32::flash_tf32_kernel<HDP, kLse><<<grid, 32 * (p.rows / 16) * C::W, smem, stream>>>(p, lse);
   return cudaGetLastError();
 }
 
@@ -696,7 +991,8 @@ int launch_entry(int dtype, const void* q, const void* k, const void* v, void* o
                  long long k_sb, long long k_sh, long long k_ss,
                  long long v_sb, long long v_sh, long long v_ss,
                  long long o_sb, long long o_sh, long long o_ss,
-                 int q_offset, int causal, int has_window, int window, void* stream) {
+                 int q_offset, int causal, int has_window, int window, int rows,
+                 void* scratch, void* stream) {
   if (KV <= 0 || H % KV != 0 || hd <= 0 || hd > 256 || H / KV > kMaxGroup || Sq <= 0 ||
       Sk <= 0)
     return (int)cudaErrorInvalidValue;
@@ -712,10 +1008,20 @@ int launch_entry(int dtype, const void* q, const void* k, const void* v, void* o
   p.scale = (float)(1.0 / sqrt((double)hd));   // hd ** -0.5, as the reference
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    p.bq = kRows / p.G;
-    if (hd <= 64) return (int)launch_f32<2, kLse>(p, lse, B, st);
-    if (hd <= 128) return (int)launch_f32<4, kLse>(p, lse, B, st);
-    return (int)launch_f32<8, kLse>(p, lse, B, st);
+    if (rows < 16 || rows % 16 != 0) return (int)cudaErrorInvalidValue;
+    p.rows = rows;
+    p.gb = min(p.G, rows);
+    p.nsub = (p.G + p.gb - 1) / p.gb;
+    p.bq = rows / p.gb;
+    p.sp = static_cast<float*>(scratch);
+    p.skp = (Sk + tf32::kBK - 1) / tf32::kBK * tf32::kBK;
+    p.pairs = hd % 2 == 0 && (uintptr_t)o % 8 == 0 && o_sb % 2 == 0 && o_sh % 2 == 0 &&
+              o_ss % 2 == 0;
+    if (hd <= 64) return (int)launch_tf32<64, kLse>(p, lse, B, st);
+    if (hd <= 80) return (int)launch_tf32<80, kLse>(p, lse, B, st);
+    if (hd <= 128) return (int)launch_tf32<128, kLse>(p, lse, B, st);
+    if (hd <= 192) return (int)launch_tf32<192, kLse>(p, lse, B, st);
+    return (int)launch_tf32<256, kLse>(p, lse, B, st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   p.bq = tc::kRows / p.G;
@@ -740,18 +1046,22 @@ int launch_entry(int dtype, const void* q, const void* k, const void* v, void* o
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16. Returns a cudaError_t (0 = launched).
+// dtype: 0 fp32, 1 bf16. rows: the fp32 route's packed query rows a block (a
+// multiple of 16, flash_attention.fwd_tf32_rows); scratch: its fp32 scratch
+// for the split copies, 2 (B H Sq + 2 B KV skp) (HDP + 4) floats, skp = Sk
+// rounded up to 32 (flash_attention.split_floats; the bf16 route takes
+// neither). Returns a cudaError_t (0 = launched).
 int flash_attention_launch(int dtype, const void* q, const void* k, const void* v,
                            void* o, int B, int H, int KV, int Sq, int Sk, int hd,
                            long long q_sb, long long q_sh, long long q_ss,
                            long long k_sb, long long k_sh, long long k_ss,
                            long long v_sb, long long v_sh, long long v_ss,
                            long long o_sb, long long o_sh, long long o_ss,
-                           int q_offset, int causal, int has_window, int window,
-                           void* stream) {
+                           int q_offset, int causal, int has_window, int window, int rows,
+                           void* scratch, void* stream) {
   return launch_entry<false>(dtype, q, k, v, o, nullptr, B, H, KV, Sq, Sk, hd, q_sb, q_sh,
                              q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                             q_offset, causal, has_window, window, stream);
+                             q_offset, causal, has_window, window, rows, scratch, stream);
 }
 
 // The training entry: the same launch, and lse (B, H, Sq) fp32 contiguous,
@@ -763,10 +1073,10 @@ int flash_attention_train_launch(int dtype, const void* q, const void* k, const 
                                  long long v_sb, long long v_sh, long long v_ss,
                                  long long o_sb, long long o_sh, long long o_ss,
                                  int q_offset, int causal, int has_window, int window,
-                                 void* stream) {
+                                 int rows, void* scratch, void* stream) {
   return launch_entry<true>(dtype, q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, hd,
                             q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh,
-                            o_ss, q_offset, causal, has_window, window, stream);
+                            o_ss, q_offset, causal, has_window, window, rows, scratch, stream);
 }
 
 #ifdef FLASH_PHASE_CLOCKS

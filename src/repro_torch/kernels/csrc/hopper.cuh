@@ -2,8 +2,9 @@
 // flash_attention_bwd.cu: the 128-byte swizzle and the wgmma matrix
 // descriptors that name it, cp.async, the wgmma wrappers (fp32 accumulators,
 // bf16 operands; the shared-by-shared m64n128 form with B MN-major serves
-// the backward's wide kernels alone), mbarriers, 4-d TMA loads, and on the host the tensor-map
-// encoder and the shared-memory limit. Every device helper is force-inlined,
+// the backward's wide kernels alone), mbarriers, 4-d TMA loads, the
+// split-TF32 products of both fp32 routes (mma.sync m16n8k8 and ldmatrix),
+// and on the host the tensor-map encoder and the shared-memory limit. Every device helper is force-inlined,
 // so a kernel compiles as if they were written in its own file.
 #pragma once
 
@@ -292,6 +293,75 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
          "r"(bar)
       : "memory");
+}
+
+// The split-TF32 products (mma.sync m16n8k8) of the fp32 routes of flash and
+// its backward: every fp32 product as big.small + small.big + big.big.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x rounded to TF32, to nearest with ties away from zero; the tensor cores
+// would truncate the low 13 bits of a plain fp32 register instead
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as big + small, the operands of three TF32 products: big = tf32(x) by
+// cvt.rna, which passes NaN and inf on; small = x - big (exact in fp32) plus
+// half a TF32 ulp on its bits, which the tensor cores read, truncating the
+// low 13 bits, as tf32(x - big) rounded to nearest, ties away: what cvt.rna
+// gives, in one instruction where cvt.rna takes several on sm_90a (a NaN
+// test and a select among them). small is finite wherever x is.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+template <int N>
+__device__ __forceinline__ void split_regs(const uint32_t (&r)[N], uint32_t (&big)[N],
+                                           uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split(__uint_as_float(r[i]), big[i], small[i]);
+}
+
+// d (16 x 8) += a (16 x 8) b (8 x 8), TF32 operands, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in three TF32 products: big.small and small.big first, then big.big
+__device__ __forceinline__ void mma3(float* d, const uint32_t* ab, const uint32_t* as,
+                                     const uint32_t* bb, const uint32_t* bs) {
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bb);
+}
+
+// Four 8-row x 4-column fp32 matrices from shared memory (ldmatrix of 8 x 8
+// b16): thread t passes the address of row t % 8 of matrix t / 8 and gets
+// element (t / 4, t % 4) of each matrix.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// A barrier of the W warps that share 16 rows or keys, named 1 + group (0 is
+// __syncthreads')
+template <int W>
+__device__ __forceinline__ void sync_group(int group) {
+  if (W == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + group), "r"(32 * W) : "memory");
+  }
 }
 
 // A stride allows 16-byte copies if it is a positive multiple of 8 elements

@@ -21,9 +21,17 @@ One C entry, two routes chosen by dtype alone (no route falls back):
   it above that bound is the softmax between the two products, on the
   CUDA cores (``repro_torch.kernels.phases`` splits a tile's time); the
   kernel cuts it to one FFMA and one ``ex2`` per score.
-* fp32: ``flash_kernel``, fp32 FMA on the CUDA cores, for the fp32 model
-  phases and the 2e-5 tolerance, which TF32 products would miss; it is
-  bound by the CUDA cores' 67 TFLOP/s.
+* fp32: ``flash_tf32_kernel``, ``mma.sync`` on the tensor cores in
+  split-TF32 products, as the fp32 backward's kernels: each operand split
+  into a TF32 big part and a TF32 small part, every product taken as
+  big·small + small·big + big·big, every 32 of its shared dimension summed
+  from zero and then added in fp32 (one TF32 product would miss the fp32
+  tolerance 2e-5). Bound by 495/3 = 165 TFLOP/s. A first kernel,
+  ``flash_tf32_split_kernel``, splits q, k and v once a call into a
+  scratch the wrapper allocates (``split_floats``), so that no block
+  repeats a split another block makes; ``fwd_tf32_rows`` sizes the
+  attention kernel's blocks from the shape so that the grid fills the
+  card.
 
 Both skip key tiles outside the causal/window band of a block unless a row
 of the block sees no key at all, mask ragged tails in-kernel, and give a
@@ -67,6 +75,7 @@ forward entry counts in ``flash_attention.launches``; ``flash_attention_bwd
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -80,6 +89,11 @@ INT32_MAX = 2**31 - 1
 NARROW_BWD_MAX_HEAD_DIM = 128   # wider heads run the backward's wide kernels
 BWD_ROUTES = {"tensor cores": 1, "tensor cores, split tf32": 2}   # the C entry's route argument
 SMS = 132                        # the H100's streaming multiprocessors
+# the fp32 forward's grid fills the card from 128 blocks: one block an SM at
+# every size it takes (shared memory), and a block of 16 rows keeps two of
+# an SM's four warp schedulers busy, so 128 blocks of 32 rows in one wave
+# beat 256 of 16 in two (the 100M twin's shape)
+FWD_FILL = 128
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
@@ -105,6 +119,28 @@ def bwd_tf32_blocks(B: int, H: int, KV: int, Sq: int, Sk: int, hd: int) -> tuple
 
     rows = size(Sq, H * B, 128 if hd <= 128 else 64 if hd <= 192 else 32)
     return rows, size(Sk, KV * B, 128 if hd <= 80 else 64 if hd <= 192 else 32)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_tf32_rows(B: int, H: int, KV: int, Sq: int, hd: int) -> int:
+    """The packed query rows of a block of the forward's fp32 route
+    (``flash_tf32_kernel``): a multiple of 16 (a warp's 16 rows) and at
+    least G = H/KV (the G heads of a kv head share a block, head-major),
+    the largest whose grid has at least ``FWD_FILL`` blocks (the smallest
+    if none has), within what a block holds: 128 up to hd 128, 64 up to
+    192, 32 past it (8 warps, two a 16 rows past hd 128; Q's big and small
+    copies and a 32-key tile of K and V, both split, in 227 KB of shared
+    memory). Past hd 192 a group of more than 32 heads is taken 32 heads a
+    block."""
+    most = 128 if hd <= 128 else 64 if hd <= 192 else 32
+    G = H // KV
+
+    def grid(rows):
+        heads = min(G, rows)
+        return -(-Sq // (rows // heads)) * KV * -(-G // heads) * B
+
+    sizes = [r for r in range(most, 0, -16) if r >= min(G, most)]
+    return next((r for r in sizes if grid(r) >= FWD_FILL), sizes[-1])
 
 
 def bwd_blocks(hd: int) -> tuple:
@@ -167,18 +203,31 @@ def _check(q, k, v, q_offset, window):
         raise ValueError(f"q_offset={q_offset}, window={window} out of int32 range")
 
 
-def _entry_args(q, k, v, out, q_offset, causal, window, stream, lse=None):
+@functools.lru_cache(maxsize=None)
+def split_floats(B: int, H: int, KV: int, Sq: int, Sk: int, hd: int) -> int:
+    """Floats of the fp32 route's scratch: a big and a small copy of q, k
+    and v (``flash_tf32_split_kernel``) in the attention kernel's tile
+    layout: rows of hd padded to 64, 80, 128, 192 or 256, + 4; k and v with
+    Sk padded to a 32-key tile."""
+    ld = next(w for w in (64, 80, 128, 192, MAX_HEAD_DIM) if hd <= w) + 4
+    return 2 * (B * H * Sq + 2 * B * KV * -(-Sk // 32) * 32) * ld
+
+
+def _entry_args(q, k, v, out, q_offset, causal, window, stream, lse=None, scratch=None):
     """The arguments of the C entry ``flash_attention_launch`` for this
-    call (pointers, shapes, strides in elements, masking, the stream); with
-    ``lse``, those of ``flash_attention_train_launch``, which takes its
-    pointer after the output's."""
+    call (pointers, shapes, strides in elements, masking, the fp32 route's
+    rows a block from ``fwd_tf32_rows`` and its scratch of
+    ``split_floats`` (0 and null for bf16), the stream); with ``lse``, those
+    of ``flash_attention_train_launch``, which takes its pointer after the
+    output's."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
+    rows = fwd_tf32_rows(B, H, KV, Sq, hd) if q.dtype == torch.float32 else 0
     return (DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(() if lse is None else (lse.data_ptr(),)), B, H, KV, Sq, Sk, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(q_offset), int(causal), int(window is not None), int(window or 0),
-            ctypes.c_void_p(stream))
+            int(q_offset), int(causal), int(window is not None), int(window or 0), rows,
+            0 if scratch is None else scratch.data_ptr(), ctypes.c_void_p(stream))
 
 
 def _launch(q, k, v, q_offset, causal, window, with_lse=False):
@@ -197,10 +246,12 @@ def _launch(q, k, v, q_offset, causal, window, with_lse=False):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
         return (out, lse) if with_lse else out
+    scratch = torch.empty(split_floats(B, H, KV, Sq, k.shape[2], hd), dtype=torch.float32,
+                          device=q.device) if q.dtype == torch.float32 else None
     lib = build.load("flash_attention")
     entry = lib.flash_attention_train_launch if with_lse else lib.flash_attention_launch
     err = build.on_device(q.device, lambda stream: entry(
-        *_entry_args(q, k, v, out, q_offset, causal, window, stream, lse)))
+        *_entry_args(q, k, v, out, q_offset, causal, window, stream, lse, scratch)))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1

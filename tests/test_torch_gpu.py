@@ -36,7 +36,8 @@ from repro_torch.train.steps import loss_fn, make_train_step
 DENSE_FLASH, DENSE_DECODE, DENSE_IDENTITY = shapes.dense_shapes()
 FAMILY_FLASH, FAMILY_DECODE, FAMILY_IDENTITY = shapes.family_shapes()
 FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
-               + cases.FLASH_GRIFFIN + cases.FLASH_TILES + list(DENSE_FLASH.values())
+               + cases.FLASH_GRIFFIN + cases.FLASH_TILES + cases.FLASH_TF32_TILES
+               + list(DENSE_FLASH.values())
                + list(FAMILY_FLASH.values()))
 DECODE_CASES = (cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
                 + cases.DECODE_MAIN + cases.DECODE_FLOOR + list(DENSE_DECODE.values())
@@ -69,13 +70,17 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case,first", cases.FLASH_IDENTITY + DENSE_IDENTITY
-                         + FAMILY_IDENTITY)
-def test_flash_hit_rows_equal_cold_rows(cuda, case, first):
-    """A cache hit's suffix rows equal the cold prefill's bit for bit in
-    bf16: a row's arithmetic does not depend on its block."""
+@pytest.mark.parametrize("case,first,dtype",
+                         [(c, f, torch.bfloat16) for c, f in cases.FLASH_IDENTITY
+                          + DENSE_IDENTITY + FAMILY_IDENTITY]
+                         + [(c, f, torch.float32) for c, f in cases.FLASH_IDENTITY])
+def test_flash_hit_rows_equal_cold_rows(cuda, case, first, dtype):
+    """A cache hit's suffix rows equal the cold prefill's bit for bit, in
+    bf16 and (at ``cases.FLASH_IDENTITY``) in fp32, whose blocks take as
+    many rows as the call's shape gives them: a row's arithmetic does not
+    depend on its block."""
     n = ops.flash_attention.launches
-    assert cases.check_flash_hit_rows(case, first, torch.bfloat16, cuda) == 0
+    assert cases.check_flash_hit_rows(case, first, dtype, cuda) == 0
     assert ops.flash_attention.launches == n + 2
 
 

@@ -26,7 +26,8 @@ from repro_torch.kernels.cases import (DECODE_MAIN, DECODE_RAGGED, DECODE_SWEEP,
 from repro_torch.kernels.decode_attention import MAX_SPLITS, TILE, split_plan
 from repro_torch.kernels.flash_attention import (BWD_ROUTES, DTYPES, _bwd_args,
                                                  _entry_args, bwd_blocks, bwd_keys, bwd_route,
-                                                 bwd_tf32_blocks, rows16)
+                                                 bwd_tf32_blocks, fwd_tf32_rows, rows16,
+                                                 split_floats)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -71,7 +72,8 @@ def test_flash_attention_matches_pallas(dtype, case):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FLASH_RAGGED + FLASH_EMPTY_BAND + FLASH_TILES)
+@pytest.mark.parametrize("case", FLASH_RAGGED + FLASH_EMPTY_BAND + FLASH_TILES
+                         + cases.FLASH_TF32_TILES)
 def test_flash_attention_ragged_and_empty_band_match_reference(dtype, case):
     (jq, tq), (jk, tk), (jv, tv) = _flash_pairs(case, dtype, seed=1)
     off, win, causal = case[6:]
@@ -326,9 +328,13 @@ def test_flash_entry_args_carry_the_views_strides():
     assert args[5:11] == (1, 10, 1, 8, 24, 256)
     assert args[11:23] == (q.stride()[:3] + (6144, 256, 256) + (6144, 256, 256)
                            + out.stride()[:3])
-    assert args[23:27] == (16, 1, 1, 12)
+    assert args[23:29] == (16, 1, 1, 12, 0, 0)    # the bf16 route takes no rows, no scratch
+    # fp32: the rows a block, and the scratch of the split copies of q, k, v
+    scratch = torch.empty(split_floats(1, 10, 1, 8, 24, 256))
+    assert scratch.numel() == 2 * (10 * 8 + 2 * 32) * 260     # rows of 256 + 4, 32 keys
     assert _entry_args(q.float(), k.float(), v.float(), out.float(), 0, False, None,
-                       0)[23:27] == (0, 0, 0, 0)
+                       0, scratch=scratch)[23:29] == (0, 0, 0, 0, fwd_tf32_rows(1, 10, 1, 8, 256),
+                                                      scratch.data_ptr())
 
 
 def test_flash_train_entry_args_put_lse_after_the_output():
@@ -403,6 +409,27 @@ def test_flash_bwd_tf32_blocks_fill_the_card(label):
     assert keys <= (128 if hd <= 80 else 64 if hd <= 192 else 32)
     if label == "100M twin":
         assert (rows, keys) == (16, 16)
+
+
+@pytest.mark.parametrize("label", list(cases.FLASH_BWD_TRAIN))
+def test_flash_fwd_tf32_rows_fill_the_card(label):
+    """The fp32 forward's blocks at the training shapes: rows a multiple of
+    16 and at least G, the largest whose grid has at least FWD_FILL (128)
+    blocks where any size gives that many (the 100M twin: 32 rows, 128
+    blocks), within the largest block that fits at the case's hd."""
+    B, H, KV, Sq, Sk, hd = cases.FLASH_BWD_TRAIN[label][:6]
+    G = H // KV
+    most = 128 if hd <= 128 else 64 if hd <= 192 else 32
+
+    def grid(rows):
+        return -(-Sq // (rows // G)) * KV * B
+
+    rows = fwd_tf32_rows(B, H, KV, Sq, hd)
+    assert rows % 16 == 0 and G <= rows <= most
+    assert grid(rows) >= 128 or all(grid(r) < 128 for r in range(16, most + 1, 16) if r >= G)
+    assert all(grid(r) < 128 for r in range(rows + 16, most + 1, 16))
+    if label == "100M twin":
+        assert (rows, grid(rows)) == (32, 128)
 
 
 @pytest.mark.parametrize("causal, window, keys", [(True, None, 64), (True, 4096, 128),
@@ -497,7 +524,8 @@ def test_kernel_sources_call_no_library_attention():
         text = src.read_text()
         for banned in ("cublas", "cudnn", "scaled_dot_product", "#include <torch"):
             assert banned not in text.lower(), f"{src.name}: {banned}"
-    # bf16 flash runs on the tensor-core kernel only: the CUDA-core one has
-    # no bf16 instantiation
+    # bf16 flash runs on the wgmma kernel only: the split-TF32 one has no
+    # bf16 instantiation, and the CUDA-core fp32 kernel is gone
     flash = (build.CSRC / "flash_attention.cu").read_text()
-    assert re.search(r"flash_kernel<\s*__nv_bfloat16", flash) is None
+    assert re.search(r"flash_tf32_kernel<\s*__nv_bfloat16", flash) is None
+    assert "flash_tf32_kernel<" in flash and re.search(r"\bflash_kernel\b", flash) is None
