@@ -73,7 +73,8 @@
    events and is discarded, up to ``REPLAY_TRIES`` replays (each from a
    freshly stored prefix or state), and the last is judged.
 4. wkv6 kernel: against ``wkv6_ref`` at every ``WKV6_*`` case (the step
-   kernel's ``WKV6_STEP``, ``WKV6_FLOOR``, bf16 and fp32 r/k/v) and at the
+   kernel's ``WKV6_STEP``, ``WKV6_FLOOR``, the time loop's slice and
+   staging-chunk edges ``WKV6_SLICE``, bf16 and fp32 r/k/v) and at the
    rwkv6-1.6b path's two shapes, (1,32,1,64) per engine step and
    (1,32,2048,64) per layer of a 2,048-token prefill, both read in place
    from the model's (B,S,H,hd) layout with bf16 r/k/v as the model passes
@@ -86,7 +87,7 @@
    with the state cold: each call of a window reads a copy no earlier call
    of it touched, out of copies that exceed twice the L2 cache; the window
    must hold only ``wkv6_step_kernel`` (S = 1) or ``wkv6_kernel`` launches,
-   one per call.
+   ``wkv6.fwd_plan``'s one per call.
    The floor row (``WKV6_FLOOR``, one head of 32) gives a step call's fixed
    cost.
 5. rwkv6-1.6b model, full width in fp32: prefill of 2,048 tokens plus one
@@ -103,13 +104,18 @@
    ``wkv6_kernel``, and logs device kernels per fed or decoded token.
 7. rglru kernels: the scan in fp32 against ``rglru_scan_ref`` at every
    ``RGLRU_*`` scan case (the reference's sweep, D 2,560 at S 1 and 2,560,
-   D 77, two channel blocks, strided rows, S 0, the floor), at ``|out -
-   want| <= 1e-5 (scale + |want|)``; the fused step against
+   D 77, two channel blocks, strided rows, the forward's 128-step chunk
+   edges ``RGLRU_CHUNK``, S 0, the floor) and at the training shape
+   (1,8192,2560), at ``|out - want| <= 1e-5 (scale + |want|)``, the timed
+   rows two calls the same bits; the fused step against
    ``rglru_step_ref`` at every ``RGLRU_STEP`` case, ``h'`` at 1e-5 and ``y``
    at 1e-5 (fp32) or 2e-2 (bf16). Kernel, plain, bound and device times (as
    wkv6's, state cold) of the scan at (1,2560,2560) per recurrent layer of a
-   2,560-token prefill, at (1,1,2560) and at the floor (1,1,32) (bytes
-   4(3BSD + 2BD) at 3.35 TB/s); of the fused step at (1,2560) bf16 per
+   2,560-token prefill, at (1,1,2560), at the floor (1,1,32) and at the
+   training shape (1,8192,2560) (bytes 4(3BSD + 2BD) at 3.35 TB/s; the
+   device window holds ``rglru.scan_plan``'s kernels a call,
+   ``rglru_fwd_carry_kernel`` past one chunk and ``rglru_fwd_kernel``,
+   split by kernel); of the fused step at (1,2560) bf16 per
    recurrent layer and engine step and at (1,32) (bytes 4(7BD) + 2·2BD),
    beside the device time of its plain version, the PyTorch chain it
    replaces on the step. No PyTorch call computes either, so no library
@@ -132,7 +138,8 @@
    cold engine, peak memory, the snapshot's bytes and a profiled replay of
    turn 2, which must show (64 + 8) x 8 = 576 launches of
    ``decode_mma_kernel`` and none of ``decode_partial_kernel<bf16>``, 72 ×
-   18 = 1,296 of ``rglru_step_kernel`` and none of ``rglru_kernel``, and
+   18 = 1,296 of ``rglru_step_kernel`` and none of the scan's
+   ``rglru_fwd_*`` kernels, and
    logs device kernels per fed or decoded token.
 10. Dense engines, after the recurrent ones, as step 3, each freed before
    the next, with its peak memory: llama3-8b (rope theta 500,000; 32/8
@@ -264,7 +271,9 @@
    (``ops.wkv6_train``) at every ``WKV6_*`` forward case and at rwkv6-1.6b's
    training shape ``cases.WKV6_BWD_TRAIN`` (1,32,4096,64, bf16 r/k/v), its
    y and s_n the serving entry's bit for bit and its checkpoints within
-   ``WKV6_TOL`` of ``ref.wkv6_train_ref``'s; at every ``cases.WKV6_BWD``
+   ``WKV6_TOL`` of ``ref.wkv6_train_ref``'s, and the serving entry's y and
+   s_n within ``WKV6_TOL`` of the plain version's at the training shape;
+   at every ``cases.WKV6_BWD``
    case and the training shape, dr, dk, dv, dw, du and ds0 through autograd
    of ``ops.wkv6`` against ``ref.wkv6_bwd_ref`` (fp32 gradients within
    ``WKV6_TOL``, bf16 ones within ``TOL[bf16]``), and two backward calls
@@ -297,7 +306,8 @@
    and 8 flash backward calls per step (at hd 256 the backward runs the
    wide tensor-core kernels ``flash_bwd_dq_wide_kernel`` and
    ``flash_bwd_dkdv_wide_kernel``); the ``rglru backward`` class (both of
-   its kernels, two device launches a call) and the ``rglru scan`` class in
+   its kernels, two device launches a call) and the ``rglru scan`` class
+   (``rglru_fwd_carry_kernel`` and ``rglru_fwd_kernel``, two a call) in
    the profile. No bf16 step may show an fp32 backward kernel
    (``flash_bwd_dq_tf32_kernel``, ``flash_bwd_dkdv_tf32_kernel``).
 24. One layer's gradients through the kernels against the plain versions,
@@ -370,7 +380,8 @@ CSRC = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_att
         "rglru_scan_bwd": "rglru_scan.cu"}
 PORT_KERNELS = ("flash_mma_kernel", "flash_tf32_split_kernel", "flash_tf32_kernel",
                 "decode_mma_kernel",
-                "decode_partial_kernel", "rglru_kernel", "rglru_step_kernel",
+                "decode_partial_kernel", "rglru_fwd_carry_kernel", "rglru_fwd_kernel",
+                "rglru_step_kernel",
                 "wkv6_kernel", "wkv6_step_kernel", "flash_bwd_dq_tf32_kernel",
                 "flash_bwd_dkdv_tf32_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_wide_kernel",
@@ -390,7 +401,7 @@ STEP_CLASSES = (("flash backward", re.compile(r"flash_bwd_")),
                 ("wkv6 backward", re.compile(r"wkv6_bwd_")),
                 ("wkv6 forward", re.compile(r"wkv6_kernel|wkv6_step_kernel")),
                 ("rglru backward", re.compile(r"rglru_bwd_")),
-                ("rglru scan", re.compile(r"rglru_kernel")),
+                ("rglru scan", re.compile(r"rglru_fwd_")),
                 ("GEMMs", re.compile(r"gemm|xmma|nvjet|cutlass", re.I)))
 DECODE_BF16_OLD = "decode_partial_kernel<__nv_bfloat16"   # bf16 decode must not run it
 RWKV = "rwkv6-1.6b"
@@ -1280,9 +1291,15 @@ def profiled_step(label, fn, whole):
     discarded) unless the window recorded every kernel of the step that
     ``whole`` counts: {class: device launches}, e.g. 2 x layers flash
     forward launches and as many backward kernels (dQ and dK/dV per
-    layer)."""
+    layer). A session can lose its first device records: on an H100 every
+    profiled step of one run lost one flash forward (danube) or one rglru
+    scan (recurrentgemma-2b), of which the first runs near the step's
+    start. So the session opens as ``profiled``'s does, with
+    ``PROFILE_LEAD`` small kernels and a spin, and the step is read after
+    that spin."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.device_time import SPIN_CYCLES
     from repro_torch.train import steps
     real = steps.adamw_update
 
@@ -1291,8 +1308,13 @@ def profiled_step(label, fn, whole):
             return real(*a, **kw)
 
     steps.adamw_update = traced
+    lead = torch.zeros(1, device="cuda")
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):       # what a session's lost start takes
+                lead.add_(1)
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             result = fn()
             torch.cuda.synchronize()
@@ -1307,11 +1329,19 @@ def profiled_step(label, fn, whole):
         return list(e.kernels) + [k for ch in e.cpu_children for k in subtree(ch)]
 
     events = prof.events()
+    # the step's device work runs after the lead's spin (all of it if the
+    # session lost the spin too)
+    spins = [e.time_range.end for e in events
+             if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name]
+    if not spins:
+        log(f"profile of {label}: the session lost its opening spin")
+    lo = min(spins, default=-1)
     us = {c: 0.0 for c, _ in STEP_CLASSES}
     calls = {c: 0 for c, _ in STEP_CLASSES}
     by_name = {}
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.name == "adamw_update":
+        if (e.device_type != DeviceType.CUDA or e.name == "adamw_update"
+                or e.time_range.start < lo or "spin_kernel" in e.name):
             continue
         t = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + t
@@ -1357,9 +1387,10 @@ def wkv6_row(ops, ref, cases, case, timed: bool):
         sets = copies(inputs, limit=256)
         row["ms"] = rotated_ms(ops.wkv6, sets, 50 if S < 64 else 10)
         row["plain_ms"] = rotated_ms(ref.wkv6_ref, sets, 20 if S < 64 else 2)
+        from repro_torch.kernels import wkv6
         row["device_ms"] = cold_device_ms(
             ops.wkv6, inputs, "wkv6_step_kernel" if S == 1 else "wkv6_kernel<",
-            iters=20 if S == 1 else 10)
+            iters=20 if S == 1 else 10, kernels=wkv6.fwd_plan(B, H, S, hd)[0])
         nbytes = (3 * inputs[0].element_size() * B * H * S * hd
                   + 4 * (2 * B * H * S * hd + 2 * B * H * hd * hd + H * hd))
         row.update(zip(("bound_ms", "bound_by"),
@@ -1382,7 +1413,8 @@ def wkv6_phase(ops, ref, cases, cfg):
                              f"cases.WKV6_STEP[0] {cases.WKV6_STEP[0]}")
     rows = {}
     for group, table in (("sweep", cases.WKV6_SWEEP), ("edge", cases.WKV6_EDGE),
-                         ("no token", cases.WKV6_NO_TOKEN), ("step", cases.WKV6_STEP),
+                         ("slice", cases.WKV6_SLICE), ("no token", cases.WKV6_NO_TOKEN),
+                         ("step", cases.WKV6_STEP),
                          ("bf16", cases.WKV6_BF16)):
         for i, case in enumerate(table):
             rows[f"{group} {i}"] = (case, wkv6_row(ops, ref, cases, case, False))
@@ -1463,8 +1495,12 @@ def rglru_row(ops, ref, cases, case, timed: bool):
         sets = copies(inputs, limit=256)
         row["ms"] = rotated_ms(ops.rglru_scan, sets, 50 if S < 64 else 10)
         row["plain_ms"] = rotated_ms(ref.rglru_scan_ref, sets, 20 if S < 64 else 2)
-        row["device_ms"] = cold_device_ms(ops.rglru_scan, inputs, "rglru_kernel",
-                                          iters=20 if S == 1 else 10)
+        from repro_torch.kernels import rglru
+        split = {}
+        row["device_ms"] = cold_device_ms(ops.rglru_scan, inputs, "rglru_fwd_",
+                                          iters=20 if S == 1 else 10,
+                                          kernels=rglru.scan_plan(B, S, D)[0], split=split)
+        row["device_split"] = {n: t for n, (_, t) in split.items()}
         nbytes = 4 * (3 * B * S * D + 2 * B * D)
         row.update(zip(("bound_ms", "bound_by"),
                        bound(2 * B * S * D, nbytes, torch.float32)))
@@ -1501,18 +1537,20 @@ def rglru_phase(ops, ref, cases, cfg):
     engine step, and at its floor."""
     D = cfg.rnn_width
     main = {"prefill": (1, GRIFFIN_PREFILL, D, "bsd"), "one step": (1, 1, D, "bsd"),
-            "floor": cases.RGLRU_FLOOR[0]}
+            "floor": cases.RGLRU_FLOOR[0],
+            "training shape": cases.RGLRU_BWD_TRAIN[GRIFFIN][:4]}
     step_main = {"engine step": (1, D, "bf16", "bd"), "floor": cases.RGLRU_STEP[-1]}
     if step_main["engine step"] != cases.RGLRU_STEP[0]:
         raise AssertionError(f"the engine's rglru step {step_main['engine step']} is not "
                              f"cases.RGLRU_STEP[0] {cases.RGLRU_STEP[0]}")
     rows, step_rows = {}, {}
     for group, table in (("sweep", cases.RGLRU_SWEEP), ("edge", cases.RGLRU_EDGE),
-                         ("no token", cases.RGLRU_NO_TOKEN)):
+                         ("chunk", cases.RGLRU_CHUNK), ("no token", cases.RGLRU_NO_TOKEN)):
         for i, case in enumerate(table):
             rows[f"{group} {i}"] = (case, rglru_row(ops, ref, cases, case, False))
     for label, case in main.items():
         rows[label] = (case, rglru_row(ops, ref, cases, case, True))
+        cases.check_rglru_repeat(case, "cuda")
     for i, case in enumerate(cases.RGLRU_STEP):
         step_rows[f"case {i}"] = (case, rglru_step_row(ops, ref, cases, case, False))
     for label, case in step_main.items():
@@ -1526,6 +1564,8 @@ def rglru_phase(ops, ref, cases, cfg):
                          f"device per call {r['device_ms']:.6f} ms")
                 if "plain_device_ms" in r:
                     times += f", plain chain {r['plain_device_ms']:.6f} ms"
+                if "device_split" in r:
+                    times += f" ({kernel_split(r['device_split'])}); two calls the same bits"
             log(f"{kind} {label} {case}: max |err| {r['max_abs_err']:.3e}{times}")
     return rows, step_rows
 
@@ -1583,11 +1623,15 @@ def wkv6_bwd_phase(ops, ref, cases):
     """Step 20: the training entry at every forward case and the training
     shape, the backward at every ``cases.WKV6_BWD`` case, the training
     shape held and timed."""
-    for case in (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN + cases.WKV6_STEP
-                 + cases.WKV6_FLOOR + cases.WKV6_BF16 + list(cases.WKV6_BWD_TRAIN.values())):
+    for case in (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_SLICE + cases.WKV6_NO_TOKEN
+                 + cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16
+                 + list(cases.WKV6_BWD_TRAIN.values())):
         err = cases.check_wkv6_train(case, "cuda")
         log(f"wkv6_train {case}: the serving entry's y and s_n bit for bit; checkpoints max "
             f"|err| {err:.3e}")
+    for case in cases.WKV6_BWD_TRAIN.values():
+        err, _ = cases.check_wkv6(case[:8], "cuda")
+        log(f"wkv6 {case[:8]}: y and s_n against the plain version, max |err| {err:.3e}")
     for case in cases.WKV6_BWD:
         err, _ = cases.check_wkv6_bwd(case, "cuda")
         cases.check_wkv6_bwd_repeat(case, "cuda")
@@ -1746,11 +1790,13 @@ def train_spec(cfg):
         return (GRIFFIN_TRAIN_TOKENS,
                 dict(rglru_scan=2 * rec, rglru_scan_bwd=rec, flash_attention=2 * units,
                      flash_attention_bwd=units),
-                {"rglru scan": 2 * rec,
+                {"rglru scan": 2 * rec * rglru.scan_plan(
+                    1, GRIFFIN_TRAIN_TOKENS, cfg.rnn_width)[0],
                  "rglru backward": rec * rglru.bwd_plan(
                      1, GRIFFIN_TRAIN_TOKENS, cfg.rnn_width)[0],
                  "flash forward": 2 * units, "flash backward": 2 * units},
-                ("rglru_bwd_kernel", "rglru_bwd_carry_kernel", "flash_bwd_dq_wide_kernel",
+                ("rglru_fwd_kernel", "rglru_fwd_carry_kernel", "rglru_bwd_kernel",
+                 "rglru_bwd_carry_kernel", "flash_bwd_dq_wide_kernel",
                  "flash_bwd_dkdv_wide_kernel"), probes)
     probes.update({"layers/attn/wq": lambda p: p["layers"]["attn"]["wq"][0, :64],
                    "layers/mlp/w_down": lambda p: p["layers"]["mlp"]["w_down"][-1, :64]})
@@ -2015,7 +2061,7 @@ def check_recurrence_calls(arch, cfg, calls, steps):
     recurrence in the step kernels only, one launch per recurrent layer and
     token; logs device kernels (and copies and fills) per token."""
     new, old = (("wkv6_step_kernel", "wkv6_kernel<") if cfg.family == "ssm"
-                else ("rglru_step_kernel", "rglru_kernel"))
+                else ("rglru_step_kernel", "rglru_fwd_"))
     want = steps * (per_token(cfg)["wkv6"] + per_token(cfg)["rglru_step"])
     got = sum(c for n, c in calls.items() if new in n)
     stale = sum(c for n, c in calls.items() if old in n)
@@ -2055,7 +2101,7 @@ def main():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    spills = {f: n for lib in ("flash_attention", "flash_attention_bwd", "wkv6_bwd",
+    spills = {f: n for lib in ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd",
                                "rglru_scan")
               for f, n in entry_spills(build.build_logs.get(lib, "")).items()}
     if any(n != (0, 0) for n in spills.values()):

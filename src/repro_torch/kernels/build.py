@@ -63,7 +63,8 @@ _SIGNATURES = {
         "decode_attention_occupancy": (_I, [_I] * 8 + [_P]),
     },
     "rglru_scan": {
-        "rglru_scan_launch": (_I, [_P] * 5 + [_I] * 3 + [_L] * 7 + [_P]),
+        "rglru_scan_launch": (_I, [_P] * 6 + [_I] * 3 + [_L] * 7 + [_P]),
+        "rglru_scan_plan": (_I, [_I] * 3 + [_P]),
         "rglru_step_launch": (_I, [_P] * 9 + [_I] * 3 + [_L] * 4 + [_P]),
         "rglru_scan_bwd_launch": (_I, [_P] * 9 + [_I] * 3 + [_L] * 11 + [_P]),
         "rglru_scan_bwd_plan": (_I, [_I] * 3 + [_P]),
@@ -71,6 +72,7 @@ _SIGNATURES = {
     "wkv6": {
         "wkv6_launch": (_I, [_P] * 8 + [_I] * 5 + [_L] * 19 + [_P]),
         "wkv6_train_launch": (_I, [_P] * 9 + [_I] * 6 + [_L] * 19 + [_P]),
+        "wkv6_fwd_plan": (_I, [_I] * 4 + [_P]),
     },
     "wkv6_bwd": {
         "wkv6_bwd_launch": (_I, [_P] * 15 + [_L] + [_I] * 6 + [_L] * 28 + [_P]),

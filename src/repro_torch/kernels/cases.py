@@ -76,7 +76,9 @@ storage (off every 16-byte boundary: the step kernel's element path);
 ``rkv`` "bf16" passes ``r``, ``k`` and ``v`` in bf16 (drawn in fp32 and
 rounded, so the fp32 arrays hold the same values), "fp32" or absent in fp32.
 ``WKV6_STEP`` holds the one-token calls (the step kernel),
-``WKV6_FLOOR`` the smallest, whose time is a launch's fixed cost. Held at
+``WKV6_FLOOR`` the smallest, whose time is a launch's fixed cost,
+``WKV6_SLICE`` the time loop's edges (its 8-column slices and staging
+chunks, on grids of one to three heads). Held at
 ``WKV6_TOL`` = 1e-4 in the same form (the ``atol = rtol = 1e-4`` of
 ``tests/test_kernels.py:95-98``), on ``y`` and ``s_n``.
 
@@ -86,8 +88,10 @@ draws them; ``layout`` "bsd" gives contiguous tensors, "wide" passes ``a``
 and ``b`` as the two halves of one (B,S,2D) buffer and ``h0`` as half of a
 (B,2D) buffer, so rows are read by strides. fp32 only, at ``RGLRU_TOL`` =
 1e-5 in the same form (the ``atol`` 1e-5 of ``tests/test_kernels.py:79-80``),
-on ``y`` and ``h_S``. ``RGLRU_FLOOR`` is the smallest call, a launch's fixed
-cost.
+on ``y`` and ``h_S``. ``RGLRU_CHUNK`` holds the edges of the scan's 128-step
+chunks (past one chunk the kernel's folded states are not the plain
+version's bits; ``check_rglru_repeat`` holds two calls to the same bits).
+``RGLRU_FLOOR`` is the smallest call, a launch's fixed cost.
 
 The recurrent backwards. ``WKV6_BWD`` cases are the WKV6 cases with two
 more entries, ``(..., layout, rkv, ds_n)``: ``ds_n`` "random" passes a normal
@@ -315,6 +319,20 @@ WKV6_EDGE = [
     (2, 2, 16, 32, None, 0.0, "bhsd"),          # zero initial state
     (2, 3, 19, 64, None, 0.1, "bshd"),          # the model's layout, read in place
 ]
+# the time loop's 8-column slices and its staging chunks (16 steps, 8 at hd
+# 128; csrc/wkv6.cu) either side, B·H so small that the grid is one to three
+# heads' slices
+WKV6_SLICE = [
+    (1, 1, 15, 64, None, 0.1, "bshd", "bf16"),  # one step short of a chunk
+    (1, 1, 16, 64, 0.0, 0.1, "bshd", "bf16"),   # one whole chunk, decay 0
+    (1, 1, 17, 64, 1.0, 0.1, "bshd", "fp32"),   # a chunk and a step, no decay
+    (1, 2, 33, 64, None, 0.1, "bshd", "bf16"),  # two chunks and a step
+    (1, 2, 17, 48, None, 0.1, "bshd", "bf16"),  # 6 slices of 8 in a 64-wide kernel
+    (2, 1, 33, 100, None, 0.1, "bshd", "bf16"),  # a partial slice, rows past hd
+    (1, 1, 16, 100, 1.0, 0.1, "bhsd", "fp32"),
+    (1, 3, 33, 64, None, 0.1, "off", "bf16"),   # off 16 bytes: element path
+    (1, 1, 17, 128, None, 0.1, "bshd", "bf16"),  # chunks of 8 at hd 128
+]
 # no token: y is empty and s_n is s0 (the Pallas kernel takes no S = 0)
 WKV6_NO_TOKEN = [(1, 2, 0, 32, None, 0.1, "bhsd")]
 # one token: the step kernel (8-column slices, one warp each)
@@ -340,8 +358,8 @@ WKV6_BF16 = [(1, 3, 20, 64, None, 0.1, "bshd", "bf16")]
 # more, hd 1 and 80, bf16 and fp32 r/k/v, ds_n zero (None) and random, the
 # model's views and the off-16-byte element path
 WKV6_BWD = [c[:7] + (c[7] if len(c) > 7 else "fp32", "random")
-            for c in (WKV6_SWEEP + WKV6_EDGE + WKV6_NO_TOKEN + WKV6_STEP + WKV6_FLOOR
-                      + WKV6_BF16)] + [
+            for c in (WKV6_SWEEP + WKV6_EDGE + WKV6_SLICE + WKV6_NO_TOKEN + WKV6_STEP
+                      + WKV6_FLOOR + WKV6_BF16)] + [
     (1, 2, 0, 32, None, 0.1, "bhsd", "fp32", "zero"),    # no token: ds0 = 0
     (1, 2, 1, 64, None, 0.1, "bshd", "bf16", "zero"),    # one token (the step kernel)
     (1, 3, 16, 64, None, 0.1, "bshd", "bf16", "zero"),   # one whole chunk
@@ -369,6 +387,15 @@ RGLRU_EDGE = [
     (2, 9, 300, "bsd"),                   # two channel blocks, the last partial
     (2, 19, 200, "wide"),                 # rows read by strides
 ]
+# the forward's 128-step chunks (csrc/rglru_scan.cu) either side: one whole
+# chunk (the plain version's bits), one step into a second, a partial third;
+# odd D, strided rows, three batches
+RGLRU_CHUNK = [
+    (1, 128, 77, "bsd"),
+    (3, 129, 77, "wide"),
+    (3, 257, 200, "bsd"),
+    (2, 257, 96, "wide"),
+]
 # no token: y is empty and h_S is h0 (the Pallas kernel takes no S = 0)
 RGLRU_NO_TOKEN = [(1, 0, 64, "bsd")]
 # the fixed cost of a scan call: one step of 32 channels
@@ -377,8 +404,8 @@ RGLRU_FLOOR = [(1, 1, 32, "bsd")]
 # with none (dh_S zero, as the model's training passes it); then the edges
 # of the backward's 128-step chunks (csrc/rglru_scan.cu): one whole chunk, one
 # step into a second, and a partial last chunk
-RGLRU_BWD = [c + ("random",) for c in RGLRU_SWEEP + RGLRU_EDGE + RGLRU_NO_TOKEN
-             + RGLRU_FLOOR] + [
+RGLRU_BWD = [c + ("random",) for c in RGLRU_SWEEP + RGLRU_EDGE + RGLRU_CHUNK
+             + RGLRU_NO_TOKEN + RGLRU_FLOOR] + [
     (2, 33, 128, "bsd", "zero"),
     (2, 19, 200, "wide", "zero"),
     (1, 0, 64, "bsd", "zero"),            # no token: dh0 = 0
@@ -706,6 +733,17 @@ def check_rglru(case, device, seed=0):
     err = max(held("rglru y", case, y, want_y, RGLRU_TOL),
               held("rglru h_S", case, hn, want_hn, RGLRU_TOL))
     return err, inputs
+
+
+def check_rglru_repeat(case, device, seed=0):
+    """Two calls of ``ops.rglru_scan`` on the same inputs must give the same
+    bits; raises unless they do."""
+    inputs = rglru_inputs(case, device, seed)
+    first, second = (ops.rglru_scan(*inputs) for _ in range(2))
+    for n, x, w in zip(("y", "h_S"), first, second):
+        if not torch.equal(x, w):
+            raise AssertionError(f"rglru_scan {case}: {n} differs between two calls in "
+                                 f"{int((x != w).sum())} entries")
 
 
 def check_rglru_step(case, device, seed=0):

@@ -4,7 +4,8 @@
 // _rglru_kernel), and at the decode step the XLA fusion around the
 // reference's step (repro/models/griffin.py::rglru_step). Three entries:
 //
-// rglru_scan_launch -> rglru_kernel, the sequence. Per (batch, channel):
+// rglru_scan_launch -> rglru_fwd_carry_kernel, rglru_fwd_kernel: the
+// sequence. Per (batch, channel):
 //
 //   h = h0[b, d];  for t < S:  h = a[b, t, d] * h + b[b, t, d];  y[b, t, d] = h
 //   hn[b, d] = h
@@ -13,23 +14,38 @@
 //   strides with the channel dimension contiguous, so the model's tensors
 //   are read and written in place; hn is contiguous.
 //
-//   Design. One thread per channel, blocks of kThreads channels over
-//   (d-block, batch), so every load and store of a time step is coalesced
-//   along D. a_t and b_t do not depend on h: they are loaded kAhead steps
-//   ahead into registers (the next chunk's loads are issued before the
-//   current chunk's chain runs), so only the multiply-add chain is serial.
-//   The product and the sum are rounded separately (__fmul_rn, __fadd_rn),
-//   as the plain version `a_t * h + b_t` rounds them; the compiler would
-//   otherwise contract them into one FMA. Any D (the Pallas kernel's block_d
-//   and its divisibility assert are TPU tiling), any S >= 0 (S = 0 copies h0
-//   to hn), any B up to the grid's 65,535 rows.
-//
 //   Bound on the H100: bytes, 4·(3·B·S·D + 2·B·D) at 3.35 TB/s (2·B·S·D
-//   fp32 operations are far below the 67 TFLOP/s line): at the model
-//   phase's prefill (1,2560,2560) 78.7 MB, 23 µs. There, batch 1 gives 10
-//   blocks for 132 SMs, each walking a 2,560-step chain, so this first
-//   version sits far above the bound; a chunked two-pass scan (per-chunk
-//   products and carries, then a fix-up) is later work.
+//   fp32 operations are far below the 67 TFLOP/s line): 23 µs at the model
+//   phase's prefill (1,2560,2560), 75 µs at recurrentgemma-2b's training
+//   shape (1,8192,2560). One thread walking a channel's whole chain gives
+//   batch 1 only D/256 blocks (10 for 132 SMs) and an S-step dependent chain
+//   each, far above that bound.
+//
+//   Design: a chunked two-pass scan, the backward's pattern (below) run
+//   forward; a decoupled look-back single pass would save pass 1's reads
+//   but makes a block wait on its predecessors, and this order is fixed
+//   with no waiting. The recurrence is cut along time into chunks of
+//   kScanChunk = 128 steps, one thread a channel, blocks of 128 channels
+//   over (d-block, chunk, batch): at (1,8192,2560) 20 x 64 blocks, at
+//   (1,2560,2560) 20 x 20. The state out of a chunk is affine in the state
+//   into it: L + M·h, with L the chunk's scan from a zero state and M the
+//   product of its a's. Pass 1 (rglru_fwd_carry_kernel, chunks 0..K-2)
+//   writes (L, M), 2·B·K·D fp32 (1.3 MB at the training shape, in L2);
+//   pass 2 (rglru_fwd_kernel, every chunk) folds h0 through the (L, M) of
+//   the chunks before its own, first first, by fmaf, then walks its steps
+//   with that state, rounding each product and sum apart (__fmul_rn,
+//   __fadd_rn) as the plain version `a_t * h + b_t` does (the compiler would
+//   otherwise contract them into one FMA), and writes y; the last chunk
+//   writes h_S. At S <= 128 (one chunk) pass 2 runs alone from h0 and the
+//   result is the plain version's bit for bit; past it the folded states
+//   round otherwise than one long chain, so it holds RGLRU_TOL, not the
+//   bits, and two calls give the same bits (no atomics, a fixed order).
+//   a_t and b_t do not depend on h: each thread loads them kAhead steps
+//   ahead, so only the multiply-add chain is serial. Bytes moved: pass 1
+//   reads a and b, pass 2 a and b and writes y, about 5·B·S·D·4, 1.7× the
+//   bound's. Any D (the Pallas kernel's block_d and its divisibility
+//   assert are TPU tiling), any S >= 0 (S = 0 copies h0 to hn), any B up to
+//   the grid's 65,535.
 //
 // rglru_scan_bwd_launch -> rglru_bwd_carry_kernel, rglru_bwd_kernel: the
 // scan's gradient, which the reference takes by autodiff of its
@@ -93,12 +109,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // channels per block (scan)
-constexpr int kAhead = 8;       // time steps loaded ahead of the chain
+constexpr int kScanChunk = 128;     // steps per chunk (scan)
+constexpr int kScanThreads = 128;   // channels per block (scan)
+constexpr int kAhead = 8;           // time steps loaded ahead of the chain
 constexpr int kStepThreads = 128;   // threads per block (step), 4 channels each
 constexpr int kBwdChunk = 128;      // steps per chunk (backward)
 constexpr int kBwdThreads = 128;    // channels per block (backward)
 
+// the scan's chunks at length S: ceil(S / kScanChunk), one at S <= kScanChunk
+inline int scan_chunks(int S) { return S > kScanChunk ? (S + kScanChunk - 1) / kScanChunk : 1; }
 // the backward's chunks at length S: ceil(S / kBwdChunk), one at S <= kBwdChunk
 inline int bwd_chunks(int S) { return S > kBwdChunk ? (S + kBwdChunk - 1) / kBwdChunk : 1; }
 
@@ -108,46 +127,99 @@ struct Params {
   const float* __restrict__ h0;
   float* __restrict__ y;
   float* __restrict__ hn;
-  int S, D;
+  float* __restrict__ lm;          // (L, M) of each chunk: [2][B][K][D]
+  int S, D, K;
   long long a_sb, a_ss, b_sb, b_ss, y_sb, y_ss, h_sb;
 };
 
+// a_t and b_t of the kAhead steps t0, t0 + 1, ...; steps at or past hi read
+// as 0.
 __device__ __forceinline__ void load_chunk(const Params& p, const float* a,
-                                           const float* b, int t0,
+                                           const float* b, int t0, int hi,
                                            float (&at)[kAhead], float (&bt)[kAhead]) {
 #pragma unroll
   for (int c = 0; c < kAhead; ++c) {
     const int t = t0 + c;
-    at[c] = t < p.S ? __ldg(a + t * p.a_ss) : 0.f;
-    bt[c] = t < p.S ? __ldg(b + t * p.b_ss) : 0.f;
+    at[c] = t < hi ? __ldg(a + (long long)t * p.a_ss) : 0.f;
+    bt[c] = t < hi ? __ldg(b + (long long)t * p.b_ss) : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) rglru_kernel(const Params p) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const int bi = blockIdx.y;
+// Pass 1, chunks 0 .. K-2: the chunk's scan from a zero state gives L, its
+// last h, and M = Π a_t over the chunk; the true state out of the chunk is
+// L + M · (the state into it).
+__global__ void __launch_bounds__(kScanThreads) rglru_fwd_carry_kernel(const Params p) {
+  const int d = blockIdx.x * kScanThreads + threadIdx.x;
+  const int kc = blockIdx.y, bi = blockIdx.z;
   if (d >= p.D) return;
+  const int lo = kc * kScanChunk, hi = min(p.S, lo + kScanChunk);
   const float* a = p.a + bi * p.a_sb + d;
   const float* b = p.b + bi * p.b_sb + d;
-  float* y = p.y + bi * p.y_sb + d;
-  float h = p.h0[bi * p.h_sb + d];
-
+  float h = 0.f, m = 1.f;
   float an[kAhead], bn[kAhead];
-  load_chunk(p, a, b, 0, an, bn);
-  for (int t0 = 0; t0 < p.S; t0 += kAhead) {
+  load_chunk(p, a, b, lo, hi, an, bn);
+  for (int t0 = lo; t0 < hi; t0 += kAhead) {
     float at[kAhead], bt[kAhead];
 #pragma unroll
     for (int c = 0; c < kAhead; ++c) { at[c] = an[c]; bt[c] = bn[c]; }
-    if (t0 + kAhead < p.S) load_chunk(p, a, b, t0 + kAhead, an, bn);
+    if (t0 + kAhead < hi) load_chunk(p, a, b, t0 + kAhead, hi, an, bn);
 #pragma unroll
     for (int c = 0; c < kAhead; ++c) {
-      if (t0 + c < p.S) {
+      if (t0 + c < hi) {
+        h = __fadd_rn(__fmul_rn(at[c], h), bt[c]);
+        m = __fmul_rn(m, at[c]);
+      }
+    }
+  }
+  const long long o = ((long long)bi * p.K + kc) * p.D + d;
+  p.lm[o] = h;
+  p.lm[(long long)gridDim.z * p.K * p.D + o] = m;
+}
+
+// Pass 2, every chunk: the state into the chunk, folded from h0 through the
+// (L, M) of the chunks before it, first first (the same order in every
+// block, so a chunk starts from the state its predecessor ends with), then
+// the chunk's steps, each product and sum rounded apart as the plain
+// version rounds them; the last chunk writes h_S.
+__global__ void __launch_bounds__(kScanThreads) rglru_fwd_kernel(const Params p) {
+  const int d = blockIdx.x * kScanThreads + threadIdx.x;
+  const int kc = blockIdx.y, bi = blockIdx.z;
+  if (d >= p.D) return;
+  const int lo = kc * kScanChunk, hi = min(p.S, lo + kScanChunk);
+  const float* a = p.a + bi * p.a_sb + d;
+  const float* b = p.b + bi * p.b_sb + d;
+  float* y = p.y + bi * p.y_sb + d;
+  float an[kAhead], bn[kAhead];
+  if (lo < hi) load_chunk(p, a, b, lo, hi, an, bn);
+  float h = __ldg(p.h0 + bi * p.h_sb + d);
+  for (int j0 = 0; j0 < kc; j0 += kAhead) {
+    const float* L = p.lm + (long long)bi * p.K * p.D + d;
+    const float* M = L + (long long)gridDim.z * p.K * p.D;
+    float lj[kAhead], mj[kAhead];
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) {
+      const int j = j0 + c;
+      lj[c] = j < kc ? __ldg(L + (long long)j * p.D) : 0.f;
+      mj[c] = j < kc ? __ldg(M + (long long)j * p.D) : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c)
+      if (j0 + c < kc) h = fmaf(mj[c], h, lj[c]);
+  }
+  for (int t0 = lo; t0 < hi; t0 += kAhead) {
+    float at[kAhead], bt[kAhead];
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) { at[c] = an[c]; bt[c] = bn[c]; }
+    if (t0 + kAhead < hi) load_chunk(p, a, b, t0 + kAhead, hi, an, bn);
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) {
+      if (t0 + c < hi) {
         h = __fadd_rn(__fmul_rn(at[c], h), bt[c]);
         y[(long long)(t0 + c) * p.y_ss] = h;
       }
     }
   }
-  p.hn[(long long)bi * p.D + d] = h;
+  if (kc == p.K - 1) p.hn[(long long)bi * p.D + d] = h;
 }
 
 struct BwdParams {
@@ -396,22 +468,45 @@ void launch_step(const StepParams& p, int B, cudaStream_t st) {
 
 extern "C" {
 
+// The scan's plan at (B, S, D): returns the device kernels one call of
+// rglru_scan_launch launches (rglru_fwd_carry_kernel past one chunk of
+// kScanChunk steps, then rglru_fwd_kernel) and writes to *lm_floats the fp32
+// scratch it takes as lm, 2·B·K·D for K = ceil(S / kScanChunk) chunks (0 at
+// one chunk); -1 for a shape the launch refuses (B outside 1..65535, S < 0,
+// D <= 0, K above 65535).
+int rglru_scan_plan(int B, int S, int D, long long* lm_floats) {
+  const int K = scan_chunks(S);
+  if (B <= 0 || B > 65535 || S < 0 || D <= 0 || K > 65535) return -1;
+  *lm_floats = K > 1 ? 2LL * B * K * D : 0;
+  return K > 1 ? 2 : 1;
+}
+
 // a, b, y: strides of (batch, step); h0: of batch; the channel dimension of
-// each is contiguous. hn is contiguous (B,D). Returns a cudaError_t
-// (0 = launched; cudaErrorInvalidValue for B outside 1..65535, S < 0 or
-// D <= 0).
+// each is contiguous. hn is contiguous (B,D). lm holds the fp32 scratch that
+// rglru_scan_plan gives (null at one chunk). Returns a cudaError_t (0 =
+// launched; cudaErrorInvalidValue for a shape the plan refuses or no lm past
+// one chunk).
 int rglru_scan_launch(const float* a, const float* b, const float* h0, float* y,
-                 float* hn, int B, int S, int D,
-                 long long a_sb, long long a_ss, long long b_sb, long long b_ss,
-                 long long y_sb, long long y_ss, long long h_sb, void* stream) {
-  if (B <= 0 || B > 65535 || S < 0 || D <= 0) return (int)cudaErrorInvalidValue;
+                      float* hn, float* lm, int B, int S, int D,
+                      long long a_sb, long long a_ss, long long b_sb, long long b_ss,
+                      long long y_sb, long long y_ss, long long h_sb, void* stream) {
+  const int K = scan_chunks(S);
+  if (B <= 0 || B > 65535 || S < 0 || D <= 0 || K > 65535 || (K > 1 && lm == nullptr))
+    return (int)cudaErrorInvalidValue;
   Params p;
-  p.a = a; p.b = b; p.h0 = h0; p.y = y; p.hn = hn;
-  p.S = S; p.D = D;
+  p.a = a; p.b = b; p.h0 = h0; p.y = y; p.hn = hn; p.lm = lm;
+  p.S = S; p.D = D; p.K = K;
   p.a_sb = a_sb; p.a_ss = a_ss; p.b_sb = b_sb; p.b_ss = b_ss;
   p.y_sb = y_sb; p.y_ss = y_ss; p.h_sb = h_sb;
-  const dim3 grid((unsigned)((D + kThreads - 1) / kThreads), (unsigned)B);
-  rglru_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned dblocks = (unsigned)((D + kScanThreads - 1) / kScanThreads);
+  if (K > 1) {
+    rglru_fwd_carry_kernel<<<dim3(dblocks, (unsigned)(K - 1), (unsigned)B), kScanThreads, 0,
+                             st>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  rglru_fwd_kernel<<<dim3(dblocks, (unsigned)K, (unsigned)B), kScanThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -29,24 +29,37 @@
 //    used, so the call is one memory round trip; no shared memory, no
 //    barrier: y's sum over rows is a shuffle tree over the 16 row groups,
 //    and the new state is stored as float4.
-//  * S == 0 or S >= 2 -> wkv6_kernel<HD, T, P>: one block per (b, h), the
-//    time loop inside the block. Thread (j, g) owns column j of the state and
-//    the kRows rows g*kRows .. of it, in registers, so the state never leaves
-//    the chip between steps. Time steps are staged kChunk at a time in shared
-//    memory (r_t, k_t, v_t, w_t), so a chunk costs two barriers, not two per
-//    step. Each thread adds its rows' share of y_t[j] to a shared partial;
-//    after the chunk the kGroups partials of each column are summed and
-//    written. S = 0 copies s0 to s_n.
+//  * S == 0 or S >= 2 -> wkv6_kernel<HD, T, P>, the time loop. The columns
+//    of a head's state evolve apart (S[:, j] needs v_t[j] and every row's
+//    r, k, w, u), so, as in the step kernel, each head is cut into 8-column
+//    slices, one block of 64 threads each: B·H·hd/8 blocks, 256 at
+//    rwkv6-1.6b's (1,32,S,64), which fill the 132 SMs (one block per head
+//    would leave three quarters of them idle). Thread (g, c) of the 32 x 2
+//    owns columns 4c..4c+3 of the slice and the HD/32 rows g·HD/32.., all in
+//    registers for the whole sequence; per step one shared read of each of
+//    its rows' r, k, w (a vector of HD/32) and of its 4 columns' v feeds
+//    4·HD/32 state elements, and u stays in registers. Each element's
+//    update is one fmaf(st, w_i, k_i·v_j), the step kernel's, so s_n and
+//    the checkpoints do not depend on the layout; y_j is summed over a
+//    thread's rows by fmaf, then over the 32 row groups in order, once a
+//    chunk, from per-step partials in shared memory (two barriers a
+//    chunk). The chunk's r, k, w rows and the slice's v (kChunk steps: 16,
+//    8 at hd 128) are staged a chunk ahead into a two-slot ring in shared
+//    memory by 16-byte cp.async copies (r, k, v as stored: bf16 is upcast
+//    where it is read), so the copies of chunk n+1 run while chunk n is
+//    computed. The training entry stores its checkpoints
+//    streaming (st.global.cs): only the backward reads them, much later,
+//    and through L2 as usual they evict the r, k, w rows that a head's
+//    slices share. S = 0 copies s0 to s_n.
 //
 // P is how memory is reached. kFull (hd equals the template width, every
-// base and stride aligned to 4 elements; the models' calls): the step loads
-// 4 elements at a time with no mask, and the time loop stages 4 adjacent
-// elements of r, k, v and w per thread, loaded one chunk ahead into
-// registers, so the loads of chunk n+1 are in flight while chunk n is
-// computed (with bf16 r, k, v an 8-byte load). kElem (any other hd or
-// view): element by element; the time loop's staging loads are
-// unconditional (an element outside the call reads element (0, 0) and is
-// stored as 0), so they issue together.
+// base and stride aligned to 4 elements, and for the time loop r, k and v
+// to 16 bytes; the models' calls): the step loads 4 elements at a time with
+// no mask, and the time loop stages by 16-byte cp.async.
+// kElem (any other hd or view): element by element; the time loop's
+// staging loads are unconditional (an element outside the call reads
+// element (0, 0) and is stored as 0), so they issue together, and are
+// stored into the same ring, so the two paths compute alike.
 //
 // Columns and rows past hd (hd below the template width) hold zeros and are
 // never stored; any hd from 1 to 128.
@@ -61,22 +74,28 @@
 //
 // Bound on the H100: bytes, (2|4)·3·B·H·S·hd for r, k, v plus
 // 4·(2·B·H·S·hd + 2·B·H·hd² + H·hd) for w, y, the state in and out and u,
-// at 3.35 TB/s: at the engine's shape (1,32,1,64) with bf16 r, k, v about
+// at 3.35 TB/s (and the checkpoints, 4·B·H·⌈S/16⌉·hd², for the training
+// entry): at the engine's shape (1,32,1,64) with bf16 r, k, v about
 // 0.32 µs, dominated by the state, far below the fixed cost of a launch; at
 // the prefill shape (1,32,2048,64) bytes (25 µs in fp32) and the
-// 6·B·H·S·hd² fp32 operations (24 µs at 67 TFLOP/s) are close. The time loop
-// sits far above both at long S: B·H = 32 blocks for 132 SMs, each carrying
-// an S-step dependent chain. A chunked tensor-core formulation
-// (repro/models/rwkv6.py::wkv_scan_chunked) is later work.
+// 6·B·H·S·hd² fp32 operations (24 µs at 67 TFLOP/s) are close; at the
+// training shape (1,32,4096,64, bf16 r/k/v) bytes, 75 µs against 48. The
+// time loop's cost past the bound: every block reads its head's r, k, w
+// (8 slices: 8 times, from L2) and each step is a chain of dependent fmafs
+// a thread; its times are in PERF.md. A chunked tensor-core formulation
+// (repro/models/rwkv6.py::wkv_scan_chunked) is not written: its factorised
+// decays need that function's clamps, and the CUDA cores' operations bound
+// sits below the bytes bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kGroups = 4;               // row groups sharing one column (time loop)
 constexpr int kMaxHd = 128;
-constexpr int kSlice = 8;                // state columns per warp (step)
+constexpr int kSlice = 8;                // state columns per warp (step) or block (time loop)
 
 struct Params {
   const void* r;                         // T
@@ -153,13 +172,20 @@ __device__ __forceinline__ void loadn(const __nv_bfloat16* p, int n, float* o) {
 }
 
 // p[0..4) = o[0..4); on kElem, elements at or past n are not stored (n is
-// not looked at on kFull, one 16-byte store).
-template <Path P>
+// not looked at on kFull, one 16-byte store). STREAM: stores that bypass
+// the caches' keep (st.global.cs), for what no later kernel reads soon.
+template <Path P, bool STREAM = false>
 __device__ __forceinline__ void store4(float* p, int n, const float* o) {
   if (P == kElem) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (e < n) p[e] = o[e];
+    for (int e = 0; e < 4; ++e) {
+      if (e < n) {
+        if constexpr (STREAM) __stcs(p + e, o[e]);
+        else p[e] = o[e];
+      }
+    }
+  } else if constexpr (STREAM) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
   } else {
     *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
   }
@@ -237,127 +263,235 @@ __global__ void __launch_bounds__(32) wkv6_step_kernel(const Params p) {
   }
 }
 
-// plain loads (not the read-only path, which was slower in this loop)
-__device__ __forceinline__ float ldp(const float* p) { return *p; }
-__device__ __forceinline__ float ldp(const __nv_bfloat16* p) {
-  return __uint_as_float((unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+// The time loop's layout: blocks of 64 threads, kRowGroups x 2, on one
+// kSlice-column slice of a head; thread (g, c) owns kRows = HD / kRowGroups
+// rows and 4 columns. Steps are staged kChunk at a time.
+constexpr int kLoopThreads = 64;
+constexpr int kRowGroups = 32;
+// a step's y partials, padded so that the sum's 8-byte reads meet no bank twice
+constexpr int kPart = kRowGroups * kSlice + 8;
+
+template <int HD>
+constexpr int kLoopChunk = HD >= 128 ? 8 : 16;   // time steps per staging
+
+// r, k, v as stored: fp32, or bf16's 16 bits (upcast where they are read)
+template <typename T>
+using Raw = std::conditional_t<sizeof(T) == 2, unsigned short, float>;
+
+// One slot of the staging ring: kChunk steps of r, k, w rows and of the
+// slice's v.
+template <int HD, typename U>
+struct __align__(16) Stage {
+  static constexpr int kChunk = kLoopChunk<HD>;
+  U r[kChunk][HD];
+  U k[kChunk][HD];
+  float w[kChunk][HD];
+  U v[kChunk][kSlice];
+};
+
+// Shared-memory reads of N adjacent elements upcast to fp32 (N = 4, 2, 1: one
+// vector load).
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float* o) {
+  if constexpr (N == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
+  } else if constexpr (N == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    o[0] = q.x; o[1] = q.y;
+  } else {
+    o[0] = *p;
+  }
 }
 
-// The time loop's kFull staging: thread tid < kChunk·HD/4 takes 4 adjacent
-// elements (step t0 + tid / (HD/4), columns 4·(tid % (HD/4))..) of r, k, v
-// and w, upcast into o; a thread past the chunk or a step at or past S
-// loads element (0, 0) (there when S > 0) and keeps zeros.
-template <int HD, int kChunk, typename T>
-__device__ __forceinline__ void fetch4(const T* r, const T* k, const T* v, const float* w,
-                                       const Params& p, int t0, float (&o)[4][4]) {
-  const int tid = threadIdx.x, c = tid / (HD / 4), d = tid % (HD / 4) * 4;
-  const bool in = tid < kChunk * HD / 4 && c < p.S - t0;
-  const long long t = in ? t0 + c : 0;
-  const int dd = in ? d : 0;
-  loadn<4, kFull>(r + t * p.r_ss + dd, 4, o[0]);
-  loadn<4, kFull>(k + t * p.k_ss + dd, 4, o[1]);
-  loadn<4, kFull>(v + t * p.v_ss + dd, 4, o[2]);
-  loadn<4, kFull>(w + t * p.w_ss + dd, 4, o[3]);
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[q][e] = in ? o[q][e] : 0.f;
+template <int N>
+__device__ __forceinline__ void lds(const unsigned short* p, float* o) {
+  if constexpr (N == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    o[0] = __uint_as_float(q.x << 16);
+    o[1] = __uint_as_float(q.x & 0xffff0000u);
+    o[2] = __uint_as_float(q.y << 16);
+    o[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else if constexpr (N == 2) {
+    const unsigned q = *reinterpret_cast<const unsigned*>(p);
+    o[0] = __uint_as_float(q << 16);
+    o[1] = __uint_as_float(q & 0xffff0000u);
+  } else {
+    o[0] = __uint_as_float((unsigned)*p << 16);
+  }
+}
+
+// An asynchronous 16-byte copy from device memory into shared memory, past
+// L1 (.cg); the group commits and waits below.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename U>
+__device__ __forceinline__ U zero_unless(U x, bool in) { return in ? x : U(0); }
+
+// Stage steps t0 .. t0 + n of r, k, w and of v's columns j0 .. j0 + kSlice
+// into slot `st`. kFull: 16-byte cp.async copies (4 elements of fp32, 8 of
+// bf16), issued and left in flight (the caller commits them). kElem: element by element, every load
+// unconditional (an element outside the call reads element (0, 0), there
+// when S > 0, and is stored as 0), zeros past hd and past step n.
+template <int HD, typename U, Path P>
+__device__ __forceinline__ void stage_chunk(Stage<HD, U>& st, const U* r, const U* k,
+                                            const U* v, const float* w, const Params& p,
+                                            int t0, int n, int j0, int hd) {
+  constexpr int kChunk = Stage<HD, U>::kChunk;
+  const int tid = threadIdx.x;
+  if constexpr (P == kFull) {
+    constexpr int E = 16 / sizeof(U), Q = HD / E;  // r, k, v elements a copy; copies a row
+    for (int e = tid; e < n * Q; e += kLoopThreads) {
+      const int c = e / Q, d = e % Q * E;
+      const long long t = t0 + c;
+      cp_async16(&st.r[c][d], r + t * p.r_ss + d);
+      cp_async16(&st.k[c][d], k + t * p.k_ss + d);
+    }
+    for (int e = tid; e < n * (HD / 4); e += kLoopThreads) {
+      const int c = e / (HD / 4), d = e % (HD / 4) * 4;
+      cp_async16(&st.w[c][d], w + (long long)(t0 + c) * p.w_ss + d);
+    }
+    if (tid < n * (kSlice / E)) {
+      const int c = tid / (kSlice / E), d = tid % (kSlice / E) * E;
+      cp_async16(&st.v[c][d], v + (long long)(t0 + c) * p.v_ss + j0 + d);
+    }
+  } else {
+    for (int e = tid; e < kChunk * HD; e += kLoopThreads) {
+      const int c = e / HD, d = e % HD;
+      const bool in = c < n && d < hd;
+      const long long t = in ? t0 + c : 0;
+      const int dd = in ? d : 0;
+      const U rv = r[t * p.r_ss + dd], kv = k[t * p.k_ss + dd];
+      const float wv = w[t * p.w_ss + dd];
+      st.r[c][d] = zero_unless(rv, in);
+      st.k[c][d] = zero_unless(kv, in);
+      st.w[c][d] = zero_unless(wv, in);
+    }
+    for (int e = tid; e < kChunk * kSlice; e += kLoopThreads) {
+      const int c = e / kSlice, j = j0 + e % kSlice;
+      const bool in = c < n && j < hd;
+      const U vv = v[(in ? t0 + c : 0) * p.v_ss + (in ? j : 0)];
+      st.v[c][e % kSlice] = zero_unless(vv, in);
+    }
+  }
 }
 
 template <int HD, typename T, Path P, bool CKPT>
-__global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
-  constexpr int kThreads = HD * kGroups;
-  constexpr int kRows = HD / kGroups;             // state rows per thread
-  constexpr int kChunk = HD >= 128 ? 8 : 16;      // time steps per staging
-  __shared__ __align__(16) float Rs[kChunk][HD], Ks[kChunk][HD], Vs[kChunk][HD],
-      Ws[kChunk][HD];
-  __shared__ float Part[kChunk][kGroups][HD];
+__global__ void __launch_bounds__(kLoopThreads) wkv6_kernel(const Params p) {
+  constexpr int kRows = HD / kRowGroups;          // state rows per thread
+  constexpr int kChunk = kLoopChunk<HD>;
+  constexpr int kOut = kChunk * kSlice / kLoopThreads;   // y columns a thread sums
+  using U = Raw<T>;
+  __shared__ Stage<HD, U> ring[2];
+  __shared__ __align__(16) float part[kChunk][kPart];
 
   const int tid = threadIdx.x;
-  const int j = tid % HD, g = tid / HD;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int c4 = tid & 1, g = tid >> 1;           // column group, row group
   const int hd = P == kFull ? HD : p.hd, S = p.S;
-  const T* r = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int nslice = (hd + kSlice - 1) / kSlice;
+  const int bh = blockIdx.x / nslice;
+  const int b = bh / p.H, h = bh % p.H;
+  const int j0 = (blockIdx.x % nslice) * kSlice;   // the block's first column
+  const int jt = j0 + c4 * 4;                      // the thread's first of 4
+  const int i0 = g * kRows;                        // its first of kRows rows
+  const U* r = static_cast<const U*>(p.r) + b * p.r_sb + h * p.r_sh;
+  const U* k = static_cast<const U*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const U* v = static_cast<const U*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* w = p.w + b * p.w_sb + h * p.w_sh;
   float* y = p.y + b * p.y_sb + h * p.y_sh;
   const float* s0 = p.s0 + b * p.s_sb + h * p.s_sh;
 
-  float st[kRows], ur[kRows];
+  float st[kRows][4], uu[kRows];
 #pragma unroll
   for (int a = 0; a < kRows; ++a) {
-    const int i = g * kRows + a;
-    st[a] = (i < hd && j < hd) ? s0[i * p.s_si + j] : 0.f;
-    ur[a] = i < hd ? p.u[h * p.u_sh + i] : 0.f;
+    const int i = i0 + a;
+    uu[a] = i < hd ? p.u[h * p.u_sh + i] : 0.f;
+    loadn<4, P>(s0 + (i < hd ? i : 0) * p.s_si + jt, i < hd ? hd - jt : 0, st[a]);
   }
 
-  float pre[4][4];                   // kFull: the next chunk's r, k, v, w
-  if constexpr (P == kFull)
-    if (S > 0) fetch4<HD, kChunk>(r, k, v, w, p, 0, pre);
-
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    const int n = min(kChunk, S - t0);
+  const int nchunk = (S + kChunk - 1) / kChunk;
+  if constexpr (P == kFull) {
+    if (S > 0) {
+      stage_chunk<HD, U, P>(ring[0], r, k, v, w, p, 0, min(kChunk, S), j0, hd);
+      cp_async_commit();
+    }
+  }
+  for (int q = 0; q < nchunk; ++q) {
+    const int t0 = q * kChunk, n = min(kChunk, S - t0);
+    Stage<HD, U>& cur = ring[q & 1];
     if constexpr (CKPT) {            // S_{t0}, at every `every`-th step (a multiple of kChunk)
       if (t0 % p.every == 0) {
         const long long nck = (S + p.every - 1) / p.every;
         float* ck = p.ckpt + (((long long)b * p.H + h) * nck + t0 / p.every) * hd * hd;
 #pragma unroll
         for (int a = 0; a < kRows; ++a) {
-          const int i = g * kRows + a;
-          if (i < hd && j < hd) ck[i * hd + j] = st[a];
+          const int i = i0 + a;
+          if (P == kFull || i < hd) store4<P, true>(ck + i * hd + jt, hd - jt, st[a]);
         }
       }
     }
-    if constexpr (P == kFull) {
-      if (tid < kChunk * HD / 4) {
-        const int c = tid / (HD / 4), d = tid % (HD / 4) * 4;
-        float* rows[4] = {&Rs[c][d], &Ks[c][d], &Vs[c][d], &Ws[c][d]};
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          *reinterpret_cast<float4*>(rows[q]) =
-              make_float4(pre[q][0], pre[q][1], pre[q][2], pre[q][3]);
+    if constexpr (P == kFull) {      // the next chunk's copies, in flight under this one
+      if (q + 1 < nchunk) {
+        stage_chunk<HD, U, P>(ring[(q + 1) & 1], r, k, v, w, p, t0 + kChunk,
+                              min(kChunk, S - t0 - kChunk), j0, hd);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
     } else {
-      // every element loads, from element (0, 0) where it lies outside, so
-      // no load waits on a branch and all of them issue together
-#pragma unroll
-      for (int e = tid; e < kChunk * HD; e += kThreads) {
-        const int c = e / HD, d = e % HD;
-        const bool in = c < n && d < hd;
-        const long long t = in ? t0 + c : 0;
-        const int dd = in ? d : 0;
-        const float rv = ldp(r + t * p.r_ss + dd), kv = ldp(k + t * p.k_ss + dd),
-                    vv = ldp(v + t * p.v_ss + dd), wv = w[t * p.w_ss + dd];
-        Rs[c][d] = in ? rv : 0.f;
-        Ks[c][d] = in ? kv : 0.f;
-        Vs[c][d] = in ? vv : 0.f;
-        Ws[c][d] = in ? wv : 0.f;
-      }
+      stage_chunk<HD, U, P>(cur, r, k, v, w, p, t0, n, j0, hd);
     }
-    __syncthreads();                 // the chunk is staged; Part is free
-    if constexpr (P == kFull)        // in flight while this chunk is computed
-      if (t0 + kChunk < S) fetch4<HD, kChunk>(r, k, v, w, p, t0 + kChunk, pre);
-    for (int c = 0; c < n; ++c) {
-      const float vj = Vs[c][j];
-      float acc = 0.f;
+    __syncthreads();                 // the chunk is staged; part is free
+#pragma unroll 4
+    for (int c = 0; c < n; ++c) {    // one step: kRows x 4 state elements, a partial of y
+      float rr[kRows], kk[kRows], ww[kRows], vv[4];
+      lds<kRows>(&cur.r[c][i0], rr);
+      lds<kRows>(&cur.k[c][i0], kk);
+      lds<kRows>(&cur.w[c][i0], ww);
+      lds<4>(&cur.v[c][c4 * 4], vv);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int a = 0; a < kRows; ++a) {
-        const int i = g * kRows + a;
-        const float kv = Ks[c][i] * vj;
-        acc = fmaf(Rs[c][i], fmaf(ur[a], kv, st[a]), acc);
-        st[a] = fmaf(st[a], Ws[c][i], kv);
-      }
-      Part[c][g][j] = acc;
-    }
-    __syncthreads();                 // Part is complete; the stage is free
-    for (int e = tid; e < n * HD; e += kThreads) {
-      const int c = e / HD, d = e % HD;
-      if (d < hd) {
-        float sum = 0.f;
 #pragma unroll
-        for (int q = 0; q < kGroups; ++q) sum += Part[c][q][d];
-        y[(t0 + c) * p.y_ss + d] = sum;
+        for (int e = 0; e < 4; ++e) {
+          const float kv = kk[a] * vv[e];
+          acc[e] = fmaf(rr[a], fmaf(uu[a], kv, st[a][e]), acc[e]);
+          st[a][e] = fmaf(st[a][e], ww[a], kv);
+        }
+      }
+      *reinterpret_cast<float4*>(&part[c][g * kSlice + c4 * 4]) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    }
+    __syncthreads();                 // part is complete; the slot is free
+    {                                // y: kOut columns of one step a thread
+      const int c = tid / (kSlice / kOut), col = tid % (kSlice / kOut) * kOut;
+      if (c < n) {
+        float sum[kOut];
+#pragma unroll
+        for (int o = 0; o < kOut; ++o) sum[o] = 0.f;
+#pragma unroll 8
+        for (int gg = 0; gg < kRowGroups; ++gg) {   // the row groups' partials, in order
+          float x[kOut];
+          lds<kOut>(&part[c][gg * kSlice + col], x);
+#pragma unroll
+          for (int o = 0; o < kOut; ++o) sum[o] += x[o];
+        }
+#pragma unroll
+        for (int o = 0; o < kOut; ++o)
+          if (P == kFull || j0 + col + o < hd)
+            y[(long long)(t0 + c) * p.y_ss + j0 + col + o] = sum[o];
       }
     }
   }
@@ -365,8 +499,8 @@ __global__ void __launch_bounds__(HD * kGroups) wkv6_kernel(Params p) {
   float* sn = p.sn + ((long long)b * p.H + h) * hd * hd;
 #pragma unroll
   for (int a = 0; a < kRows; ++a) {
-    const int i = g * kRows + a;
-    if (i < hd && j < hd) sn[i * hd + j] = st[a];
+    const int i = i0 + a;
+    if (P == kFull || i < hd) store4<P>(sn + i * hd + jt, hd - jt, st[a]);
   }
 }
 
@@ -392,13 +526,28 @@ void launch(const Params& p, int B, cudaStream_t st) {
     const dim3 grid((unsigned)B * (unsigned)p.H * (unsigned)((p.hd + kSlice - 1) / kSlice));
     wkv6_step_kernel<HD, T, P, CKPT><<<grid, 32, 0, st>>>(p);
   } else {
-    wkv6_kernel<HD, T, P, CKPT><<<(unsigned)B * (unsigned)p.H, HD * kGroups, 0, st>>>(p);
+    const dim3 grid((unsigned)B * (unsigned)p.H * (unsigned)((p.hd + kSlice - 1) / kSlice));
+    wkv6_kernel<HD, T, P, CKPT><<<grid, kLoopThreads, 0, st>>>(p);
   }
+}
+
+// Whether r, k and v may be copied 16 bytes at a time (the time loop's kFull):
+// their bases and strides aligned to 16 bytes.
+bool rkv16(const Params& p, int elem_rkv) {
+  const long long e = 16 / elem_rkv;
+  const long long strides[] = {p.r_sb, p.r_sh, p.r_ss, p.k_sb, p.k_sh, p.k_ss,
+                               p.v_sb, p.v_sh, p.v_ss};
+  for (long long s : strides)
+    if (s % e != 0) return false;
+  const void* bases[] = {p.r, p.k, p.v};
+  for (const void* q : bases)
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  return true;
 }
 
 template <int HD, typename T, bool CKPT>
 void launch(const Params& p, int B, cudaStream_t st) {
-  if (p.hd == HD && vec4(p, (int)sizeof(T)))
+  if (p.hd == HD && vec4(p, (int)sizeof(T)) && (p.S == 1 || rkv16(p, (int)sizeof(T))))
     launch<HD, T, kFull, CKPT>(p, B, st);
   else
     launch<HD, T, kElem, CKPT>(p, B, st);
@@ -433,6 +582,17 @@ bool fill(Params& p, const void* r, const void* k, const void* v, const float* w
 }  // namespace
 
 extern "C" {
+
+// The forward's plan at (B, H, S, hd): returns the device kernels one call of
+// wkv6_launch or wkv6_train_launch launches (one: wkv6_step_kernel at S = 1,
+// wkv6_kernel otherwise) and writes to *scratch_floats the fp32 scratch the
+// call takes (none); -1 for a shape the launches refuse (a size out of
+// range, hd outside 1..kMaxHd).
+int wkv6_fwd_plan(int B, int H, int S, int hd, long long* scratch_floats) {
+  if (B <= 0 || H <= 0 || S < 0 || hd <= 0 || hd > kMaxHd) return -1;
+  *scratch_floats = 0;
+  return 1;
+}
 
 // r, k, v (bf16 if rkv_bf16, else fp32), w, y: strides of (batch, head,
 // step); u: of head; s0: of (batch, head, row); the last dimension of each

@@ -4,13 +4,20 @@ Replaces the Pallas TPU kernel ``repro/kernels/rglru.py`` (``rglru_scan`` /
 ``_rglru_kernel``): per (batch, channel), ``h_t = a_t * h_{t-1} + b_t`` from
 ``h0``, every ``h_t`` returned as ``y`` and the last as ``h_S``.
 
-``rglru_scan`` (the sequence, ``rglru_kernel``) is bound on the H100 by
-bytes, ``4·(3·B·S·D + 2·B·D)`` at 3.35 TB/s: 23 µs at a 2,560-token prefill
-(1,2560,2560). The CUDA kernel gives each channel one thread, blocks of 256
-channels over (d-block, batch), coalesced along D, and loads ``a`` and ``b``
-eight steps ahead so that only the multiply-add chain is serial. At batch 1
-and D 2,560 that is 10 blocks for 132 SMs, so a long S sits far above the
-bound (see ``PERF.md``).
+``rglru_scan`` (the sequence) is bound on the H100 by bytes,
+``4·(3·B·S·D + 2·B·D)`` at 3.35 TB/s: 23 µs at a 2,560-token prefill
+(1,2560,2560), 75 µs at the training shape (1,8192,2560). It is a chunked
+two-pass scan, one thread a channel, blocks of 128 channels over (d-block,
+chunk of 128 steps, batch), coalesced along D: ``rglru_fwd_carry_kernel``
+scans each chunk but the last from a zero state and writes its last state
+and the product of its a's (a scratch of 2·B·K·D fp32), then
+``rglru_fwd_kernel`` folds ``h0`` through the earlier chunks' pairs into
+each chunk's first state and walks the chunk's steps, each product and sum
+rounded as the plain version rounds them (``scan_plan`` gives the launches
+a call and the scratch, from the C side, which owns the chunk length). At
+S <= 128 the second pass runs alone and the result is the plain version's
+bit for bit; past one chunk the folded states round otherwise: it holds
+``RGLRU_TOL``, and two calls give the same bits. Times in ``PERF.md``.
 
 ``rglru_step`` (the decode step, ``rglru_step_kernel``) takes the step's
 whole elementwise chain in one launch, from the two fp32 GEMV outputs to
@@ -31,7 +38,9 @@ signature says; any ``D`` (no block size has to divide it), any ``S >= 0``
 A tensor on the CPU goes to the plain version (``ref.rglru_scan_ref``,
 ``ref.rglru_step_ref``), whose autograd is its gradient; a CUDA tensor
 launches the kernel or raises. ``rglru_scan.launches`` and
-``rglru_step.launches`` count kernel launches.
+``rglru_step.launches`` count calls that launch (a scan call launches
+``scan_plan``'s one or two kernels; the profiler's device windows count
+kernels).
 
 The scan's gradient on the card. Where grad is enabled and an input
 requires it, ``rglru_scan`` runs through ``RglruScanFn``: the same launch,
@@ -61,7 +70,19 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-MAX_BATCH = 65535          # the grid's y dimension (z for the backward)
+MAX_BATCH = 65535          # the grid's batch dimension (z of the scans, y of the step)
+
+
+def scan_plan(B: int, S: int, D: int):
+    """(device kernels, fp32 scratch) of one scan call at (B, S, D), as
+    ``csrc/rglru_scan.cu`` plans them (``rglru_scan_plan``; its chunk length
+    is the source's): the carry pass and the steps' pass, or the steps' pass
+    alone for one chunk. Builds the library: on the card only."""
+    n = ctypes.c_longlong()
+    kernels = build.load("rglru_scan").rglru_scan_plan(B, S, D, ctypes.addressof(n))
+    if kernels < 0:
+        raise ValueError(f"the rglru scan kernel takes no (B, S, D) = {(B, S, D)}")
+    return kernels, n.value
 
 
 def bwd_plan(B: int, S: int, D: int):
@@ -104,11 +125,15 @@ def _launch(a, b, h0):
     hn = torch.empty((B, D), dtype=torch.float32, device=a.device)
     if B * D == 0:
         return y, hn
+    # each chunk's (L, M): its last state from a zero state, and the product
+    # of its a's (none at one chunk)
+    _, floats = scan_plan(B, S, D)
+    lm = torch.empty(floats, dtype=torch.float32, device=a.device) if floats else None
     lib = build.load("rglru_scan")
     err = build.on_device(a.device, lambda stream: lib.rglru_scan_launch(
         a.data_ptr(), b.data_ptr(), h0.data_ptr(), y.data_ptr(), hn.data_ptr(),
-        B, S, D, *a.stride()[:2], *b.stride()[:2], *y.stride()[:2],
-        h0.stride(0), stream))
+        None if lm is None else lm.data_ptr(), B, S, D, *a.stride()[:2],
+        *b.stride()[:2], *y.stride()[:2], h0.stride(0), stream))
     if err != 0:
         raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
     rglru_scan.launches += 1

@@ -15,12 +15,19 @@ operations alike, about 25 µs. Two kernels behind one entry:
   lane holds 4 columns of hd/16 rows, issues every load of the call (16-byte
   ``float4`` state rows) before the first use, and sums ``y`` over rows by
   warp shuffles: no shared memory, no barrier.
-* ``S == 0`` or ``S >= 2``: ``wkv6_kernel`` gives each (batch, head) one
-  block that keeps the state in registers for the whole sequence and stages
-  ``r, k, v, w`` in shared memory 16 steps at a time (8 at hd 128), loaded
-  a chunk ahead as 4-element vectors when the views are aligned; with 32
-  blocks for 132 SMs and a dependent chain of S steps it sits far above its
-  bound at long S (see ``PERF.md``).
+* ``S == 0`` or ``S >= 2``: ``wkv6_kernel`` cuts each head's state into
+  the same 8-column slices, one block of 64 threads each (256 blocks at
+  (1,32,S,64), where one block a head would leave most of the 132 SMs
+  idle); a thread keeps 4 columns of hd/32 rows in registers for the whole
+  sequence, so one shared read of a row's ``r, k, w`` feeds 4 columns. The
+  chunk's ``r, k, w`` rows and the slice's ``v`` (16 steps, 8 at hd 128)
+  arrive a chunk ahead by ``cp.async`` into a two-slot ring in shared
+  memory when the views are aligned (element by element otherwise), and
+  ``y`` is summed over the 32 row groups once a chunk. Each state element
+  updates by one ``fmaf`` as in the step kernel, so ``s_n`` and the
+  checkpoints do not depend on the layout; its time beside the bound is in
+  ``PERF.md``. ``fwd_plan`` gives the kernels a call launches (one) and its
+  scratch (none), from the C side.
 
 ``r``, ``k`` and ``v`` may be bf16 (all three alike): the kernels read them
 as they are and upcast in registers, which is exact, so the result is the
@@ -135,6 +142,18 @@ def _launch(r, k, v, w, u, s0, train=False):
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
     return (y, sn, ckpt) if train else (y, sn)
+
+
+def fwd_plan(B: int, H: int, S: int, hd: int):
+    """(device kernels, fp32 scratch) of one call of either forward entry at
+    (B, H, S, hd), as ``csrc/wkv6.cu`` plans them (``wkv6_fwd_plan``): one
+    kernel, ``wkv6_step_kernel`` at S = 1 and ``wkv6_kernel`` otherwise, and
+    no scratch. Builds the library: on the card only."""
+    n = ctypes.c_longlong()
+    kernels = build.load("wkv6").wkv6_fwd_plan(B, H, S, hd, ctypes.addressof(n))
+    if kernels < 0:
+        raise ValueError(f"the wkv6 kernel takes no (B, H, S, hd) = {(B, H, S, hd)}")
+    return kernels, n.value
 
 
 def bwd_plan(B: int, H: int, S: int, hd: int):

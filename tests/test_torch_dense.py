@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro.configs import ALL_ARCHS as JALL_ARCHS
 from repro.configs import get_config as jget_config

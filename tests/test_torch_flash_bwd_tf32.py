@@ -27,6 +27,7 @@ held on the card (tests/test_torch_gpu.py, chip_smoke.py).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro_torch.kernels import cases, ref
 from repro_torch.kernels.flash_attention import bwd_route, bwd_tf32_blocks

@@ -21,6 +21,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro_torch.kernels import cases, ref
 from repro_torch.kernels.flash_attention import bwd_keys, bwd_route

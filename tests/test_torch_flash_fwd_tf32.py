@@ -28,6 +28,7 @@ card (tests/test_torch_gpu.py, chip_smoke.py).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro_torch.kernels import cases, ref
 from test_torch_flash_bwd_tf32 import CASES, TILE, product

@@ -18,11 +18,12 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro_torch.configs import get_config
 from repro_torch.core.kvstore import KVStore
 from repro_torch.core.policies import POLICIES
-from repro_torch.kernels import cases, ops
+from repro_torch.kernels import cases, ops, ref
 from repro_torch.launch import serve, shapes
 from repro_torch.models import moe
 from repro_torch.models import transformer as tt
@@ -42,11 +43,12 @@ FLASH_CASES = (cases.FLASH_SWEEP + cases.FLASH_RAGGED + cases.FLASH_EMPTY_BAND
 DECODE_CASES = (cases.DECODE_SWEEP + cases.DECODE_RAGGED + cases.DECODE_GRIFFIN
                 + cases.DECODE_MAIN + cases.DECODE_FLOOR + list(DENSE_DECODE.values())
                 + list(FAMILY_DECODE.values()))
-WKV6_CASES = (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_NO_TOKEN
+WKV6_CASES = (cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_SLICE + cases.WKV6_NO_TOKEN
               + cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16)
-RGLRU_CASES = (cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_NO_TOKEN
-               + cases.RGLRU_FLOOR)
-WKV6_BF16_CASES = [c for c in cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16
+RGLRU_CASES = (cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_CHUNK
+               + cases.RGLRU_NO_TOKEN + cases.RGLRU_FLOOR)
+WKV6_BF16_CASES = [c for c in cases.WKV6_SLICE + cases.WKV6_STEP + cases.WKV6_FLOOR
+                   + cases.WKV6_BF16 + list(cases.WKV6_BWD_TRAIN.values())
                    if c[7] == "bf16"]
 
 
@@ -176,6 +178,38 @@ def test_rglru_step_kernel_matches_plain(cuda, case):
     cases.check_rglru_step(case, cuda)
     torch.cuda.synchronize()
     assert (ops.rglru_step.launches, ops.rglru_scan.launches) == (n + 1, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", cases.RGLRU_CHUNK + [cases.RGLRU_BWD_TRAIN[
+    "recurrentgemma-2b"][:4]])
+def test_rglru_scan_holds_its_tolerance_and_repeats_past_a_chunk(cuda, case):
+    """Past one 128-step chunk the two-pass scan folds the earlier chunks'
+    states: within RGLRU_TOL of the plain version, two calls the same
+    bits; at one chunk, the plain version's bits."""
+    cases.check_rglru(case, cuda)
+    cases.check_rglru_repeat(case, cuda)
+    if case[1] <= 128:
+        inputs = cases.rglru_inputs(case, cuda)
+        for got, want in zip(ops.rglru_scan(*inputs), ref.rglru_scan_ref(*inputs)):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_plans_count_the_device_kernels_and_scratch(cuda):
+    """``rglru.scan_plan`` and ``wkv6.fwd_plan``, asked of the C side: the
+    carry pass only past one chunk, its scratch 2·B·K·D floats; wkv6 one
+    kernel and no scratch; refusals as -1 → ValueError."""
+    from repro_torch.kernels import rglru, wkv6
+    assert rglru.scan_plan(1, 128, 2560) == (1, 0)
+    assert rglru.scan_plan(1, 129, 2560) == (2, 2 * 1 * 2 * 2560)
+    assert rglru.scan_plan(3, 8192, 77) == (2, 2 * 3 * 64 * 77)
+    assert rglru.scan_plan(1, 0, 64) == (1, 0)
+    assert wkv6.fwd_plan(1, 32, 4096, 64) == wkv6.fwd_plan(1, 32, 1, 64) == (1, 0)
+    with pytest.raises(ValueError):
+        rglru.scan_plan(65536, 2, 8)
+    with pytest.raises(ValueError):
+        wkv6.fwd_plan(1, 1, 2, 129)
 
 
 @pytest.mark.gpu

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro.configs import get_config as jget_config
 from repro.core.kvstore import KVStore as JKVStore
@@ -118,7 +119,7 @@ def _close_tree(jtree, ttree, atol):
 # 1-3. the recurrence
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("case", cases.RGLRU_SWEEP + cases.RGLRU_EDGE)
+@pytest.mark.parametrize("case", cases.RGLRU_SWEEP + cases.RGLRU_EDGE + cases.RGLRU_CHUNK)
 def test_rglru_matches_pallas_and_reference(case):
     """The port's rglru_scan (its plain version here) against the Pallas
     kernel in interpret mode and against ``repro.kernels.ref.rglru_scan_ref``,

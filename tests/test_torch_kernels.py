@@ -9,6 +9,7 @@ versions on the card by tests/test_torch_gpu.py and chip_smoke.py, through
 the same case tables (``repro_torch.kernels.cases``).
 """
 import ast
+import os
 import re
 from pathlib import Path
 
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -504,6 +506,20 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+
+
+def test_each_xdist_worker_takes_its_share_of_the_cores():
+    """tests/torch_threads.py, imported by every port test file, sets
+    PyTorch's intra-op threads to the host's cores over pytest-xdist's
+    workers (all of them without xdist), so the workers do not oversubscribe
+    the host."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch_threads.WORKERS == workers
+    assert torch.get_num_threads() == torch_threads.THREADS == max(
+        1, torch_threads.cores() // workers)
+    tests = Path(__file__).resolve().parent
+    for f in sorted(tests.glob("test_torch_*.py")):
+        assert "\nimport torch_threads" in f.read_text(), f.name
 
 
 def test_port_imports_neither_jax_nor_reference():

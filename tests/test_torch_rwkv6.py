@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro.configs import get_config as jget_config
 from repro.core.kvstore import KVStore as JKVStore
@@ -90,7 +91,7 @@ def _layer0(jp, tp, name):
 # 1-2. the recurrence
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("case", cases.WKV6_SWEEP + cases.WKV6_EDGE)
+@pytest.mark.parametrize("case", cases.WKV6_SWEEP + cases.WKV6_EDGE + cases.WKV6_SLICE)
 def test_wkv6_matches_pallas_and_reference(case):
     """The port's wkv6 (its plain version here) against the Pallas kernel in
     interpret mode and against ``repro.kernels.ref.wkv6_ref``, on y and
@@ -133,7 +134,8 @@ def test_wkv6_matches_chunked_scan(B, S, H, hd, chunk, decay_lo, decay_hi):
     _close(js, sn, KERNEL_TOL)
 
 
-@pytest.mark.parametrize("case", cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16)
+@pytest.mark.parametrize("case", cases.WKV6_STEP + cases.WKV6_FLOOR + cases.WKV6_BF16
+                         + [c for c in cases.WKV6_SLICE if c[7] == "bf16"])
 def test_wkv6_bf16_rkv_is_the_fp32_call_on_upcast_values(case):
     """bf16 r, k, v (the model's activations, passed without a cast) give
     the fp32 call on the upcast values bit for bit, and match the Pallas

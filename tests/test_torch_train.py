@@ -8,6 +8,7 @@ import collections
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.kernels import cases, ops

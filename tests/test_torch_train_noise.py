@@ -33,6 +33,7 @@ import subprocess
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import cases, ref

@@ -26,6 +26,7 @@ import msgpack
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (each xdist worker's share of the cores)
 
 from repro.configs import get_config as jget_config
 from repro.kernels import ref as jref
