@@ -314,7 +314,24 @@
    fp32, as step 19: an rwkv6-1.6b time-mix at 4,096 tokens
    (``ops.wkv6`` swapped for ``ref.wkv6_ref``) and a Griffin recurrent
    block at 8,192 (``ops.rglru_scan`` for ``ref.rglru_scan_ref``).
-25. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
+25. GreenCache profile and solve: the simulator's profile-and-solve path
+   (host NumPy code, no kernel: every kernel's count must stay 0) at
+   ``repro/launch/serve.py``'s paper settings. ``run_profiler`` measures
+   the simulated llama3-70b (``SERVING_MODELS``) serving chat and
+   documents (Zipf 0.4) at rates 0.2-1.6 req/s, caches of 0-16 TB, warm-up
+   12,000 prompts; ``solve_cache_schedule`` sizes the cache for the 24
+   hours of ``azure_rate_trace(1.6, seed=3)`` and ``ci_trace("FR",
+   seed=4)`` against the task's ``SLOS`` entry with the exact DP
+   (``solver=dp``, as the reference's wherever ``pulp`` is absent). It
+   fails unless (a) the vectorised ``_solve_dp`` equals the loop
+   ``_solve_dp_reference`` bit for bit on the day's tables, exhaustive and
+   pruned, (b) every chosen size is on the grid, (c) a feasible schedule
+   meets sum n F >= rho sum n - sum n / 400 (the DP's bucket), (d) every
+   size-0 cell has a hit rate of 0, and (e) the cell (1.0, 8 TB) profiled
+   again gives the same bits. It logs the hourly sizes, the objective,
+   hit rate and SLO share at 0, 4 and 16 TB at rate 1.0, and each
+   profile's and solve's wall time on the host beside the card line.
+26. Prints a ``kernels`` JSON line (every kernel's entry; decode's with
    ``library_device_ms`` and ``library_premasked_device_ms``; decode's,
    wkv6's, the rglru kernels' and the two recurrent backwards' with
    ``device_ms``; the fused step's with ``plain_device_ms``), the card
@@ -2074,6 +2091,97 @@ def check_recurrence_calls(arch, cfg, calls, steps):
                              f"launches, want {want} and 0")
 
 
+# step 25, GreenCache's profile-and-solve path at repro/launch/serve.py's
+# paper settings (its defaults: llama3-70b, a one-l40 plan, FR)
+GC_MODEL = "llama3-70b"
+GC_RATES = (0.2, 0.6, 1.0, 1.3, 1.6)      # req/s per server
+GC_SIZES_TB = (0, 1, 2, 4, 8, 12, 16)
+GC_WARMUP = 12000                         # prompts before each cell's window
+GC_ZIPF = 0.4                             # the document task's skew
+GC_GRID = "FR"
+GC_CELL = (1.0, 8)                        # profiled twice: the same bits
+GC_SHOWN_TB = (0, 4, 16)                  # hit rate and SLO share logged at GC_CELL's rate
+DP_BUCKETS = 400                          # the DP's satisfied-request buckets
+
+
+def greencache_phase(card, rates=GC_RATES, sizes_tb=GC_SIZES_TB, warmup=GC_WARMUP):
+    """Step 25: profile both tasks and solve their 24-hour schedules; checks
+    (a)-(e) raise. Returns each task's hourly sizes, solver, objective,
+    feasibility and wall times."""
+    import repro_torch.core.solver as solver
+    from repro_torch.core.carbon import CarbonModel
+    from repro_torch.core.profiler import run_profiler
+    from repro_torch.serving.perfmodel import SERVING_MODELS, SLOS
+    from repro_torch.workloads import (ConversationWorkload, DocumentWorkload,
+                                       azure_rate_trace, ci_trace)
+
+    model, carbon = SERVING_MODELS[GC_MODEL], CarbonModel()
+    tasks = {"conversation": ("chat", lambda s: ConversationWorkload(seed=s)),
+             "document": ("doc", lambda s: DocumentWorkload(seed=s, zipf_alpha=GC_ZIPF))}
+    day_rates = [float(r) for r in azure_rate_trace(rates[-1], seed=3)]
+    day_cis = [float(c) for c in ci_trace(GC_GRID, seed=4)]
+    sizes = list(sizes_tb)
+    out = {}
+    for task, (kind, factory) in tasks.items():
+        t0 = time.perf_counter()
+        prof = run_profiler(model, task, factory, carbon, rates=list(rates), sizes_tb=sizes,
+                            warmup_prompts=warmup)
+        profile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = solver.solve_cache_schedule(prof, day_rates, day_cis, SLOS[(GC_MODEL, kind)],
+                                          carbon)
+        solve_s = time.perf_counter() - t0
+        ed = res.explain_data
+        C, Fr, n, rho = ed["C"], ed["F"], ed["n"], ed["rho"]
+        # (a) the vectorised DP is its loop twin, bit for bit
+        fields = ("sizes_tb", "objective_g", "feasible", "solver")
+        loop = solver._solve_dp_reference(C, Fr, n, sizes, rho, 0.0, buckets=DP_BUCKETS)
+        for prune in (False, True):
+            vec = solver._solve_dp(C, Fr, n, sizes, rho, 0.0, buckets=DP_BUCKETS, prune=prune)
+            if any(getattr(vec, f) != getattr(loop, f) for f in fields):
+                raise AssertionError(f"GreenCache {task}: _solve_dp (prune={prune}) "
+                                     f"{vec} != _solve_dp_reference {loop}")
+        if res.solver == "dp" and any(getattr(res, f) != getattr(loop, f) for f in fields):
+            raise AssertionError(f"GreenCache {task}: the solve {res} is not the DP's {loop}")
+        # (b) every chosen size on the grid, one an hour
+        if len(res.sizes_tb) != len(day_rates) or any(s not in sizes for s in res.sizes_tb):
+            raise AssertionError(f"GreenCache {task}: sizes {res.sizes_tb} off the grid {sizes}")
+        # (c) the SLO constraint, to the DP's bucket
+        choice = [sizes.index(s) for s in res.sizes_tb]
+        met = float(sum(n[t] * Fr[t, c] for t, c in enumerate(choice)))
+        need = rho * float(n.sum()) - float(n.sum()) / DP_BUCKETS
+        if res.feasible and met < need:
+            raise AssertionError(f"GreenCache {task}: sum n F = {met} < {need}")
+        # (d) no hit without a cache
+        zero = {r: prof.cells[(r, 0)].hit_rate for r in rates} if 0 in sizes else {}
+        if any(h != 0.0 for h in zero.values()):
+            raise AssertionError(f"GreenCache {task}: size-0 hit rates {zero}")
+        # (e) one cell profiled again: the same bits
+        t0 = time.perf_counter()
+        again = run_profiler(model, task, factory, carbon, rates=[GC_CELL[0]],
+                             sizes_tb=[GC_CELL[1]], warmup_prompts=warmup).cells[GC_CELL]
+        cell_s = time.perf_counter() - t0
+        if dataclasses.asdict(again) != dataclasses.asdict(prof.cells[GC_CELL]):
+            raise AssertionError(f"GreenCache {task}: cell {GC_CELL} profiled again "
+                                 f"{again} != {prof.cells[GC_CELL]}")
+        log(f"GreenCache {task} ({GC_MODEL}, {GC_GRID}): profile of {len(prof.cells)} cells "
+            f"{profile_s:.3f} s, 24-hour solve {solve_s * 1e3:.3f} ms, cell {GC_CELL} again "
+            f"{cell_s:.3f} s, host wall time (card: {card})")
+        log(f"  hourly sizes, TB: {res.sizes_tb}")
+        log(f"  solver={res.solver} objective={res.objective_g!r} g feasible={res.feasible}; "
+            f"sum n F = {met!r} {'>=' if met >= need else '<'} rho sum n - sum n / "
+            f"{DP_BUCKETS} = {need!r}; "
+            f"_solve_dp == _solve_dp_reference, exhaustive and pruned")
+        rate = GC_CELL[0]
+        log(f"  rate {rate}: " + "; ".join(
+            f"{s} TB hit rate {prof.cells[(rate, s)].hit_rate!r} SLO share "
+            f"{prof.cells[(rate, s)].slo_frac!r}" for s in GC_SHOWN_TB if s in sizes))
+        out[task] = {"sizes_tb": res.sizes_tb, "solver": res.solver,
+                     "objective_g": res.objective_g, "feasible": res.feasible,
+                     "profile_s": profile_s, "solve_ms": solve_s * 1e3}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2209,6 +2317,12 @@ def main():
         t0 = time.perf_counter()
         layer_grad_phase(ops, ref, tt, get_config(arch))
         log(f"{arch} one-layer gradient phase: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    zero_counts(ops)
+    greencache_phase(card_line())
+    if any(read_counts(ops).values()):
+        raise AssertionError(f"the simulator launched kernels: {read_counts(ops)}")
+    log(f"GreenCache profile and solve: {time.perf_counter() - t0:.3f} s")
     log(f"launches by path: {by_path}")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
 

@@ -1,9 +1,10 @@
 """Model architecture config (copy of ``repro.configs.base.ModelConfig``).
 
-Every field the model code of the reference reads is kept
-(``tie_embeddings`` is read by none of it and is left out); ``reduced()``
-produces the same smoke-test variant as the reference so that tests can
-build matching configs on both sides.
+Every field of the reference is kept, ``tie_embeddings`` too (no model
+code reads it; ``param_count`` and ``active_param_count``, which the
+simulator's ``serving.perfmodel`` reads, do); ``reduced()`` produces the
+same smoke-test variant as the reference so that tests can build matching
+configs on both sides.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ class ModelConfig:
     vision_tokens: int = 0                  # prefix patch-embedding tokens (stub)
 
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False
     source: str = ""                        # citation
 
     # ---- derived ----
@@ -85,6 +87,42 @@ class ModelConfig:
         if self.attn_free:
             return 0
         return self.num_layers * self.num_kv_heads * self.head_dim * 2 * 2
+
+    @property
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, L = self.d_model, self.num_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            # tmix ~ 5 d^2 (+ low-rank extras), cmix ~ 2*d*d_ff-ish
+            blk = 5 * d * d + 2 * d * self.d_ff
+            return emb + L * blk
+        attn = d * self.num_heads * self.head_dim * 2 + \
+            d * self.num_kv_heads * self.head_dim * 2
+        mlp = d * self.d_ff * (3 if self.gated_mlp else 2)
+        if self.family == "moe":
+            mlp = mlp * self.num_experts + d * self.num_experts
+        blk = attn + mlp
+        if self.family == "hybrid":
+            # 2/3 of layers are RG-LRU blocks (~4 d*rnn) instead of attention
+            rec = 4 * d * self.rnn_width
+            blk = (attn + mlp + 2 * (rec + mlp)) / 3.0
+        total = emb + L * blk
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn * 1.5 + mlp)  # self+cross attn
+        return int(total)
+
+    @property
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.param_count
+        d, L = self.d_model, self.num_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.num_heads * self.head_dim * 2 + \
+            d * self.num_kv_heads * self.head_dim * 2
+        mlp = d * self.d_ff * (3 if self.gated_mlp else 2) * self.experts_per_token
+        return int(emb + L * (attn + mlp + d * self.num_experts))
 
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 max_experts: int = 4) -> "ModelConfig":
